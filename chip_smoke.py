@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (``rlinf_tpu_torch``) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (``rlinf_tpu_torch``) on one GPU:
+the rollout serving path and the GRPO training path.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -27,6 +28,22 @@ Phases, each printing one JSON line:
    the small configuration of the JAX package's check_q8_generate, with
    its bar (agreement > 0.95, logprob error < 0.15). Then a profile of a
    few decode steps.
+
+5. training kernels: K5/K6 (fused linear cross-entropy) at one row chunk
+   of the training path (4096 rows, tied [V, D] embedding, non-zero
+   entropy gradient) and K7/K8 (flash-attention backward) at one
+   microbatch of the training batch (16 right-padded rows, T=768), each
+   against its plain version with a stated tolerance and timed beside its
+   bound, its plain version and a library call.
+6. training path: GRPO on phase 3's rollout (64 rows as 8 groups of 8,
+   a stated reward rule on the token ids), ``build_train_batch`` (T=768),
+   ``make_logprob_fn`` (recompute), then two ``make_policy_train_step``
+   calls at full width and depth (remat, attn_impl="pallas", 4
+   microbatches, adamw with master weights, entropy bonus 1e-3). Gates:
+   every training kernel launched, finite loss and grad norm, step-1
+   |approx_kl| < 1e-3, params moved. A third step runs under the profiler.
+7. whole-step check: one train step at check_q8_generate's configuration,
+   kernels against the plain path from the same params.
 
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures, and ``{"ok": true, "device": ...}``.
@@ -280,6 +297,148 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def check_training_kernels(cfg, attention_mask, peaks, seed):
+    """K5/K6 at one row chunk of the training path (4096 rows, the tied
+    [V, D] embedding) and K7/K8 at one microbatch (the training batch's
+    first 16 rows, right-padded, T=768)."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    H, Kv, Hd, D, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.hidden_size, cfg.vocab_size
+    G = H // Kv
+    results = []
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    # --- K5: fused linear-CE forward ----------------------------------------
+    n = 4096
+    h, w = randn(n, D), randn(V, D, scale=0.02)
+    tgt = torch.randint(0, V, (n,), generator=g, device=dev, dtype=torch.int32)
+    lp, ent, lse = LCE.ce_forward(h, w, tgt, 1.0, "vd")
+    ref = LCE.ce_forward_plain(h, w, tgt, 1.0, "vd")
+    torch.cuda.synchronize()
+    errs = [(a - b).abs().max().item() for a, b in zip((lp, ent, lse), ref)]
+    del ref
+    ms = cuda_ms(lambda: LCE.ce_forward(h, w, tgt, 1.0, "vd"), 3, warmup=1)
+    plain_ms = cuda_ms(lambda: LCE.ce_forward_plain(h, w, tgt, 1.0, "vd"), 2, warmup=1)
+    hl, wl = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+
+    def library():
+        logp = torch.log_softmax((hl @ wl.t()).float(), -1)
+        return logp.gather(1, tgt.long()[:, None])[:, 0], -(logp.exp() * logp).sum(-1)
+
+    with torch.no_grad():
+        lib_ms = cuda_ms(library, 3, warmup=1)
+    b_ms, b_by = bound(nbytes(h, w, tgt, lp, ent, lse), 2.0 * n * D * V, peaks)
+    results.append(dict(
+        name="linear_ce_fwd", route="cuda", source="rlinf_tpu_torch/csrc/linear_ce.cu",
+        replaces="rlinf_tpu/ops/pallas/linear_ce.py:234",
+        shapes=f"h[{n},{D}] bf16 w[{V},{D}] bf16 (vd) targets int32",
+        max_abs_err=max(errs), lp_ent_lse_err=errs, tolerance=2e-3,
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="matmul(bf16) + log_softmax + gather/entropy", bound_ms=b_ms, bound_by=b_by))
+    if not max(errs) < 2e-3:
+        raise AssertionError(f"K5 disagrees with its plain version: {errs}")
+
+    # --- K6: fused linear-CE backward (non-zero entropy gradient) -----------
+    g_lp, g_ent = randn(n, dtype=torch.float32), randn(n, scale=0.1, dtype=torch.float32)
+    mu = lse - ent
+    dz, dh = LCE.ce_backward(h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd")
+    dz_r, dh_r = LCE.ce_backward_plain(h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd")
+    dw = LCE.weight_grad(h, dz, "vd", V, w.dtype)
+    dw_r = LCE.weight_grad(h, dz_r, "vd", V, w.dtype)
+    torch.cuda.synchronize()
+    k6 = {"dz": rel_err(dz, dz_r), "dh": rel_err(dh, dh_r), "dw": rel_err(dw, dw_r)}
+    dh_abs = (dh.float() - dh_r.float()).abs().max().item()
+    del dz_r, dh_r, dw, dw_r
+    ms = cuda_ms(lambda: LCE.ce_backward(h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd"), 3, warmup=1)
+    plain_ms = cuda_ms(lambda: LCE.ce_backward_plain(
+        h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd"), 2, warmup=1)
+    lpv, entv = library()
+    loss = (lpv * g_lp + entv * g_ent).sum()
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(loss, (hl,), retain_graph=True), 3, warmup=1)
+    del lpv, entv, loss, hl, wl
+    b_ms, b_by = bound(nbytes(h, w, tgt, lse, mu, g_lp, g_ent, dz, dh), 4.0 * n * D * V, peaks)
+    results.append(dict(
+        name="linear_ce_bwd", route="cuda", source="rlinf_tpu_torch/csrc/linear_ce.cu",
+        replaces="rlinf_tpu/ops/pallas/linear_ce.py:283",
+        shapes=f"as K5, dz[{n},{dz.shape[1]}] bf16 out",
+        max_abs_err=dh_abs, rel_err=k6, tolerance_rel=1e-2,
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="autograd backward of the K5 library call, d/dh", bound_ms=b_ms, bound_by=b_by))
+    if not max(k6.values()) < 1e-2:
+        raise AssertionError(f"K6 disagrees with its plain version: {k6}")
+    del h, w, tgt, lp, ent, lse, dz, dh, mu
+    torch.cuda.empty_cache()
+
+    # --- K7 / K8: flash-attention backward at one microbatch ----------------
+    valid = torch.as_tensor(attention_mask, device=dev)
+    B, T = valid.shape
+    pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
+    valid_u8 = valid.to(torch.uint8)
+    q, k, v, do = randn(B, T, H, Hd), randn(B, T, Kv, Hd), randn(B, T, Kv, Hd), randn(B, T, H, Hd)
+    scale = Hd**-0.5
+    o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, valid_u8, scale)
+    got = FA.flash_attention_bwd(q, k, v, pos, pos, valid_u8, o, lse, do, scale)
+    want = FA.flash_attention_bwd_plain(q, k, v, pos, pos, valid_u8, o, lse, do, scale)
+    torch.cuda.synchronize()
+    errs = {nm: rel_err(a, b) for nm, a, b in zip(("dq", "dk", "dv"), got, want)}
+    abs_errs = {nm: (a.float() - b.float()).abs().max().item()
+                for nm, a, b in zip(("dq", "dk", "dv"), got, want)}
+    dq, dk, dv = got
+    del want
+    delta = FA._delta(o, do)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), pos.data_ptr(),
+              valid_u8.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+
+    def dims():
+        return (B, T, T, H, Kv, Hd, float(scale), torch.cuda.current_stream().cuda_stream)
+
+    ms_dq = cuda_ms(lambda: FA.KERNEL_DQ(0, *common, dq.data_ptr(), *dims()), 5)
+    ms_dkv = cuda_ms(lambda: FA.KERNEL_DKV(0, *common, dk.data_ptr(), dv.data_ptr(), *dims()), 5)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(
+        q, k, v, pos, pos, valid_u8, o, lse, do, scale), 2, warmup=1)
+    mask = (pos[:, None, :] <= pos[:, :, None]) & valid[:, None, :]
+    ql = q.transpose(1, 2).detach().requires_grad_(True)
+    kl_ = k.detach().requires_grad_(True)
+    vl = v.detach().requires_grad_(True)
+    ol = torch.nn.functional.scaled_dot_product_attention(
+        ql, kl_.repeat_interleave(G, 2).transpose(1, 2), vl.repeat_interleave(G, 2).transpose(1, 2),
+        attn_mask=mask[:, None])
+    do_t = do.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl_, vl), do_t, retain_graph=True), 5)
+    pairs = int(mask.sum().item())
+    ins = nbytes(q, k, v, do, pos, pos, valid_u8, lse, delta)
+    for name, site, out_bytes, products, ms_k in (
+            ("flash_attention_bwd_dq", 311, nbytes(dq), 3, ms_dq),
+            ("flash_attention_bwd_dkv", 342, nbytes(dk, dv), 4, ms_dkv)):
+        b_ms, b_by = bound(ins + out_bytes, 2.0 * products * Hd * H * pairs, peaks)
+        results.append(dict(
+            name=name, route="cuda", source="rlinf_tpu_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"rlinf_tpu/ops/pallas/flash_attention.py:{site}",
+            shapes=f"q/do[{B},{T},{H},{Hd}] k/v[{B},{T},{Kv},{Hd}] bf16, right-padded rows",
+            max_abs_err=max(abs_errs.values()), rel_err=errs, tolerance_rel=2e-2,
+            ms=ms_k, plain_ms=plain_ms, plain="dq, dk and dv together", library_ms=lib_ms,
+            library="autograd backward of scaled_dot_product_attention (dq, dk, dv)",
+            bound_ms=b_ms, bound_by=b_by))
+    if not max(errs.values()) < 2e-2:
+        raise AssertionError(f"K7/K8 disagree with their plain version: {errs}")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
 
@@ -301,9 +460,10 @@ def _kernel_sites():
 
 
 @contextlib.contextmanager
-def kernels_replaced(make):
-    """Replace each kernel wrapper of the path by ``make(name, kernel, plain)``."""
-    sites = _kernel_sites()
+def kernels_replaced(make, sites=None):
+    """Replace each kernel wrapper of the path (the serving path's unless
+    ``sites`` names others) by ``make(name, kernel, plain)``."""
+    sites = _kernel_sites() if sites is None else sites
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _, _ in sites]
     for mod, attr, name, plain in sites:
         setattr(mod, attr, make(name, getattr(mod, attr), plain))
@@ -412,6 +572,202 @@ def free_running_check(kerns, seed) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the training path
+# ---------------------------------------------------------------------------
+
+def _training_sites():
+    """(module, attribute, kernel name, plain version) of every kernel
+    wrapper that the training path's autograd Functions call."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
+
+    return [(FA, "flash_attention_fwd", "flash_attention_fwd", FA.flash_attention_fwd_plain),
+            (FA, "flash_attention_bwd", "flash_attention_bwd", FA.flash_attention_bwd_plain),
+            (LCE, "ce_forward", "linear_ce_fwd", LCE.ce_forward_plain),
+            (LCE, "ce_backward", "linear_ce_bwd", LCE.ce_backward_plain)]
+
+
+TRAIN_KERNELS = ("flash_attention_fwd", "linear_ce_fwd", "linear_ce_bwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+
+def reward_rule(response_ids, response_mask):
+    """The rule rewards of this smoke run: 1.0 where more than half of a
+    response's tokens have an even id, else 0.0 (the math verifier and the
+    tokenizer come with the runner)."""
+    even = ((response_ids % 2 == 0) & response_mask).sum(-1)
+    return (even * 2 > response_mask.sum(-1)).astype(np.float32)
+
+
+def training_path(cfg, params, rollout, kerns, gpu, seed):
+    """GRPO on the serving phase's rollout: rule rewards, GRPO advantages
+    over 8 groups of 8, build_train_batch, the logprob recompute, then two
+    train steps (remat, attn_impl="pallas", 4 microbatches, adamw with
+    master weights, entropy bonus 1e-3) through the public entry points."""
+    from rlinf_tpu_torch.algorithms import get_advantage_fn
+    from rlinf_tpu_torch.config import (
+        AlgorithmConfig, RunnerConfig, TrainerConfig, validate_config,
+    )
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+    from rlinf_tpu_torch.training.learner import (
+        PolicyLossConfig, make_logprob_fn, make_policy_train_step,
+    )
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig, TrainState, make_optimizer
+
+    tcfg = TrainerConfig(
+        model=cfg, attn_impl="pallas", remat=True, num_microbatches=4,
+        optimizer=OptimizerConfig(name="adamw", lr=1e-6, master_weights=True),
+        loss=PolicyLossConfig(entropy_bonus=1e-3),
+        algorithm=AlgorithmConfig(adv_type="grpo", group_size=8),
+        runner=RunnerConfig(rollout_batch_size=8))
+    validate_config(tcfg)
+    G = tcfg.algorithm.group_size
+    rewards = reward_rule(rollout.response_ids, rollout.response_mask)
+    adv, _ = get_advantage_fn(tcfg.algorithm.adv_type)(
+        rewards=torch.as_tensor(rewards), loss_mask=torch.as_tensor(rollout.response_mask.T),
+        group_size=G)
+    batch = build_train_batch(rollout, adv.T.numpy(), pad_id=0, seq_bucket=128)
+    B, T = batch.input_ids.shape
+    tokens = int(batch.attention_mask.sum())
+
+    tx = make_optimizer(tcfg.optimizer)
+    logprob_fn = make_logprob_fn(cfg, chunk_size=tcfg.loss.logprob_chunk_size,
+                                 attn_impl=tcfg.attn_impl, device="cuda")
+    step_fn = make_policy_train_step(cfg, tcfg.loss, tx, num_microbatches=tcfg.num_microbatches,
+                                     remat=tcfg.remat, attn_impl=tcfg.attn_impl, device="cuda")
+    watch = {k: params["blocks"][k][0].flatten()[:4096].clone() for k in ("wq", "down")}
+    watch["embed"] = params["embed"][:64].clone()
+    torch.cuda.reset_peak_memory_stats()
+    times, metrics = {}, []
+
+    def run():
+        t0 = time.perf_counter()
+        lp, _ = logprob_fn(params, batch.to_dict())
+        torch.cuda.synchronize()
+        times["recompute_s"] = time.perf_counter() - t0
+        lp = lp.cpu().numpy()
+        times["recompute_vs_rollout_lp"] = {
+            "max_abs": float(np.abs(lp - batch.old_logprobs)[batch.loss_mask].max()),
+            "mean_abs": float(np.abs(lp - batch.old_logprobs)[batch.loss_mask].mean())}
+        batch.old_logprobs = np.where(batch.loss_mask, lp, 0.0).astype(np.float32)
+        state = TrainState(0, params, tx.init(params))
+        for i in (1, 2):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch.to_dict())
+            torch.cuda.synchronize()
+            times[f"step{i}_s"] = time.perf_counter() - t0
+            metrics.append({k: float(v) for k, v in m.items()})
+            if i == 1:
+                times["moved_after_step1"] = {
+                    k: bool((w != (params["embed"][:64] if k == "embed" else
+                                   params["blocks"][k][0].flatten()[:4096])).any())
+                    for k, w in watch.items()}
+        return state
+
+    state, secs, counts = run_counted(kerns, run)
+    out = {"phase": "training", "gpu": gpu, "model": "qwen2_1_5b", "layers": cfg.num_layers,
+           "batch": B, "seq_len": T, "train_tokens": tokens, "num_microbatches": 4,
+           "rewards_mean": float(rewards.mean()), "seconds": secs, **times,
+           "train_tokens_per_s": tokens / times["step2_s"],
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "metrics": metrics, "launches": counts}
+    emit(out)
+    missing = [k for k in TRAIN_KERNELS if not counts[k]]
+    bad = [k for m in metrics for k in ("actor/loss", "actor/grad_norm")
+           if not np.isfinite(m[k])]
+    if missing:
+        raise AssertionError(f"training path did not launch {missing}: {counts}")
+    if bad:
+        raise AssertionError(f"non-finite training metrics: {bad}")
+    if not abs(metrics[0]["actor/approx_kl"]) < 1e-3:
+        raise AssertionError(f"step-1 approx_kl {metrics[0]['actor/approx_kl']} >= 1e-3")
+    if not all(times["moved_after_step1"].values()):
+        raise AssertionError(f"params did not move in step 1: {times['moved_after_step1']}")
+    return state, batch, step_fn, counts
+
+
+def profile_train_step(state, batch, step_fn, top: int = 12) -> dict:
+    """Device time by kernel over one more train step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step_fn(state, batch.to_dict())
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_time_total > 0 and e.key != "Command Buffer Full"]
+    events.sort(key=lambda e: e.device_time_total, reverse=True)
+    busy = sum(e.device_time_total for e in events) / 1e3
+    return {"phase": "train_profile", "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
+            "by_kernel_ms": {e.key[:60]: e.device_time_total / 1e3 for e in events[:top]},
+            "by_kernel_calls": {e.key[:60]: e.count for e in events[:top]}}
+
+
+def whole_step_check(kerns, seed) -> dict:
+    """One make_policy_train_step at the configuration of the JAX package's
+    check_q8_generate (2 layers, D=256, V=512, bf16), kernels against the
+    plain path from the same params and batch. Bar: loss and grad norm
+    within 1e-2 relative; over all parameters together, the master-weight
+    update within 5e-2 of its norm and the bf16 params within 1e-2 of
+    theirs. Adam's eps is 1e-3 here: its first step is g / (|g| + eps), and
+    with eps = 1e-8 a gradient that is rounding noise on both paths (the k
+    bias's is exactly zero in exact arithmetic) moves by +-lr either way."""
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.training.learner import PolicyLossConfig, make_policy_train_step
+    from rlinf_tpu_torch.training.train_state import (
+        OptimizerConfig, TrainState, make_optimizer, tree_leaves,
+    )
+
+    cfg = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                    num_kv_heads=2, head_dim=64, intermediate_size=512, max_seq_len=256)
+    r = np.random.default_rng(seed + 7)
+    B, T = 8, 128
+    lens = r.integers(T // 2, T + 1, B)
+    attn = np.arange(T)[None, :] < lens[:, None]
+    loss_mask = attn & (np.arange(T)[None, :] >= 32)
+    batch = {"input_ids": r.integers(0, cfg.vocab_size, (B, T)).astype(np.int32),
+             "target_ids": r.integers(0, cfg.vocab_size, (B, T)).astype(np.int32),
+             "attention_mask": attn, "loss_mask": loss_mask,
+             "old_logprobs": np.where(loss_mask, -np.log(cfg.vocab_size), 0).astype(np.float32),
+             "advantages": (r.normal(size=(B, T)) * loss_mask).astype(np.float32)}
+    runs = {}
+    for mode in ("kernels", "plain"):
+        params = M.init_params(cfg, seed, device="cuda")
+        p0 = [p.float().clone() for p in tree_leaves(params)]
+        tx = make_optimizer(OptimizerConfig(lr=1e-4, eps=1e-3, master_weights=True))
+        step = make_policy_train_step(cfg, PolicyLossConfig(entropy_bonus=1e-3), tx,
+                                      num_microbatches=2, remat=True, attn_impl="pallas",
+                                      device="cuda")
+        with (kernels_replaced(plain_only, _training_sites()) if mode == "plain"
+              else contextlib.nullcontext()):
+            (state, m), _, counts = run_counted(
+                kerns, lambda: step(TrainState(0, params, tx.init(params)), batch))
+        ran = [k for k in TRAIN_KERNELS if counts[k]]
+        if ran != (list(TRAIN_KERNELS) if mode == "kernels" else []):
+            raise AssertionError(f"whole-step check, {mode} run launched {counts}")
+        runs[mode] = (state, m, p0)
+    (ks, km, p0), (ps, pm, _) = runs["kernels"], runs["plain"]
+    rel = lambda a, b: abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    flat = lambda ts: torch.cat([t.float().flatten() for t in ts])
+    km_, pm_ = (flat(tree_leaves(x)) for x in (ks.opt_state["master"], ps.opt_state["master"]))
+    z = flat(p0)
+    upd = (torch.linalg.vector_norm(km_ - pm_) / torch.linalg.vector_norm(pm_ - z)).item()
+    kp, pp = flat(tree_leaves(ks.params)), flat(tree_leaves(ps.params))
+    par = (torch.linalg.vector_norm(kp - pp) / torch.linalg.vector_norm(pp)).item()
+    out = {"loss_rel": rel(km["actor/loss"], pm["actor/loss"]),
+           "grad_norm_rel": rel(km["actor/grad_norm"], pm["actor/grad_norm"]),
+           "master_update_rel": upd, "params_rel": par,
+           "loss": float(km["actor/loss"]), "grad_norm": float(km["actor/grad_norm"])}
+    if not (out["loss_rel"] < 1e-2 and out["grad_norm_rel"] < 1e-2 and upd < 5e-2
+            and par < 1e-2):
+        raise AssertionError(f"whole-step check failed: {out}")
+    return out
+
+
 def check_output(ids, lps, mask, B, N, V):
     ids, lps, mask = map(torch.as_tensor, (ids, lps, mask))
     if tuple(ids.shape) != (B, N) or tuple(lps.shape) != (B, N) or tuple(mask.shape) != (B, N):
@@ -487,8 +843,8 @@ def main() -> int:
     res, secs, counts = run_counted(
         kerns, lambda: engine.rollout(params, request, torch.Generator().manual_seed(args.seed)))
     check_output(res.response_ids, res.response_logprobs, res.response_mask, B, N, cfg.vocab_size)
-    want = {"flash_attention_fwd": L, "decode_attention_bf16": L * (N - 1),
-            "decode_attention_q8": 0, "fused_lmhead_sample": N}
+    want = {**dict.fromkeys(kerns, 0), "flash_attention_fwd": L,
+            "decode_attention_bf16": L * (N - 1), "fused_lmhead_sample": N}
     if counts != want:
         raise AssertionError(f"rollout launch counts {counts}, expected {want}")
     runs["rollout_bf16_kv"] = (secs, counts)
@@ -502,7 +858,7 @@ def main() -> int:
             kv_quant="int8", device="cuda"))
     check_output(out.response_ids.cpu(), out.response_logprobs.cpu(), out.response_mask.cpu(),
                  B, N, cfg.vocab_size)
-    want = {"flash_attention_fwd": L, "decode_attention_bf16": 0,
+    want = {**dict.fromkeys(kerns, 0), "flash_attention_fwd": L,
             "decode_attention_q8": L * (N - 1), "fused_lmhead_sample": N}
     if counts != want:
         raise AssertionError(f"generate(kv_quant='int8') launch counts {counts}, expected {want}")
@@ -528,7 +884,7 @@ def main() -> int:
         main[run] = {"seconds": secs, "generated_tokens_per_s": B * N / secs,
                      "decode_ms_per_step": decode_total / (N - 1), "launches": counts}
     emit(main)
-    del engine, res, out
+    del engine, out
     torch.cuda.empty_cache()
 
     # 4. greedy check. Gate: every kernel call of a 16-token greedy run
@@ -583,6 +939,30 @@ def main() -> int:
           "decode_step_device_busy_ms": steps["device_busy_ms"],
           "decode_step_device_idle_share": 1 - steps["device_busy_ms"] / steps["wall_ms"],
           "windows": windows})
+
+    del qparams, qleaves
+    torch.cuda.empty_cache()
+
+    # 5. the training kernels against their plain versions, at one row
+    # chunk and one microbatch of the training batch
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+
+    train_mask = build_train_batch(res, np.zeros(res.response_ids.shape, np.float32),
+                                   pad_id=0).attention_mask[:16]
+    results += check_training_kernels(cfg, train_mask, peaks, args.seed)
+    emit({"phase": "training_kernels", "gpu": gpu, "results": results[4:]})
+    torch.cuda.empty_cache()
+
+    # 6. the training path on the rollout, then one more step under the profiler
+    state, batch, step_fn, train_counts = training_path(cfg, params, res, kerns, gpu, args.seed)
+    emit(profile_train_step(state, batch, step_fn))
+    del state
+    torch.cuda.empty_cache()
+    for k, c in train_counts.items():
+        launches[k] += c
+
+    # 7. a whole train step, kernels against plain, at a small configuration
+    emit({"phase": "whole_step_check", **whole_step_check(kerns, args.seed)})
 
     for r in results:
         r["launches"] = launches[r["name"]]

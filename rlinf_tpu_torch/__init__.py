@@ -7,7 +7,9 @@ under ``csrc/``, built with ``nvcc`` for ``sm_90a`` at first use
 (``ops/cuda/_build.py``). The port imports neither ``jax`` nor ``rlinf_tpu``.
 
 Ported so far: the static rollout serving path (prefill, packed bf16 and int8
-KV-cache decode, fused lm-head sampling) — see ``rollout.RolloutEngine``.
+KV-cache decode, fused lm-head sampling) — see ``rollout.RolloutEngine`` — and
+one GRPO training step (advantages, PPO actor losses, the logprob recompute
+and the update with its optimizer) — see ``training.learner``.
 """
 
 __version__ = "0.1.0"

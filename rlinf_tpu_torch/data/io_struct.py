@@ -1,14 +1,16 @@
-"""Rollout request/result structs (host-side numpy).
+"""Rollout request/result and training-batch structs (host-side numpy).
 
-The port's own copy of ``RolloutRequest`` and ``RolloutResult`` from
+The port's own copy of ``RolloutRequest``, ``RolloutResult``,
+``TrainBatch`` and ``build_train_batch`` from
 ``rlinf_tpu/data/io_struct.py``: the rollout layout is left-padded prompts
-plus right-padded responses.
+plus right-padded responses; the training layout is right-padded
+sequences with pre-shifted targets.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -89,5 +91,94 @@ class RolloutResult:
         return out
 
 
+@dataclasses.dataclass
+class TrainBatch:
+    """Right-padded training layout with pre-shifted targets.
+
+    All arrays [B, T] except rewards [B]. ``loss_mask[t]`` is True iff
+    ``target_ids[t]`` is a real response token; old_logprobs/advantages are
+    aligned with target_ids (fp32).
+    """
+
+    input_ids: np.ndarray
+    attention_mask: np.ndarray
+    target_ids: np.ndarray
+    loss_mask: np.ndarray
+    old_logprobs: np.ndarray
+    advantages: np.ndarray
+    ref_logprobs: Optional[np.ndarray] = None
+
+    def to_dict(self) -> Dict[str, np.ndarray]:
+        d = {
+            "input_ids": self.input_ids,
+            "attention_mask": self.attention_mask,
+            "target_ids": self.target_ids,
+            "loss_mask": self.loss_mask,
+            "old_logprobs": self.old_logprobs,
+            "advantages": self.advantages,
+        }
+        if self.ref_logprobs is not None:
+            d["ref_logprobs"] = self.ref_logprobs
+        return d
+
+    @property
+    def num_valid_tokens(self) -> int:
+        return int(self.loss_mask.sum())
+
+
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def build_train_batch(
+    result: RolloutResult,
+    token_advantages: np.ndarray,
+    *,
+    pad_id: int,
+    seq_bucket: int = 128,
+    max_len: Optional[int] = None,
+) -> TrainBatch:
+    """Re-layout rollout output into the training layout.
+
+    token_advantages: [B, N] advantages aligned with response tokens (the
+    output layout of the GRPO/reinpp estimators transposed to batch-major).
+    """
+    B = result.batch_size
+    plens = result.prompt_lengths
+    rlens = result.response_lengths
+    total = plens + rlens
+    T = _round_up(int(total.max()), seq_bucket)
+    if max_len is not None:
+        T = min(T, max_len)
+
+    input_ids = np.full((B, T), pad_id, np.int32)
+    attention_mask = np.zeros((B, T), bool)
+    target_ids = np.full((B, T), pad_id, np.int32)
+    loss_mask = np.zeros((B, T), bool)
+    old_logprobs = np.zeros((B, T), np.float32)
+    advantages = np.zeros((B, T), np.float32)
+
+    P = result.prompt_ids.shape[1]
+    for i in range(B):
+        p, r = int(plens[i]), int(rlens[i])
+        r = min(r, T - p)
+        seq = np.concatenate(
+            [result.prompt_ids[i, P - p:], result.response_ids[i, :r]]
+        )
+        input_ids[i, : p + r] = seq
+        attention_mask[i, : p + r] = True
+        # next-token targets: position t predicts seq[t+1]
+        target_ids[i, : p + r - 1] = seq[1:]
+        # response token j sits at seq position p+j => predicted at t=p+j-1
+        loss_mask[i, p - 1 : p + r - 1] = True
+        old_logprobs[i, p - 1 : p + r - 1] = result.response_logprobs[i, :r]
+        advantages[i, p - 1 : p + r - 1] = token_advantages[i, :r]
+
+    return TrainBatch(
+        input_ids=input_ids,
+        attention_mask=attention_mask,
+        target_ids=target_ids,
+        loss_mask=loss_mask,
+        old_logprobs=old_logprobs,
+        advantages=advantages,
+    )

@@ -1,7 +1,8 @@
 """Decoder-only transformer (Qwen2/Llama family), plain functions on tensors.
 
-Port of ``rlinf_tpu/models/llm/model.py`` for the serving path: prefill and
-the packed (bf16 and int8) KV-cache decode steps. Parameters are a dict of
+Port of ``rlinf_tpu/models/llm/model.py``: the differentiable forward of
+training (with per-block rematerialization), prefill, and the packed (bf16
+and int8) KV-cache decode steps. Parameters are a dict of
 tensors with the JAX package's key names and layouts: layer weights are
 stacked along a leading [L, ...] axis and matmul weights are [D_in, D_out]
 (``convert.params_from_numpy`` turns a JAX param tree into this dict).
@@ -16,6 +17,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import QTensor, mm
@@ -88,12 +90,17 @@ def init_params(cfg: LLMConfig, seed: int, device="cpu") -> Params:
     return params
 
 
-def _layer(blocks: Params, i: int) -> Params:
-    """Layer i of the stacked block params (views, no copies)."""
-    return {
-        k: QTensor(w.q[i], w.scale[i]) if isinstance(w, QTensor) else w[i]
+def _layers(blocks: Params, n: int):
+    """Every layer of the stacked block params, as views (no copies) from
+    one ``unbind`` per leaf: under autograd the gradients of all layers are
+    stacked once, where one index per layer would add an [L, ...] buffer
+    per layer."""
+    cols = {
+        k: ([QTensor(q, s) for q, s in zip(w.q.unbind(0), w.scale.unbind(0))]
+            if isinstance(w, QTensor) else w.unbind(0))
         for k, w in blocks.items()
     }
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -175,11 +182,25 @@ def forward_hidden(
     *,
     attn_impl: str = "xla",
     return_kv: bool = False,
+    remat=False,
+    unroll_layers: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Token ids [B, S] -> final hidden states [B, S, D] (pre-lm_head).
 
     attention_mask: [B, S] bool, False = padding (left or right).
+    remat: True or "full" recomputes each block in the backward
+      (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
+      does; "dots" (keep the matmul outputs) has no counterpart yet.
+    unroll_layers: accepted for the JAX signature; the port always runs the
+      layers as a Python loop.
     """
+    del unroll_layers
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save matmul outputs, recompute the rest) comes with a "
+            "later slice of the port; use remat=True")
+    if remat not in (False, True, "full"):
+        raise ValueError(f"remat must be False, True, 'full' or 'dots', got {remat!r}")
     B, S = input_ids.shape
     dev = input_ids.device
     if positions is None:
@@ -190,12 +211,16 @@ def forward_hidden(
 
     cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, dev)
     x = params["embed"][input_ids.long()].to(cfg.compute_dtype)
+
+    def block_fn(x, layer):
+        return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl)
+
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _block(
-            cfg, x, _layer(params["blocks"], i), cos, sin, positions,
-            attention_mask, attn_impl,
-        )
+    for layer in _layers(params["blocks"], cfg.num_layers):
+        if remat and torch.is_grad_enabled():
+            x, (k, v) = checkpoint(block_fn, x, layer, use_reentrant=False)
+        else:
+            x, (k, v) = block_fn(x, layer)
         if return_kv:
             ks.append(k)
             vs.append(v)
@@ -219,6 +244,20 @@ def lm_head_logits(params: Params, cfg: LLMConfig, hidden: torch.Tensor) -> torc
     if isinstance(w, QTensor):
         return mm(hidden, w).float()
     return hidden.float() @ w.float()
+
+
+def forward_logits(
+    params: Params,
+    cfg: LLMConfig,
+    input_ids: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    **kw,
+) -> torch.Tensor:
+    """Full-vocab fp32 logits [B, S, V]. Prefer the fused logprob ops for
+    training: this materializes the logits tensor."""
+    hidden, _ = forward_hidden(params, cfg, input_ids, positions, attention_mask, **kw)
+    return lm_head_logits(params, cfg, hidden)
 
 
 # ---------------------------------------------------------------------------
@@ -341,8 +380,7 @@ def decode_step_packed(
     kd = cfg.kv_dim
     x, cos, sin, rows, write_pos = _decode_inputs(params, cfg, token_ids, write_pos)
     pos = positions[:, None]
-    for i, (kc, vc) in enumerate(kv_layers):
-        layer = _layer(params["blocks"], i)
+    for (kc, vc), layer in zip(kv_layers, _layers(params["blocks"], len(kv_layers))):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
         q, k, v = _project_qkv(cfg, layer, h, B, 1)
         q, k = apply_rope(q, k, cos, sin, pos)
@@ -402,8 +440,7 @@ def decode_step_packed_q8(
     kd = cfg.kv_dim
     x, cos, sin, rows, write_pos = _decode_inputs(params, cfg, token_ids, write_pos)
     pos = positions[:, None]
-    for i, (kc, vc, ksc, vsc) in enumerate(kv_layers):
-        layer = _layer(params["blocks"], i)
+    for (kc, vc, ksc, vsc), layer in zip(kv_layers, _layers(params["blocks"], len(kv_layers))):
         h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
         q, k, v = _project_qkv(cfg, layer, h, B, 1)
         q, k = apply_rope(q, k, cos, sin, pos)

@@ -33,7 +33,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("flash_attention_fwd.cu", "decode_attention.cu", "sampler.cu")
+SOURCES = (
+    "flash_attention_fwd.cu", "decode_attention.cu", "sampler.cu",
+    "linear_ce.cu", "flash_attention_bwd.cu",
+)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

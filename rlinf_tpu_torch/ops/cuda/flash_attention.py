@@ -1,15 +1,21 @@
-"""Kernel K1: causal GQA flash-attention forward, and its plain version.
+"""Kernels K1 (forward), K7 and K8 (backward): causal GQA flash attention,
+and their plain versions.
 
-Port of ``rlinf_tpu/ops/pallas/flash_attention.py`` (forward only; the
-backward comes with the training slice). The CUDA source is
-``csrc/flash_attention_fwd.cu``. Masking model: ``pos_kv <= pos_q`` over
-caller-provided positions AND a kv validity mask, so one path covers left
-padding and chunked prefill.
+Port of ``rlinf_tpu/ops/pallas/flash_attention.py``. The CUDA sources are
+``csrc/flash_attention_fwd.cu`` (K1) and ``csrc/flash_attention_bwd.cu``
+(K7 dq, K8 dk/dv). ``flash_attention`` goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward is K1 (which writes the
+log-sum-exp) and whose backward is K7 and K8. Masking model: ``pos_kv <=
+pos_q`` over caller-provided positions AND a kv validity mask, so one path
+covers left padding, right padding and chunked prefill.
 
-Fully masked query rows: the kernel and the plain version give 0 there,
-where the Pallas kernel averages the values of the key blocks it visited.
-The serving path never has such a row (every left-padded prompt has a
-valid key at position 0, which every pad query sees).
+Fully masked query rows: K1 and its plain version give 0 there, where the
+Pallas kernel averages the values of the key blocks it visited. The
+backward masks p before the exponent, as the Pallas backward does, so such
+a row contributes no gradient on either side. Neither the serving path
+(every left-padded prompt has a valid key at position 0) nor a batch of
+``build_train_batch`` (a right-pad query sits at the last valid position)
+has such a row.
 """
 
 from __future__ import annotations
@@ -28,6 +34,20 @@ KERNEL = CudaKernel(
     "flash_attention_fwd.cu", "flash_attention_fwd",
     [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
 )
+KERNEL_DQ = CudaKernel(
+    "flash_attention_bwd.cu", "flash_attention_bwd_dq",
+    [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+)
+KERNEL_DKV = CudaKernel(
+    "flash_attention_bwd.cu", "flash_attention_bwd_dkv",
+    [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+)
+
+
+def _mask(pos_q, pos_kv, valid):
+    """[B, 1, 1, Sq, Sk] bool: key visible to query."""
+    m = (pos_kv[:, None, :] <= pos_q[:, :, None]) & valid.bool()[:, None, :]
+    return m[:, None, None]
 
 
 def flash_attention_fwd_plain(
@@ -44,8 +64,7 @@ def flash_attention_fwd_plain(
     G = H // K
     qg = q.float().reshape(B, Sq, K, G, D)
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
-    mask = (pos_kv[:, None, :] <= pos_q[:, :, None]) & valid.bool()[:, None, :]
-    mask = mask[:, None, None]                                   # [B,1,1,Sq,Sk]
+    mask = _mask(pos_q, pos_kv, valid)
     s = s.masked_fill(~mask, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -89,6 +108,83 @@ def flash_attention_fwd(
     return o, lse
 
 
+def _delta(o, do):
+    """rowsum(o * do) in fp32 -> [B, H, Sq], formed outside the kernels as
+    the JAX package forms it."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_plain(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
+    """Plain version of K7 and K8 -> (dq, dk, dv) in the inputs' dtypes.
+
+    p = exp(s - lse) where unmasked, 0 elsewhere; fp32 throughout; dk/dv
+    summed over the query heads of each kv head before the cast.
+    """
+    delta = _delta(o, do)
+    B, Sq, H, D = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.float().reshape(B, Sq, K, G, D)
+    dog = do.float().reshape(B, Sq, K, G, D)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kf) * scale
+    lse_g = lse.reshape(B, K, G, Sq)[..., None]
+    delta_g = delta.reshape(B, K, G, Sq)[..., None]
+    p = torch.where(_mask(pos_q, pos_kv, valid), torch.exp(s - lse_g), 0.0)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dog, vf)
+    ds = p * (dp - delta_g) * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf).reshape(B, Sq, H, D)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
+    """K7 + K8 -> (dq, dk, dv) from the forward's o and lse and the output
+    gradient do. CPU tensors run the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale)
+    B, Sq, H, D = q.shape
+    delta = _delta(o, do)
+    Sk, K = k.shape[1], k.shape[2]
+    if D not in (64, 128) or K == 0 or H % K:
+        raise ValueError(f"flash_attention_bwd: unsupported H={H} K={K} D={D}")
+    for name, t, shape in (("q", q, (B, Sq, H, D)), ("do", do, (B, Sq, H, D)),
+                           ("k", k, (B, Sk, K, D)), ("v", v, (B, Sk, K, D))):
+        check_cuda_tensor(name, t, torch.bfloat16, shape)
+    check_cuda_tensor("pos_q", pos_q, torch.int32, (B, Sq))
+    check_cuda_tensor("pos_kv", pos_kv, torch.int32, (B, Sk))
+    check_cuda_tensor("valid", valid, torch.uint8, (B, Sk))
+    check_cuda_tensor("lse", lse, torch.float32, (B, H, Sq))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
+              valid.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+    dims = (B, Sq, Sk, H, K, D, float(scale), stream_handle())
+    KERNEL_DQ(q.device.index, *common, dq.data_ptr(), *dims)
+    KERNEL_DKV(q.device.index, *common, dk.data_ptr(), dv.data_ptr(), *dims)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) through K1; dq, dk, dv through K7 and K8."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_q, pos_kv, valid, scale):
+        o, lse = flash_attention_fwd(q, k, v, pos_q, pos_kv, valid, scale)
+        ctx.save_for_backward(q, k, v, pos_q, pos_kv, valid, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, pos_q, pos_kv, valid, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, pos_q, pos_kv, valid, o, lse,
+                                         do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -99,7 +195,9 @@ def flash_attention(
     kv_valid_mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """GQA causal flash attention. q: [B, Sq, H, D]; k/v: [B, Sk, K, D]."""
+    """GQA causal flash attention. q: [B, Sq, H, D]; k/v: [B, Sk, K, D].
+
+    Differentiable: gradients reach q, k and v through K7 and K8."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     dev = q.device
@@ -111,11 +209,10 @@ def flash_attention(
         positions_kv = torch.arange(Sk, device=dev).expand(B, Sk)
     if kv_valid_mask is None:
         kv_valid_mask = torch.ones((B, Sk), dtype=torch.bool, device=dev)
-    o, _ = flash_attention_fwd(
+    return FlashAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(),
         positions_q.to(torch.int32).contiguous(),
         positions_kv.to(torch.int32).contiguous(),
         kv_valid_mask.to(torch.uint8).contiguous(),
         float(scale),
     )
-    return o

@@ -1,0 +1,186 @@
+"""Kernels K5/K6: fused linear cross-entropy forward and backward, and
+their plain versions.
+
+Port of ``rlinf_tpu/ops/pallas/linear_ce.py`` (``fused_linear_ce``). The
+CUDA source is ``csrc/linear_ce.cu``. Per row of ``hidden`` the target
+logprob and the entropy of ``softmax(hidden @ W / T)``, differentiable,
+without the [rows, V] logits in the forward. W is ``[D, V]`` ("dv") or the
+tied embedding ``[V, D]`` ("vd"). The backward writes ``dz`` (bf16
+``[rows, V_pad]``) and ``dh``; the weight gradient ``dz^T h`` is a plain
+matrix product, as in the JAX package.
+
+The plain versions reproduce the Pallas kernels' roundings: ``dz`` is cast
+to bf16 before ``dh`` and ``dw`` are formed, and ``dh`` is cast to
+``h.dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from rlinf_tpu_torch.ops.cuda._build import (
+    F as C_F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
+)
+
+ROW_BLOCK = 64      # rows per CTA of the kernels (csrc BM)
+VOCAB_TILE = 128    # vocab columns per tile (csrc BN); dz is [rows, V_pad]
+TARGET_CTAS = 1056  # K5 splits the vocab until about this many CTAs run
+
+KERNEL_FWD = CudaKernel(
+    "linear_ce.cu", "linear_ce_fwd", [I, P, P, P, P, P, P, P, I, I, I, I, I, C_F, P])
+KERNEL_BWD = CudaKernel(
+    "linear_ce.cu", "linear_ce_bwd",
+    [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, C_F, P])
+
+
+def _vocab(w: torch.Tensor, w_layout: str) -> int:
+    return w.shape[1] if w_layout == "dv" else w.shape[0]
+
+
+def _v_pad(v: int) -> int:
+    return -(-v // VOCAB_TILE) * VOCAB_TILE
+
+
+def _logits_plain(h2, w, w_layout, inv_temp):
+    wf = w.float() if w_layout == "dv" else w.float().t()
+    return (h2.float() @ wf) * inv_temp
+
+
+def ce_forward_plain(h2, w, tgt, inv_temp: float, w_layout: str):
+    """Plain version of K5 -> (lp, ent, lse), each f32 [n]."""
+    x = _logits_plain(h2, w, w_layout, inv_temp)
+    lse = torch.logsumexp(x, dim=-1)
+    lp = x.gather(1, tgt.long()[:, None])[:, 0] - lse
+    ent = lse - (torch.softmax(x, dim=-1) * x).sum(-1)
+    return lp, ent, lse
+
+
+def ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layout: str):
+    """Plain version of K6 -> (dz bf16 [n, V_pad], dh [n, D] in h2.dtype)."""
+    V = _vocab(w, w_layout)
+    x = _logits_plain(h2, w, w_layout, inv_temp)
+    p = torch.exp(x - lse[:, None])
+    onehot = torch.zeros_like(x).scatter_(1, tgt.long()[:, None], 1.0)
+    dx = g_lp[:, None] * (onehot - p) - g_ent[:, None] * (p * (x - mu[:, None]))
+    dz = (dx * inv_temp).bfloat16()
+    wf = w.float().t() if w_layout == "dv" else w.float()
+    dh = (dz.float() @ wf).to(h2.dtype)
+    return F.pad(dz, (0, _v_pad(V) - V)), dh
+
+
+def _check_inputs(h2, w, tgt, w_layout):
+    n, D = h2.shape
+    V = _vocab(w, w_layout)
+    check_cuda_tensor("hidden", h2, torch.bfloat16, (n, D))
+    check_cuda_tensor("w", w, torch.bfloat16, (D, V) if w_layout == "dv" else (V, D))
+    check_cuda_tensor("target_ids", tgt, torch.int32, (n,))
+    if n % ROW_BLOCK:
+        raise ValueError(f"linear_ce: rows {n} not a multiple of {ROW_BLOCK}")
+    return n, D, V
+
+
+def ce_forward(h2, w, tgt, inv_temp: float, w_layout: str):
+    """K5 -> (lp, ent, lse) f32 [n]. h2 [n, D] bf16 with n a multiple of 64,
+    tgt [n] int32. CPU tensors run the plain version."""
+    if h2.device.type == "cpu":
+        return ce_forward_plain(h2, w, tgt, inv_temp, w_layout)
+    n, D, V = _check_inputs(h2, w, tgt, w_layout)
+    n_vt = -(-V // VOCAB_TILE)
+    n_split = max(1, min(n_vt, -(-TARGET_CTAS // (n // ROW_BLOCK))))
+    dev = h2.device
+    part = torch.empty((4, n_split, n), dtype=torch.float32, device=dev)
+    lp, ent, lse = (torch.empty((n,), dtype=torch.float32, device=dev) for _ in range(3))
+    KERNEL_FWD(
+        dev.index, h2.data_ptr(), w.data_ptr(), tgt.data_ptr(), part.data_ptr(),
+        lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), n, D, V, int(w_layout == "vd"),
+        n_split, float(inv_temp), stream_handle(),
+    )
+    return lp, ent, lse
+
+
+def ce_backward(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layout: str):
+    """K6 -> (dz bf16 [n, V_pad], dh bf16 [n, D]). CPU tensors run the plain
+    version."""
+    if h2.device.type == "cpu":
+        return ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp, w_layout)
+    n, D, V = _check_inputs(h2, w, tgt, w_layout)
+    for name, t in (("lse", lse), ("mu", mu), ("g_lp", g_lp), ("g_ent", g_ent)):
+        check_cuda_tensor(name, t, torch.float32, (n,))
+    vp = _v_pad(V)
+    dz = torch.empty((n, vp), dtype=torch.bfloat16, device=h2.device)
+    dh = torch.empty((n, D), dtype=torch.bfloat16, device=h2.device)
+    KERNEL_BWD(
+        h2.device.index, h2.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
+        mu.data_ptr(), g_lp.data_ptr(), g_ent.data_ptr(), dz.data_ptr(), dh.data_ptr(),
+        n, D, V, vp, int(w_layout == "vd"), float(inv_temp), stream_handle(),
+    )
+    return dz, dh
+
+
+def weight_grad(h2, dz, w_layout: str, V: int, dtype) -> torch.Tensor:
+    """dw from the saved dz, one plain matrix product with an f32 sum
+    (cuBLAS accumulates bf16 products in f32; on the CPU the operands are
+    widened first)."""
+    dzv = dz[:, :V]
+    if not h2.is_cuda:
+        h2, dzv = h2.float(), dzv.float()
+    g = h2.t() @ dzv if w_layout == "dv" else dzv.t() @ h2
+    return g.to(dtype)
+
+
+class LinearCE(torch.autograd.Function):
+    """(lp, ent) of one row block through K5, gradients through K6."""
+
+    @staticmethod
+    def forward(ctx, h2, w, tgt, inv_temp, w_layout):
+        lp, ent, lse = ce_forward(h2, w, tgt, inv_temp, w_layout)
+        ctx.save_for_backward(h2, w, tgt, lse, ent)
+        ctx.inv_temp, ctx.w_layout = inv_temp, w_layout
+        return lp, ent
+
+    @staticmethod
+    def backward(ctx, g_lp, g_ent):
+        h2, w, tgt, lse, ent = ctx.saved_tensors
+        g_lp = torch.zeros_like(lse) if g_lp is None else g_lp.float().contiguous()
+        g_ent = torch.zeros_like(lse) if g_ent is None else g_ent.float().contiguous()
+        dz, dh = ce_backward(h2, w, tgt, lse, lse - ent, g_lp, g_ent, ctx.inv_temp,
+                             ctx.w_layout)
+        dw = weight_grad(h2, dz, ctx.w_layout, _vocab(w, ctx.w_layout), w.dtype)
+        return dh, dw, None, None, None
+
+
+def fused_linear_ce(
+    hidden: torch.Tensor,      # [B, S, D] (or [N, D])
+    w: torch.Tensor,           # [D, V] ("dv") or [V, D] ("vd", tied embedding)
+    target_ids: torch.Tensor,  # [B, S] (or [N]) int
+    *,
+    temperature: float = 1.0,
+    w_layout: str = "dv",
+    row_chunk: int = 4096,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logprob of target, entropy) per position, f32, differentiable.
+
+    Rows are padded to the kernels' row block of 64. Above ``row_chunk``
+    rows they run in chunks of ``row_chunk``, which bounds the backward's
+    ``dz`` (bf16 [rows, V], about 0.3 GB per 1k rows at a 152k vocab);
+    autograd sums the per-chunk ``dw``.
+    """
+    if w_layout not in ("dv", "vd"):
+        raise ValueError(f"w_layout must be dv or vd, got {w_layout!r}")
+    lead = hidden.shape[:-1]
+    h2 = hidden.reshape(-1, hidden.shape[-1])
+    tgt = target_ids.reshape(-1).to(torch.int32)
+    inv_temp = 1.0 / temperature
+    lps, ents = [], []
+    for hc, tc in zip(h2.split(row_chunk), tgt.split(row_chunk)):
+        n = hc.shape[0]
+        pad = (-n) % ROW_BLOCK
+        hc = F.pad(hc, (0, 0, 0, pad)).contiguous()
+        tc = F.pad(tc, (0, pad)).contiguous()
+        lp, ent = LinearCE.apply(hc, w.contiguous(), tc, inv_temp, w_layout)
+        lps.append(lp[:n])
+        ents.append(ent[:n])
+    return torch.cat(lps).reshape(lead), torch.cat(ents).reshape(lead)

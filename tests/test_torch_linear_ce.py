@@ -1,0 +1,165 @@
+"""The port's lm-head logprob ops and the fused linear-CE autograd Function
+(kernels K5/K6, here their plain versions) against the JAX package, on the
+CPU.
+
+Every input is drawn with numpy from a seed and handed to both sides. The
+JAX Pallas kernel runs in interpret mode, as ``tests/test_linear_ce.py``
+runs it. Tolerances: fp32 logprob paths agree within 1e-5 (summation order
+only). The fused path rounds ``dz`` to bf16 on both sides; from the same
+f32 inputs the two sides' ``dz`` can land on neighbouring bf16 values, so
+gradients agree within 1e-3 relative to their largest entry, and the
+forward within 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rlinf_tpu.models.llm import model as JM
+from rlinf_tpu.models.llm.config import LLMConfig as JConfig
+from rlinf_tpu.ops import logprobs as jlp
+from rlinf_tpu.ops.pallas.linear_ce import fused_linear_ce as j_fused_ce
+from rlinf_tpu_torch.models.llm.config import LLMConfig as TConfig
+from rlinf_tpu_torch.models.llm.convert import params_from_numpy
+from rlinf_tpu_torch.ops import logprobs as tlp
+from rlinf_tpu_torch.ops.cuda import linear_ce as tce
+
+torch.set_num_threads(2)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _rel_close(got, want, rel):
+    got, want = _np(got), _np(want)
+    scale = max(np.abs(want).max(), 1e-12)
+    np.testing.assert_allclose(got / scale, want / scale, atol=rel, rtol=0)
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_logprobs_and_entropy_from_logits(temperature):
+    r = np.random.default_rng(0)
+    logits = (r.normal(size=(3, 5, 40)) * 3).astype(np.float32)
+    ids = r.integers(0, 40, (3, 5)).astype(np.int32)
+    got = tlp.logprobs_and_entropy_from_logits(_t(logits), _t(ids), temperature)
+    want = jlp.logprobs_and_entropy_from_logits(jnp.asarray(logits), jnp.asarray(ids), temperature)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S,chunk", [(12, 4), (10, 4)])
+def test_fused_linear_logprobs_and_entropy_with_grads(S, chunk):
+    """Chunked plain path (even chunks, and one chunk when S does not
+    divide): values and gradients of a mixed loss for hidden and lm_head."""
+    r = np.random.default_rng(1)
+    B, D, V = 2, 16, 50
+    h = r.normal(size=(B, S, D)).astype(np.float32)
+    w = (r.normal(size=(D, V)) * 0.3).astype(np.float32)
+    ids = r.integers(0, V, (B, S)).astype(np.int32)
+    adv = r.normal(size=(B, S)).astype(np.float32)
+    th, tw = _t(h).requires_grad_(True), _t(w).requires_grad_(True)
+    lp, ent = tlp.fused_linear_logprobs_and_entropy(th, tw, _t(ids), chunk_size=chunk,
+                                                     temperature=0.8)
+    ((lp * _t(adv)).sum() + 0.1 * ent.sum()).backward()
+
+    def jloss(h_, w_):
+        a, b = jlp.fused_linear_logprobs_and_entropy(h_, w_, jnp.asarray(ids), chunk_size=chunk,
+                                                     temperature=0.8)
+        return jnp.sum(a * adv) + 0.1 * jnp.sum(b), (a, b)
+
+    (_, (jlp_, jent)), (gh, gw) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(h), jnp.asarray(w))
+    np.testing.assert_allclose(_np(lp), _np(jlp_), atol=1e-5)
+    np.testing.assert_allclose(_np(ent), _np(jent), atol=1e-5)
+    np.testing.assert_allclose(_np(th.grad), _np(gh), atol=1e-5)
+    np.testing.assert_allclose(_np(tw.grad), _np(gw), atol=1e-5)
+
+
+@pytest.mark.parametrize("w_layout", ["dv", "vd"])
+@pytest.mark.parametrize("shape,temperature", [((2, 20, 32, 1500), 0.7), ((1, 40, 64, 1000), 1.0)])
+def test_linear_ce_function_matches_pallas(w_layout, shape, temperature):
+    """40 rows pad to the port's row block of 64 (and to the Pallas row
+    block of 8); V = 1000 and 1500 are not multiples of either vocab tile."""
+    B, S, D, V = shape
+    r = np.random.default_rng(2)
+    h = r.normal(size=(B, S, D)).astype(np.float32)
+    w_dv = (r.normal(size=(D, V)) * 0.05).astype(np.float32)
+    ids = r.integers(0, V, (B, S)).astype(np.int32)
+    adv = r.normal(size=(B, S)).astype(np.float32)
+    w = w_dv if w_layout == "dv" else np.ascontiguousarray(w_dv.T)
+
+    th, tw = _t(h).requires_grad_(True), _t(w).requires_grad_(True)
+    lp, ent = tce.fused_linear_ce(th, tw, _t(ids), temperature=temperature, w_layout=w_layout)
+    ((lp * _t(adv)).mean() + 0.03 * ent.mean()).backward()
+
+    def jloss(h_, w_):
+        a, b = j_fused_ce(h_, w_, jnp.asarray(ids), temperature=temperature,
+                          w_layout=w_layout, interpret=True)
+        return jnp.mean(a * adv) + 0.03 * jnp.mean(b), (a, b)
+
+    (_, (ja, jb)), (gh, gw) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(h), jnp.asarray(w))
+    np.testing.assert_allclose(_np(lp), _np(ja), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(ent), _np(jb), atol=1e-5, rtol=1e-5)
+    assert tw.grad.shape == tw.shape
+    _rel_close(th.grad, gh, 1e-3)
+    _rel_close(tw.grad, gw, 1e-3)
+
+
+def test_linear_ce_chunks_rows_and_sums_weight_grads():
+    """Rows above row_chunk run in chunks (the last one short); values and
+    gradients equal one unchunked call."""
+    r = np.random.default_rng(3)
+    n, D, V = 150, 16, 300
+    h = r.normal(size=(n, D)).astype(np.float32)
+    w = (r.normal(size=(V, D)) * 0.1).astype(np.float32)
+    ids = _t(r.integers(0, V, n).astype(np.int32))
+    out = []
+    for chunk in (64, 4096):
+        th, tw = _t(h).requires_grad_(True), _t(w).requires_grad_(True)
+        lp, ent = tce.fused_linear_ce(th, tw, ids, w_layout="vd", row_chunk=chunk)
+        (lp.sum() + ent.sum()).backward()
+        out.append((lp, ent, th.grad, tw.grad))
+    for a, b in zip(*out):
+        np.testing.assert_allclose(_np(a), _np(b), atol=1e-5)
+
+
+def test_backward_plain_rounds_dz_to_bf16_and_pads_vocab():
+    r = np.random.default_rng(4)
+    n, D, V = 64, 8, 130
+    h = _t(r.normal(size=(n, D)).astype(np.float32))
+    w = _t((r.normal(size=(D, V)) * 0.2).astype(np.float32))
+    tgt = _t(r.integers(0, V, n).astype(np.int32))
+    lp, ent, lse = tce.ce_forward_plain(h, w, tgt, 1.0, "dv")
+    g = _t(r.normal(size=n).astype(np.float32))
+    dz, dh = tce.ce_backward_plain(h, w, tgt, lse, lse - ent, g, g, 1.0, "dv")
+    assert dz.dtype == torch.bfloat16 and dz.shape == (n, 256)
+    assert torch.all(dz[:, V:] == 0)
+    np.testing.assert_allclose(_np(dh), _np(dz[:, :V].float() @ w.t()), atol=1e-5)
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas"])
+def test_linear_logprobs_dispatch_matches_jax(impl):
+    """The dispatcher on a tiny tied-embedding model: "auto" on the CPU runs
+    the chunked plain path, "pallas" the fused Function's plain version."""
+    jcfg = JConfig.tiny()
+    tcfg = TConfig(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__})
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    r = np.random.default_rng(5)
+    hidden = r.normal(size=(2, 8, jcfg.hidden_size)).astype(np.float32)
+    ids = r.integers(0, jcfg.vocab_size, (2, 8)).astype(np.int32)
+    got = tlp.linear_logprobs_and_entropy(tp, tcfg, _t(hidden), _t(ids), chunk_size=4, impl=impl)
+    want = jlp.linear_logprobs_and_entropy(jp, jcfg, jnp.asarray(hidden), jnp.asarray(ids),
+                                           chunk_size=4)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_np(g), _np(w), atol=1e-5)

@@ -92,9 +92,17 @@ def test_causal_attention_xla_matches_jax(H, K):
 
 
 def test_causal_attention_rejects_ring_and_unknown():
+    """Without a mesh "ring" takes the plain path, in the port as in the JAX
+    package (same result within 1e-5); an unknown impl raises."""
+    r = np.random.default_rng(14)
+    q = r.normal(size=(2, 6, 4, 8)).astype(np.float32)
+    k = r.normal(size=(2, 6, 2, 8)).astype(np.float32)
+    v = r.normal(size=(2, 6, 2, 8)).astype(np.float32)
+    got = tattn.causal_attention(_t(q), _t(k), _t(v), impl="ring")
+    want = jattn.causal_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), impl="ring")
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+    np.testing.assert_array_equal(_np(got), _np(tattn.causal_attention(_t(q), _t(k), _t(v))))
     x = torch.zeros(1, 2, 2, 4)
-    with pytest.raises(NotImplementedError):
-        tattn.causal_attention(x, x, x, impl="ring")
     with pytest.raises(ValueError):
         tattn.causal_attention(x, x, x, impl="nope")
 
@@ -155,6 +163,79 @@ def test_flash_plain_lse_and_bf16():
     ob, _ = tflash.flash_attention_fwd(_t(q).bfloat16(), _t(k).bfloat16(), _t(v).bfloat16(), *args)
     assert ob.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(ob), _np(o), atol=2e-2)
+
+
+# --- K7 / K8: flash attention backward -----------------------------------------
+
+def _right_padded(r, B, S):
+    """(positions, valid) as build_train_batch lays rows out: pads at the
+    right repeat the last valid position."""
+    lens = r.integers(1, S + 1, B)
+    lens[0] = S
+    valid = np.arange(S)[None, :] < lens[:, None]
+    pos = np.maximum(np.cumsum(valid, -1) - 1, 0).astype(np.int32)
+    return pos, valid
+
+
+@pytest.mark.parametrize("padding", ["left", "right", "masked_row"])
+def test_flash_backward_matches_jax_grad(padding):
+    """The autograd Function (K1 forward, K7/K8 backward; here their plain
+    versions) against jax.grad through the Pallas flash attention in
+    interpret mode: GQA (H=4, K=2), S=64, fp32, a random cotangent.
+
+    "masked_row" gives row 2 no valid key at all: there K1 gives 0 and the
+    Pallas forward the mean of the visited values, so outputs are compared
+    only at rows with a valid key; both backwards mask p before the
+    exponent, so such a row adds no gradient and gradients agree
+    everywhere. Outputs within 1e-5; gradients (up to ~20 in size) within
+    1e-5 absolute plus 1e-5 relative."""
+    r = np.random.default_rng(15)
+    B, S, H, K, D = 3, 64, 4, 2, 16
+    q = r.normal(size=(B, S, H, D)).astype(np.float32)
+    k = r.normal(size=(B, S, K, D)).astype(np.float32)
+    v = r.normal(size=(B, S, K, D)).astype(np.float32)
+    cot = r.normal(size=(B, S, H, D)).astype(np.float32)
+    pos, valid = (_left_padded if padding == "left" else _right_padded)(r, B, S)
+    if padding == "masked_row":
+        valid[2] = False
+    tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
+    o = tflash.flash_attention(tq, tk, tv, positions_q=_t(pos), positions_kv=_t(pos),
+                               kv_valid_mask=_t(valid))
+    (o * _t(cot)).sum().backward()
+
+    def loss(q_, k_, v_):
+        o_ = j_flash(q_, k_, v_, positions_q=jnp.asarray(pos), positions_kv=jnp.asarray(pos),
+                     kv_valid_mask=jnp.asarray(valid), block_q=16, block_k=16)
+        return jnp.sum(o_ * cot), o_
+
+    (_, jo), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    rows = valid.any(-1)
+    np.testing.assert_allclose(_np(o.detach())[rows], _np(jo)[rows], atol=1e-5)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), grads):
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+
+
+def test_flash_backward_plain_bf16_against_fp32():
+    """bf16 inputs: the plain backward computes in fp32 and casts dq, dk, dv
+    once, so it lies within 3e-2 of the fp32 gradients (one bf16 rounding of
+    the inputs and of the outputs, at gradients of size ~1-5)."""
+    r = np.random.default_rng(16)
+    B, S, H, K, D = 2, 32, 4, 2, 16
+    q, k, v, do = (r.normal(size=(B, S, n, D)).astype(np.float32) for n in (H, K, K, H))
+    pos, valid = _right_padded(r, B, S)
+    meta = (_t(pos).int(), _t(pos).int(), _t(valid).to(torch.uint8))
+    outs = []
+    for dt in (torch.float32, torch.bfloat16):
+        a = [_t(x).to(dt) for x in (q, k, v)]
+        o, lse = tflash.flash_attention_fwd(*a, *meta, D**-0.5)
+        outs.append(tflash.flash_attention_bwd(*a, *meta, o, lse, _t(do).to(dt), D**-0.5))
+        np.testing.assert_array_equal(
+            _np(outs[-1][0]),
+            _np(tflash.flash_attention_bwd_plain(*a, *meta, o, lse, _t(do).to(dt), D**-0.5)[0]))
+    for g32, g16 in zip(*outs):
+        assert g16.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(g16), _np(g32), atol=3e-2, rtol=3e-2)
 
 
 # --- K2 / K3: packed decode attention -----------------------------------------
