@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``rlinf_tpu_torch``) on one GPU:
-the rollout serving path and the GRPO training path.
+the rollout serving paths (static, megakernel, continuous and paged
+engines) and the GRPO training path.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -44,6 +45,33 @@ Phases, each printing one JSON line:
    |approx_kl| < 1e-3, params moved. A third step runs under the profiler.
 7. whole-step check: one train step at check_q8_generate's configuration,
    kernels against the plain path from the same params.
+
+Between phases 4 and 5, the megakernel, continuous and paged paths:
+
+8. engine kernels: K10 (paged attention; 64 rows, 48 pages of 16 tokens a
+   row, ragged lengths with a 0) and K9 (the whole-step decode megakernel
+   on Qwen2-1.5B packed weights and a random int8 cache: a small shape
+   first, then B=64, S=768 with one write slot and with per-row slots, and
+   B=8), each against its plain version with stated limits, timed beside
+   its bound; K10 beside scaled_dot_product_attention, K9 beside the
+   device-busy time of one per-layer int8-KV decode step.
+9. megakernel generate: ``generate(kv_quant="int8", mega=...)`` on phase
+   3's prompts; launch gate K9 = 255, K3 = 0, K1 = 28, K4 = 256; the idle
+   share of a decode step.
+10. engine shadow: a 16-token greedy ``generate(mega=)`` and a 16-token
+   paged-engine run at full size with every K9 / K10 call checked against
+   its plain version on the same inputs.
+11. engines: on one long-tail mix (128 requests, prompts of 128-512 tokens,
+   budgets of 32-256 tokens, no eos) the continuous engine through
+   ``build_rollout_engine(engine="auto")`` with the per-layer kernels, the
+   continuous engine with ``use_mega="auto"`` and the fused sampler (both
+   cache layouts must be seen, K9 launched with per-row write slots), and
+   the paged engine (K10 = layers x decode steps, page pool empty at the
+   end). Every request must be answered with exactly its budget.
+12. engine small checks: whole greedy runs at the configurations of the
+   JAX package's on-chip gates (check_megakernel_generate,
+   check_mega_engine, check_paged_kernel, paged against dense engine),
+   kernels against plain paths from the same params, with their bars.
 
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures, and ``{"ok": true, "device": ...}``.
@@ -296,14 +324,210 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     return results
 
 
-# ---------------------------------------------------------------------------
-# Phase 5: the training kernels against their plain versions
-# ---------------------------------------------------------------------------
-
 def rel_err(a, b) -> float:
     """max |a - b| over max |b|."""
     a, b = a.float(), b.float()
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the paged-attention kernel and the decode megakernel
+# ---------------------------------------------------------------------------
+
+def random_q8_cache(L, B, S, KD, gen):
+    """A random plausible stacked int8 cache (values in +-80, scales of the
+    size that unit-variance keys give)."""
+    dev = gen.device
+    kc = torch.randint(-80, 81, (L, B, S, KD), generator=gen, device=dev, dtype=torch.int8)
+    vc = torch.randint(-80, 81, (L, B, S, KD), generator=gen, device=dev, dtype=torch.int8)
+    ks = torch.rand((L, B, S), generator=gen, device=dev) * 0.02 + 0.005
+    vs = torch.rand((L, B, S), generator=gen, device=dev) * 0.02 + 0.005
+    return kc, vc, ks, vs
+
+
+def mega_case(MK, plan, mw, cfg, qparams, B, S, wp, positions, starts, gen):
+    """One K9 launch against the plain version on the same inputs ->
+    (errors, the inputs for timing). ``wp`` is an int or a [B] tensor."""
+    from rlinf_tpu_torch.ops.rope import rope_frequencies
+
+    dev = gen.device
+    cache = random_q8_cache(plan.L, B, S, plan.KVD, gen)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=dev)
+    x0 = qparams["embed"][tok].to(torch.bfloat16)
+    cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, dev)
+    args = (x0, wp, positions, starts, cos, sin)
+    before = [t.clone() for t in cache]
+    ref_cache = [t.clone() for t in cache]
+    hid, kc, vc, ks, vs = MK.decode_step_mega(plan, mw, x0, *cache, wp, positions, starts, cos, sin)
+    torch.cuda.synchronize()
+    ref, rkc, rvc, rks, rvs = MK.decode_step_mega_plain(
+        plan, mw, x0, *ref_cache, wp, positions, starts, cos, sin)
+    rows = torch.arange(B, device=dev)
+    slot = (wp if torch.is_tensor(wp) else torch.full((B,), wp, device=dev)).long()
+    deq = lambda c, s: c[:, rows, slot].float() * s[:, rows, slot][..., None]
+    errs = {"hidden_rel": rel_err(hid, ref), "k_rel": rel_err(deq(kc, ks), deq(rkc, rks)),
+            "v_rel": rel_err(deq(vc, vs), deq(rvc, rvs)),
+            "hidden_abs": (hid.float() - ref.float()).abs().max().item(),
+            "finite": bool(torch.isfinite(hid.float()).all())}
+    # every slot but the written one is bit-equal to the input
+    untouched = True
+    for new, old in zip((kc, vc, ks, vs), before):
+        old[:, rows, slot] = new[:, rows, slot]
+        untouched = untouched and bool(torch.equal(new, old))
+    errs["other_slots_untouched"] = untouched
+    return errs, cache, args
+
+
+def check_new_kernels(cfg, qparams, peaks, seed):
+    """K10 at the paged engine's shapes (64 rows, 48 pages of 16 tokens a
+    row, ragged lengths with a 0) and K9 on Qwen2-1.5B packed weights and a
+    random int8 cache: first at a small shape (a grid that does not fit
+    deadlocks rather than errs), then B=64, S=768 with one write slot and
+    with ragged per-row slots, and once at B=8."""
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.models.llm.quant import quantize_params
+    from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
+    from rlinf_tpu_torch.ops.cuda import paged_attention as PA
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    H, Kv, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    G = H // Kv
+    results = []
+
+    # --- K10 -----------------------------------------------------------------
+    B, Pg, max_pages = 64, 16, 48
+    num_pages = 1 + B * max_pages
+    lengths = torch.randint(1, max_pages * Pg + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    lengths[3] = 0
+    lengths[5] = max_pages * Pg
+    table = torch.zeros((B, max_pages), dtype=torch.int32, device=dev)
+    perm = (torch.randperm(num_pages - 1, generator=g, device=dev) + 1).to(torch.int32)
+    used = (lengths + Pg - 1) // Pg
+    at = 0
+    for b in range(B):
+        n = int(used[b])
+        table[b, :n] = perm[at:at + n]
+        at += n
+
+    def pools():
+        return tuple((torch.randn((num_pages, Kv, Pg, Hd), generator=g, device=dev) * 0.5
+                      ).to(torch.bfloat16) for _ in range(2))
+
+    rot = Rotation(pools, 3)
+    kp, vp = rot.sets[0]
+    q = torch.randn((B, H, Hd), generator=g, device=dev).to(torch.bfloat16)
+    out = PA.paged_attention(q, kp, vp, table, lengths)
+    ref = PA.paged_attention_xla(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    empty_row = out[3].float().abs().max().item()
+    ms = cuda_ms(lambda: PA.paged_attention(q, *rot.next(), table, lengths), 50)
+    plain_ms = cuda_ms(lambda: PA.paged_attention_xla(q, kp, vp, table, lengths), 10)
+    S = max_pages * Pg
+    dense = lambda p: p[table.long()].permute(0, 2, 1, 3, 4).reshape(B, Kv, S, Hd)
+    kd = dense(kp).repeat_interleave(G, 1)
+    vd = dense(vp).repeat_interleave(G, 1)
+    smask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=smask), 20)
+    tokens = int(lengths.sum().item())
+    b_ms, b_by = bound(nbytes(q, out, lengths) + int(used.sum().item()) * 4
+                       + 2 * tokens * Kv * Hd * 2, 4.0 * Hd * H * tokens, peaks)
+    results.append(dict(
+        name="paged_attention", route="cuda", source="rlinf_tpu_torch/csrc/paged_attention.cu",
+        replaces="rlinf_tpu/ops/pallas/paged_attention.py:152",
+        shapes=f"q[{B},{H},{Hd}] pages[{num_pages},{Kv},{Pg},{Hd}] bf16 table[{B},{max_pages}], "
+               f"{tokens} valid tokens, one row of length 0",
+        max_abs_err=err, tolerance=1e-2, empty_row_max_abs=empty_row,
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="scaled_dot_product_attention on pages gathered beforehand",
+        bound_ms=b_ms, bound_by=b_by))
+    if not err < 1e-2 or empty_row != 0.0:
+        raise AssertionError(f"K10 disagrees with its plain version: {err}, empty row {empty_row}")
+    del rot, kp, vp, kd, vd
+
+    # --- K9, small shape first ----------------------------------------------
+    small = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                      head_dim=64, intermediate_size=512, max_seq_len=256)
+    sq = quantize_params(M.init_params(small, seed, device="cuda"))
+    splan, smw = MK.pack_decode_weights(sq, small)
+    wp = torch.randint(5, 127, (8,), generator=g, device=dev, dtype=torch.int32)
+    k9 = {}
+    k9["small_ragged"], _, _ = mega_case(MK, splan, smw, small, sq, 8, 128, wp, wp,
+                                         torch.zeros(8, dtype=torch.int32, device=dev), g)
+    emit({"phase": "megakernel_small", **k9["small_ragged"]})
+
+    # --- K9 at Qwen2-1.5B ------------------------------------------------------
+    plan, mw = MK.pack_decode_weights(qparams, cfg)
+    B, S = 64, 768
+    plens = torch.randint(128, 513, (B,), generator=g, device=dev, dtype=torch.int32)
+    starts = (512 - plens).to(torch.int32)
+    slot = 512 + 128
+    k9["uniform"], cache, args = mega_case(MK, plan, mw, cfg, qparams, B, S, slot,
+                                           (plens + 128).to(torch.int32), starts, g)
+    run = lambda: MK.decode_step_mega(plan, mw, args[0], *cache, *args[1:])
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(lambda: MK.decode_step_mega_plain(plan, mw, args[0], *cache, *args[1:]),
+                       1, warmup=1)
+    clock = torch.zeros((plan.L * len(MK.PHASES) + 2,), dtype=torch.int64, device=dev)
+    MK.decode_step_mega(plan, mw, args[0], *cache, *args[1:], phase_clock=clock)
+    edges = clock.cpu().numpy()
+    spans = np.diff(edges[:-1]).reshape(plan.L, len(MK.PHASES)) / 1e3
+    phase_us = {name: float(spans[:, i].mean()) for i, name in enumerate(MK.PHASES)}
+    phase_us["whole_launch"] = float(edges[-1] - edges[0]) / 1e3
+    valid_slots = int((slot - starts).sum().item())
+    layers = tuple((cache[0][l], cache[1][l], cache[2][l], cache[3][l]) for l in range(plan.L))
+    tok = torch.zeros((B,), dtype=torch.long, device=dev)
+    per_layer_busy = profile_window(lambda: M.decode_step_packed_q8(
+        qparams, cfg, tok, layers, slot, args[2], starts,
+        torch.full((B,), slot + 1, dtype=torch.int32, device=dev), attn_impl="pallas")
+    )["device_busy_ms"]
+    del cache, layers
+
+    wps = torch.randint(8, S - 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    wps[0], wps[1] = 0, S - 1          # a free slot of the engine, and a full row
+    zeros = torch.zeros((B,), dtype=torch.int32, device=dev)
+    k9["ragged"], cache, args = mega_case(MK, plan, mw, cfg, qparams, B, S, wps, wps, zeros, g)
+    ragged_ms = cuda_ms(lambda: MK.decode_step_mega(plan, mw, args[0], *cache, *args[1:]), 5)
+    del cache
+    wp8 = torch.randint(8, S - 1, (8,), generator=g, device=dev, dtype=torch.int32)
+    k9["ragged_b8"], cache, args = mega_case(MK, plan, mw, cfg, qparams, 8, S, wp8, wp8,
+                                             zeros[:8], g)
+    b8_ms = cuda_ms(lambda: MK.decode_step_mega(plan, mw, args[0], *cache, *args[1:]), 5)
+    del cache
+
+    KVD, L = plan.KVD, plan.L
+    moved = (nbytes(mw.stream, mw.scales, mw.norms, mw.bias) + 2 * B * plan.D * 2
+             + L * valid_slots * (2 * KVD + 8) + L * B * (2 * KVD + 8))
+    b_ms, b_by = bound(moved, 2.0 * B * plan.layer_bytes * L
+                       + 4.0 * Hd * H * (valid_slots + B) * L, peaks)
+    worst = {k: max(v[k] for v in k9.values()) for k in ("hidden_rel", "k_rel", "v_rel")}
+    results.append(dict(
+        name="decode_megakernel", route="cuda", source="rlinf_tpu_torch/csrc/decode_megakernel.cu",
+        replaces="rlinf_tpu/ops/pallas/decode_megakernel.py:598",
+        shapes=f"x0[{B},{plan.D}] bf16, {L} layers of int8 weights ({plan.layer_bytes} B a layer), "
+               f"cache[{L},{B},{S},{KVD}] int8 + scales, {valid_slots} valid slots a layer",
+        max_abs_err=max(v["hidden_abs"] for v in k9.values()), rel_err=worst, cases=k9,
+        tolerance_rel={"hidden_rel": 5e-2, "k_rel": 3e-2, "v_rel": 3e-2},
+        ms=ms, ragged_ms=ragged_ms, b8_ms=b8_ms, plain_ms=plain_ms, library_ms=None,
+        per_layer_step_device_busy_ms=per_layer_busy, phase_us_mean_over_layers=phase_us,
+        comparison="no one PyTorch call computes a whole step; per_layer_step_device_busy_ms is "
+                   "the device-busy time of one decode_step_packed_q8 step (K3 and eager "
+                   "PyTorch, 28 layers) at the same shape",
+        bound_ms=b_ms, bound_by=b_by))
+    bad = [k for k, v in k9.items()
+           if not (v["hidden_rel"] < 5e-2 and v["k_rel"] < 3e-2 and v["v_rel"] < 3e-2
+                   and v["finite"] and v["other_slots_untouched"])]
+    if bad:
+        raise AssertionError(f"K9 disagrees with its plain version in {bad}: {k9}")
+    return results[::-1], (plan, mw)      # K9, then K10
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
 
 
 def check_training_kernels(cfg, attention_mask, peaks, seed):
@@ -459,6 +683,20 @@ def _kernel_sites():
             (S, "fused_lmhead_sample", "fused_lmhead_sample", SK.fused_lmhead_sample_plain)]
 
 
+def _engine_sites():
+    """The serving sites and those of the megakernel and paged paths."""
+    from rlinf_tpu_torch.models.llm import sampler as S
+    from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
+    from rlinf_tpu_torch.ops.cuda import paged_attention as PA
+    from rlinf_tpu_torch.rollout import continuous_engine as CE
+    from rlinf_tpu_torch.rollout import paged_engine as PE
+
+    return _kernel_sites() + [
+        (S, "decode_step_mega", "decode_megakernel", MK.decode_step_mega_plain),
+        (CE, "decode_step_mega", "decode_megakernel", MK.decode_step_mega_plain),
+        (PE, "paged_attention", "paged_attention", PA.paged_attention_xla)]
+
+
 @contextlib.contextmanager
 def kernels_replaced(make, sites=None):
     """Replace each kernel wrapper of the path (the serving path's unless
@@ -483,10 +721,18 @@ def shadowed(stats: dict):
     the kernel's output and record the disagreement in ``stats``."""
     def make(name, kernel, plain):
         def run(*args, **kwargs):
-            out, ref = kernel(*args, **kwargs), plain(*args, **kwargs)
+            if name == "decode_megakernel":
+                # K9 fills its cache arguments in place: the plain version gets copies
+                ref = plain(*args[:3], *(t.clone() for t in args[3:7]), *args[7:], **kwargs)
+                out = kernel(*args, **kwargs)
+            else:
+                out, ref = kernel(*args, **kwargs), plain(*args, **kwargs)
             st = stats.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
             st["calls"] += 1
-            if name == "fused_lmhead_sample":
+            if name == "decode_megakernel":
+                st["max_rel_err"] = max(st.get("max_rel_err", 0.0), rel_err(out[0], ref[0]))
+                err = (out[0].float() - ref[0].float()).abs().max().item()
+            elif name == "fused_lmhead_sample":
                 agree = (out[0] == ref[0]).float().mean().item()
                 st["token_agree"] = min(st.get("token_agree", 1.0), agree)
                 err = (out[1] - ref[1]).abs().max().item()
@@ -569,6 +815,326 @@ def free_running_check(kerns, seed) -> dict:
         ran = [k for k, c in counts.items() if c]
         if not (agree > 0.95 and lp_err < 0.15 and len(ran) == 3):
             raise AssertionError(f"free-running greedy check failed (kv {kv}): {out[f'kv_{kv}']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 9-12: megakernel generate, the continuous and paged engines
+# ---------------------------------------------------------------------------
+
+def long_tail_mix(cfg, seed, n=128):
+    """128 requests: prompts of 128-512 tokens, budgets spread over 32-256."""
+    from rlinf_tpu_torch.data.io_struct import RolloutRequest
+
+    r = np.random.default_rng(seed + 60)
+    lens = r.integers(128, 513, n)
+    budgets = [int(b) for b in r.integers(32, 257, n)]
+    prompts = [list(map(int, r.integers(0, cfg.vocab_size, k))) for k in lens]
+    return RolloutRequest(prompt_ids=prompts, max_new_tokens=budgets), budgets
+
+
+def check_answers(res, budgets, V):
+    lens = res.response_mask.sum(1)
+    if not np.array_equal(lens, budgets):
+        raise AssertionError(f"requests not answered with their budgets: {lens} vs {budgets}")
+    lps = res.response_logprobs[res.response_mask]
+    if not (np.isfinite(lps).all() and (lps <= 0).all()):
+        raise AssertionError("logprobs must be finite and <= 0")
+    if not ((res.response_ids >= 0) & (res.response_ids < V)).all():
+        raise AssertionError("token ids out of range")
+
+
+def timed(seen, key, fn):
+    """``fn`` with its seconds on the host clock, device work included,
+    added to ``seen[key]``."""
+    def run(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        seen[key] = seen.get(key, 0.0) + time.perf_counter() - t0
+        return out
+    return run
+
+
+def watch_engine(eng):
+    """Count the engine's decode rounds, prefill calls and compactions, note
+    the cache layout of every round (True = stacked), and time the three."""
+    seen = {"decode_rounds": 0, "prefill_calls": 0, "compactions": 0, "stacked": [],
+            "pool_sizes": []}
+    harvest = timed(seen, "decode_s", eng.decode_and_harvest)
+    refill = timed(seen, "prefill_s", eng._refill_impl)
+    compact = timed(seen, "compact_s", eng.compact_pool)
+
+    def on_harvest(pool, *a):
+        seen["decode_rounds"] += 1
+        seen["stacked"].append(eng._is_stacked(pool.kv_layers))
+        seen["pool_sizes"].append(pool.size)
+        t0 = seen.get("decode_s", 0.0)
+        out = harvest(pool, *a)
+        key = "stacked_decode_s" if seen["stacked"][-1] else "per_layer_decode_s"
+        seen[key] = seen.get(key, 0.0) + seen["decode_s"] - t0
+        return out
+
+    def on_refill(*a):
+        seen["prefill_calls"] += 1
+        return refill(*a)
+
+    def on_compact(pool):
+        out = compact(pool)
+        seen["compactions"] += out.size < pool.size
+        return out
+
+    eng.decode_and_harvest, eng._refill_impl, eng.compact_pool = on_harvest, on_refill, on_compact
+    return seen
+
+
+def engine_phases(cfg, params, kerns, gpu, seed):
+    """The continuous engine (a) through build_rollout_engine with the
+    per-layer kernels, (b) with use_mega="auto" and the fused sampler, and
+    the paged engine, all on one long-tail mix at full width and depth."""
+    from rlinf_tpu_torch.config import RolloutConfig
+    from rlinf_tpu_torch.models.llm.sampler import SamplingParams
+    from rlinf_tpu_torch.rollout import build_rollout_engine
+    from rlinf_tpu_torch.rollout import continuous_engine as CE
+    from rlinf_tpu_torch.rollout import paged_engine as PE
+
+    request, budgets = long_tail_mix(cfg, seed)
+    tokens = int(sum(budgets))
+    sp = SamplingParams(max_new_tokens=256, temperature=1.0, eos_token_id=-1)
+    L = cfg.num_layers
+
+    def trainer_cfg(**ro):
+        return types.SimpleNamespace(
+            model=cfg, sampling=sp, attn_impl="pallas",
+            rollout=RolloutConfig(num_slots=64, decode_chunk=16, prompt_bucket=64, **ro),
+            data=types.SimpleNamespace(max_prompt_len=512),
+            algorithm=types.SimpleNamespace(recompute_logprobs=None))
+
+    out = {"phase": "engines", "gpu": gpu, "model": "qwen2_1_5b", "layers": L,
+           "requests": len(budgets), "generated_tokens": tokens, "slots": 64, "decode_chunk": 16}
+    total = dict.fromkeys(kerns, 0)
+
+    def run(name, eng, want, zero):
+        seen = watch_engine(eng)
+        res, secs, counts = run_counted(kerns, lambda: eng.rollout(
+            params, request, torch.Generator().manual_seed(seed + 2)))
+        check_answers(res, budgets, cfg.vocab_size)
+        missing = [k for k in want if not counts[k]] + [k for k in zero if counts[k]]
+        out[name] = {"seconds": secs, "generated_tokens_per_s": tokens / secs,
+                     "decode_rounds": seen["decode_rounds"], "prefill_calls": seen["prefill_calls"],
+                     "compactions": seen["compactions"], "pool_sizes": sorted(set(seen["pool_sizes"])),
+                     "stacked_rounds": sum(seen["stacked"]),
+                     **{k: v for k, v in seen.items() if k.endswith("_s")}, "launches": counts}
+        for k, c in counts.items():
+            total[k] += c
+        if missing or seen["prefill_calls"] < 2:
+            raise AssertionError(f"{name}: launch gate failed on {missing}: {out[name]}")
+        return seen, counts
+
+    # (a) engine="auto" resolves to the continuous engine
+    eng = build_rollout_engine(trainer_cfg(engine="auto", weight_quant="int8", kv_quant="int8"),
+                               device="cuda")
+    if type(eng) is not CE.ContinuousBatchingEngine:
+        raise AssertionError(f"engine='auto' built {type(eng)}")
+    run("continuous_per_layer", eng, ("flash_attention_fwd", "decode_attention_q8"),
+        ("decode_megakernel", "decode_attention_bf16", "paged_attention"))
+    del eng
+
+    # (b) hybrid: per-layer kernels on the large pool, K9 after compaction
+    eng = CE.ContinuousBatchingEngine(
+        cfg, sp, num_slots=64, max_seq_len=768, prompt_bucket=64, decode_chunk=16,
+        weight_quant="int8", kv_quant="int8", decode_attn_impl="pallas", attn_impl="pallas",
+        use_mega="auto", mega_threshold=32, sampler_impl="fused", device="cuda")
+    slot_dims = set()
+    real_step = CE.decode_step_mega
+
+    def noting_step(*a):
+        slot_dims.add(a[7].ndim if torch.is_tensor(a[7]) else 0)
+        return real_step(*a)
+
+    CE.decode_step_mega = noting_step
+    try:
+        seen, counts = run(
+            "continuous_hybrid", eng,
+            ("flash_attention_fwd", "decode_attention_q8", "fused_lmhead_sample",
+             "decode_megakernel"), ("decode_attention_bf16", "paged_attention"))
+    finally:
+        CE.decode_step_mega = real_step
+    if set(seen["stacked"]) != {False, True} or slot_dims != {1}:
+        raise AssertionError(f"hybrid engine: layouts {set(seen['stacked'])}, "
+                             f"write_pos dims {slot_dims}")
+    if counts["decode_megakernel"] != 16 * sum(seen["stacked"]):
+        raise AssertionError(f"K9 launches {counts['decode_megakernel']} for "
+                             f"{sum(seen['stacked'])} stacked rounds of 16 steps")
+    del eng
+    torch.cuda.empty_cache()
+
+    # the paged engine, page pool watched
+    class WatchedPool(PE.PagePool):
+        made = []
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.peak = 0
+            WatchedPool.made.append(self)
+
+        def append_tokens_chunk(self, *a):
+            res = super().append_tokens_chunk(*a)
+            self.peak = max(self.peak, self.num_pages - 1 - self.free_pages)
+            return res
+
+    eng = build_rollout_engine(trainer_cfg(engine="paged", page_size=16), device="cuda")
+    if type(eng) is not PE.PagedContinuousEngine or eng.attn_impl != "pallas":
+        raise AssertionError(f"engine='paged' built {type(eng)} with {eng.attn_impl}")
+    rounds, split = [], {}
+    decode = timed(split, "decode_s", eng._decode_paged_impl)
+    eng._decode_paged_impl = lambda *a: (rounds.append(a[-1]), decode(*a))[1]
+    eng._prefill_paged_impl = timed(split, "prefill_s", eng._prefill_paged_impl)
+    real_pool, PE.PagePool = PE.PagePool, WatchedPool
+    try:
+        res, secs, counts = run_counted(kerns, lambda: eng.rollout(
+            params, request, torch.Generator().manual_seed(seed + 3)))
+    finally:
+        PE.PagePool = real_pool
+    check_answers(res, budgets, cfg.vocab_size)
+    pool = WatchedPool.made[-1]
+    out["paged"] = {"seconds": secs, "generated_tokens_per_s": tokens / secs,
+                    "decode_rounds": len(rounds), "decode_steps": sum(rounds), **split,
+                    "pages": pool.num_pages, "peak_pages_in_use": pool.peak,
+                    "free_pages_at_end": pool.free_pages, "launches": counts,
+                    "prefill_attention": "plain (as the JAX engine)"}
+    for k, c in counts.items():
+        total[k] += c
+    want = {**dict.fromkeys(kerns, 0), "paged_attention": L * sum(rounds)}
+    if counts != want or pool.free_pages != pool.num_pages - 1:
+        raise AssertionError(f"paged engine: launches {counts}, expected {want}; "
+                             f"{pool.free_pages} of {pool.num_pages - 1} pages free at the end")
+    emit(out)
+    return total
+
+
+def small_engine_checks(kerns, seed) -> dict:
+    """Whole greedy runs at small size, kernels against the plain paths from
+    the same params, at the configurations of the JAX package's on-chip
+    gates and with their bars: check_megakernel_generate (agreement > 0.9,
+    against the plain megakernel path and against the per-layer int8 path),
+    check_mega_engine (hybrid engine: lengths equal, agreement > 0.9, both
+    layouts seen), check_paged_kernel (K10 error < 0.01) and the paged
+    engine against the dense continuous engine on its plain decode
+    attention (_engine_parity: token match > 0.995, logprob diff < 0.02)."""
+    from rlinf_tpu_torch.data.io_struct import RolloutRequest
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.models.llm.quant import quantize_params
+    from rlinf_tpu_torch.models.llm.sampler import SamplingParams, generate
+    from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
+    from rlinf_tpu_torch.ops.cuda import paged_attention as PA
+    from rlinf_tpu_torch.rollout.continuous_engine import ContinuousBatchingEngine
+    from rlinf_tpu_torch.rollout.paged_engine import PagedContinuousEngine
+
+    out = {}
+    sites = _engine_sites()
+    cfg = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                    num_kv_heads=2, head_dim=64, intermediate_size=512, max_seq_len=256)
+
+    # check_megakernel_generate
+    params = M.init_params(cfg, seed, device="cuda")
+    qparams = quantize_params(params)
+    mega = MK.pack_decode_weights(qparams, cfg, chunk_width=256)
+    r = np.random.default_rng(seed + 5)
+    ids, mask = r.integers(0, cfg.vocab_size, (8, 64)), np.ones((8, 64), bool)
+    sp = SamplingParams(max_new_tokens=16, greedy=True, eos_token_id=-1)
+
+    def gen(m):
+        return generate(params, cfg, torch.Generator(), ids, mask, sp, attn_impl="pallas",
+                        decode_params=qparams, decode_attn_impl="pallas", kv_quant="int8",
+                        mega=m, sampler_impl="xla", device="cuda")
+
+    fast, _, counts = run_counted(kerns, lambda: gen(mega))
+    per_layer = gen(None)
+    with kernels_replaced(plain_only, sites):
+        plain = gen(mega)
+    agree = lambda a, b: (a.response_ids == b.response_ids).float().mean().item()
+    out["megakernel_generate"] = {
+        "vs_plain_megakernel_path": agree(fast, plain), "vs_per_layer_q8_kernels": agree(fast, per_layer),
+        "launches": {k: c for k, c in counts.items() if c}}
+    if not (agree(fast, plain) > 0.9 and agree(fast, per_layer) > 0.9
+            and counts["decode_megakernel"] == 15 and counts["decode_attention_q8"] == 0):
+        raise AssertionError(f"small megakernel generate check failed: {out}")
+
+    # check_mega_engine
+    params = M.init_params(cfg, seed + 3, device="cuda")
+    sp = SamplingParams(max_new_tokens=32, greedy=True, eos_token_id=-1, pad_token_id=0)
+    r = np.random.default_rng(11)
+    budgets = [4, 8, 8, 16] * 4
+    request = RolloutRequest(
+        prompt_ids=[list(map(int, r.integers(2, 500, int(r.integers(4, 24))))) for _ in range(16)],
+        max_new_tokens=budgets)
+
+    def engine_run(use_mega):
+        eng = ContinuousBatchingEngine(
+            cfg, sp, num_slots=16, max_seq_len=128, prompt_bucket=32, decode_chunk=4,
+            weight_quant="int8", kv_quant="int8", decode_attn_impl="pallas", attn_impl="pallas",
+            use_mega=use_mega, mega_chunk_width=256, mega_threshold=8, device="cuda")
+        seen = watch_engine(eng)
+        return eng.rollout(params, request, torch.Generator()), seen
+
+    (hybrid, seen), _, counts = run_counted(kerns, lambda: engine_run("auto"))
+    per_layer, _ = engine_run(False)
+    with kernels_replaced(plain_only, sites):
+        plain, _ = engine_run("auto")
+
+    def engine_agree(a, b):
+        if not np.array_equal(a.response_lengths, b.response_lengths):
+            raise AssertionError("hybrid engine: response lengths differ")
+        return float((a.response_ids == b.response_ids)[a.response_mask].mean())
+
+    out["mega_engine"] = {
+        "vs_plain_paths": engine_agree(hybrid, plain),
+        "vs_per_layer_q8_engine": engine_agree(hybrid, per_layer),
+        "layouts_seen": sorted(set(seen["stacked"])),
+        "launches": {k: c for k, c in counts.items() if c}}
+    if not (out["mega_engine"]["vs_plain_paths"] > 0.9
+            and out["mega_engine"]["vs_per_layer_q8_engine"] > 0.9
+            and set(seen["stacked"]) == {False, True} and counts["decode_megakernel"] > 0
+            and np.array_equal(hybrid.response_lengths, budgets)):
+        raise AssertionError(f"small hybrid engine check failed: {out['mega_engine']}")
+
+    # check_paged_kernel
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    B, H, Kv, Hd, Pg, n_pages, max_pages = 8, 4, 2, 64, 16, 64, 8
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda")
+    q = rn(B, H, Hd).to(torch.bfloat16)
+    kp, vp = ((rn(n_pages, Kv, Pg, Hd) * 0.3).to(torch.bfloat16) for _ in range(2))
+    table = torch.randint(0, n_pages, (B, max_pages), generator=g, device="cuda", dtype=torch.int32)
+    lengths = ((torch.arange(B, device="cuda") * 13) % (Pg * max_pages - 2) + 1).to(torch.int32)
+    err = (PA.paged_attention(q, kp, vp, table, lengths).float()
+           - PA.paged_attention_xla(q, kp, vp, table, lengths).float()).abs().max().item()
+    out["paged_kernel"] = {"max_err": err}
+    if not err < 0.01:
+        raise AssertionError(f"small paged kernel check failed: {err}")
+
+    # the paged engine against the dense continuous engine (_engine_parity)
+    cfg = LLMConfig(vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+                    num_kv_heads=2, head_dim=64, intermediate_size=512, max_seq_len=256)
+    params = M.init_params(cfg, seed + 5, device="cuda")
+    sp = SamplingParams(max_new_tokens=16, temperature=1.0, greedy=True, eos_token_id=-1)
+    r = np.random.default_rng(7)
+    request = RolloutRequest(prompt_ids=[
+        list(map(int, r.integers(2, 255, int(r.integers(4, 30))))) for _ in range(16)])
+    kw = dict(num_slots=16, max_seq_len=64, prompt_bucket=32, decode_chunk=8, device="cuda")
+    dense = ContinuousBatchingEngine(cfg, sp, weight_quant="none", decode_attn_impl="xla",
+                                     **kw).rollout(params, request, torch.Generator())
+    paged, _, counts = run_counted(kerns, lambda: PagedContinuousEngine(
+        cfg, sp, page_size=16, attn_impl="pallas", **kw).rollout(params, request, torch.Generator()))
+    match = float(np.mean((dense.response_ids == paged.response_ids) | ~dense.response_mask))
+    lp_diff = float(np.abs(np.where(dense.response_mask, dense.response_logprobs, 0.0)
+                           - np.where(paged.response_mask, paged.response_logprobs, 0.0)).max())
+    out["paged_vs_dense_engine"] = {"token_match": match, "max_logprob_diff": lp_diff,
+                                    "paged_attention_launches": counts["paged_attention"]}
+    if not (match > 0.995 and lp_diff < 0.02 and counts["paged_attention"] > 0):
+        raise AssertionError(f"paged engine against the dense engine: {out['paged_vs_dense_engine']}")
     return out
 
 
@@ -782,6 +1348,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU",
@@ -940,8 +1507,74 @@ def main() -> int:
           "decode_step_device_idle_share": 1 - steps["device_busy_ms"] / steps["wall_ms"],
           "windows": windows})
 
-    del qparams, qleaves
+    del qleaves
     torch.cuda.empty_cache()
+
+    # 8. K10 and K9 against their plain versions at the new paths' shapes
+    with torch.inference_mode():
+        new_results, mega = check_new_kernels(cfg, qparams, peaks, args.seed)
+    emit({"phase": "engine_kernels", "gpu": gpu, "results": new_results})
+    torch.cuda.empty_cache()
+
+    # 9. generate(mega=): phase 3's prompts, the whole decode step in one launch
+    with torch.inference_mode():
+        def mega_generate(sampling, seed=args.seed + 1):
+            return generate(params, cfg, torch.Generator().manual_seed(seed), ids, mask, sampling,
+                            attn_impl="pallas", decode_params=qparams, kv_quant="int8", mega=mega,
+                            device="cuda")
+        out, secs, counts = run_counted(kerns, lambda: mega_generate(sp))
+        check_output(out.response_ids.cpu(), out.response_logprobs.cpu(), out.response_mask.cpu(),
+                     B, N, cfg.vocab_size)
+        want = {**dict.fromkeys(kerns, 0), "flash_attention_fwd": L, "decode_megakernel": N - 1,
+                "fused_lmhead_sample": N}
+        if counts != want:
+            raise AssertionError(f"generate(mega=) launch counts {counts}, expected {want}")
+        for k, c in counts.items():
+            launches[k] += c
+        windows = {n: profile_window(lambda: mega_generate(SamplingParams(max_new_tokens=n)))
+                   for n in (1, 9)}
+    mega_step = {k: (windows[9][k] - windows[1][k]) / 8 for k in ("wall_ms", "device_busy_ms")}
+    emit({"phase": "megakernel_generate", "gpu": gpu, "model": "qwen2_1_5b", "layers": L,
+          "batch": B, "new_tokens": N, "cache_len": -(-(P + N) // 128) * 128, "seconds": secs,
+          "generated_tokens_per_s": B * N / secs,
+          "decode_ms_per_step": (secs * 1e3 - prefill_ms) / (N - 1),
+          "per_layer_int8_kv": main["generate_int8_kv"], "launches": counts,
+          "decode_step_wall_ms": mega_step["wall_ms"],
+          "decode_step_device_busy_ms": mega_step["device_busy_ms"],
+          "decode_step_device_idle_share": 1 - mega_step["device_busy_ms"] / mega_step["wall_ms"],
+          "by_kernel_ms_9_tokens": windows[9]["by_kernel_ms"]})
+    del out
+
+    # 10. shadow mode for K9 and K10 at full size: every kernel call of a
+    # 16-token greedy run against its plain version on the same inputs
+    from rlinf_tpu_torch.rollout.paged_engine import PagedContinuousEngine
+    shadow = {"phase": "engine_shadow", "new_tokens": 16}
+    with torch.inference_mode():
+        stats = {}
+        with kernels_replaced(shadowed(stats), _engine_sites()):
+            mega_generate(greedy, 0)
+            PagedContinuousEngine(cfg, greedy, num_slots=B, max_seq_len=P + 16, prompt_bucket=bucket,
+                                  decode_chunk=15, page_size=16, attn_impl="pallas", device="cuda"
+                                  ).rollout(params, request, torch.Generator())
+    shadow["shadow"] = stats
+    emit(shadow)
+    if not (stats["decode_megakernel"]["calls"] == 15
+            and stats["decode_megakernel"]["max_rel_err"] < 5e-2
+            and stats["paged_attention"]["calls"] == L * 15
+            and stats["paged_attention"]["max_abs_err"] < 1e-2):
+        raise AssertionError(f"K9/K10 shadow check failed: {stats}")
+    del qparams, mega
+    torch.cuda.empty_cache()
+
+    # 11. the continuous engine (per-layer and hybrid) and the paged engine
+    engine_counts = engine_phases(cfg, params, kerns, gpu, args.seed)
+    for k, c in engine_counts.items():
+        launches[k] += c
+    torch.cuda.empty_cache()
+
+    # 12. whole greedy runs at small size, kernels against plain paths
+    with torch.inference_mode():
+        emit({"phase": "engine_small_checks", **small_engine_checks(kerns, args.seed)})
 
     # 5. the training kernels against their plain versions, at one row
     # chunk and one microbatch of the training batch
@@ -964,8 +1597,10 @@ def main() -> int:
     # 7. a whole train step, kernels against plain, at a small configuration
     emit({"phase": "whole_step_check", **whole_step_check(kerns, args.seed)})
 
+    results += new_results
     for r in results:
         r["launches"] = launches[r["name"]]
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": results})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

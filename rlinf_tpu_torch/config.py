@@ -24,8 +24,8 @@ class RolloutConfig:
     engine:
       auto        static under a mesh, continuous otherwise
       static      one generate() per (P, N) bucket
-      continuous  slot-pool continuous batching (not ported yet)
-      paged       continuous + paged KV pool (not ported yet)
+      continuous  slot-pool continuous batching
+      paged       continuous + paged KV pool
     weight_quant: "auto" = int8 weight-only decode on a CUDA device, none
     on the CPU.
     """

@@ -4,7 +4,8 @@ The port keeps the JAX package's key names and [D_in, D_out] layouts, so
 one random init (or one checkpoint) feeds both packages. A leaf is a numpy
 array (bfloat16 arrays from JAX arrive with the ``ml_dtypes`` bfloat16
 dtype) or a quantized leaf with ``.q`` and ``.scale`` arrays, which becomes
-the port's ``QTensor``.
+the port's ``QTensor``. ``cache_from_numpy`` does the same for the decode
+state: a stacked int8 cache, per-layer cache tuples or page pools.
 """
 
 from __future__ import annotations
@@ -42,3 +43,13 @@ def params_from_numpy(tree: dict, cfg: LLMConfig, device="cpu") -> dict:
             f"embed shape {embed_shape} does not match the config "
             f"({cfg.vocab_size}, {cfg.hidden_size})")
     return _convert(tree, torch.device(device))
+
+
+def cache_from_numpy(tree, device="cpu"):
+    """A KV cache of the JAX package given as numpy arrays -> the port's
+    tensors with the same nesting: the stacked int8 cache of the megakernel
+    ``(kc, vc, ks, vs)``, per-layer ``(k, v[, k_scale, v_scale])`` tuples, or
+    per-layer page pools."""
+    if isinstance(tree, (tuple, list)):
+        return tuple(cache_from_numpy(t, device) for t in tree)
+    return tensor_from_numpy(tree, device)

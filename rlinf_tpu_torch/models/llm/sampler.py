@@ -22,7 +22,10 @@ import torch
 from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import QTensor
+from rlinf_tpu_torch.ops.cuda.decode_megakernel import decode_step_mega
 from rlinf_tpu_torch.ops.cuda.sampler_kernel import fused_lmhead_sample, gumbel_noise
+from rlinf_tpu_torch.ops.norm import rms_norm
+from rlinf_tpu_torch.ops.rope import rope_frequencies
 from rlinf_tpu_torch.utils.device import resolve_device
 
 
@@ -148,13 +151,10 @@ def generate(
     decode_params: optional separate (e.g. int8-quantized) params for the
     decode loop; prefill always runs on ``params``.
     kv_quant="int8": int8 KV cache, quantized on write.
-    mega: the whole-step decode megakernel is not ported yet; passing it
-    raises.
+    mega: optional (MegaPlan, MegaWeights) from
+    ops/cuda/decode_megakernel.pack_decode_weights: the whole decode step
+    runs as ONE kernel launch over all layers (requires kv_quant="int8").
     """
-    if mega is not None:
-        raise NotImplementedError(
-            "mega= (the decode megakernel) comes with a later slice of the "
-            "port; run without it")
     device = resolve_device(device)
     if params["embed"].device.type != device.type:
         raise ValueError(
@@ -164,6 +164,11 @@ def generate(
     B, P = prompt_ids.shape
     N = sp.max_new_tokens
     S_max = P + N
+    use_mega = mega is not None and kv_quant == "int8"
+    if use_mega:
+        # the JAX package's cache length for this path (a multiple of 128);
+        # the dead tail slots are never read: the kernel masks on [starts, wp)
+        S_max = -(-S_max // 128) * 128
     dparams = decode_params if decode_params is not None else params
 
     prompt_lens = prompt_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)
@@ -187,6 +192,14 @@ def generate(
         else sampler_impl == "fused"
     )
     tok, lp = _sample_hidden(dparams, cfg, generator, last_hidden, sp, use_fused)
+    if use_mega:
+        # stack the per-layer q8 tuples into [L, B, S, ...] arrays for the
+        # single-launch megakernel (ops/cuda/decode_megakernel.py)
+        plan, mweights = mega
+        kv_layers = tuple(
+            torch.stack([layer[i] for layer in kv_layers]) for i in range(4))
+        cos_tab, sin_tab = rope_frequencies(
+            cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, device)
     decode_step = (
         M.decode_step_packed_q8 if kv_quant == "int8" else M.decode_step_packed
     )
@@ -197,11 +210,17 @@ def generate(
     for t in range(N - 1):
         slot = P + t                 # cache slot of the previous token's kv
         pos = prompt_lens + t        # its rope position
-        hidden, kv_layers = decode_step(
-            dparams, cfg, tok, kv_layers, slot, pos, starts,
-            torch.full((B,), slot + 1, dtype=torch.int32, device=device),
-            attn_impl=decode_attn_impl,
-        )
+        if use_mega:
+            x0 = dparams["embed"][tok.long()].to(cfg.compute_dtype)
+            hidden, *kv_layers = decode_step_mega(
+                plan, mweights, x0, *kv_layers, slot, pos, starts, cos_tab, sin_tab)
+            hidden = rms_norm(hidden, dparams["final_norm"], cfg.rms_eps)
+        else:
+            hidden, kv_layers = decode_step(
+                dparams, cfg, tok, kv_layers, slot, pos, starts,
+                torch.full((B,), slot + 1, dtype=torch.int32, device=device),
+                attn_impl=decode_attn_impl,
+            )
         new_tok, new_lp = _sample_hidden(dparams, cfg, generator, hidden, sp, use_fused)
         done = done | (tok == sp.eos_token_id)
         tok = torch.where(done, sp.pad_token_id, new_tok).to(torch.int32)

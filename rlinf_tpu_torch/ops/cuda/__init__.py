@@ -20,6 +20,8 @@ K5 linear CE forward        linear_ce.py _ce_fwd_kernel      linear_ce
 K6 linear CE backward       linear_ce.py _ce_bwd_kernel      linear_ce
 K7 flash attention bwd dq   flash_attention.py _bwd_dq_...   flash_attention
 K8 flash attention bwd dkv  flash_attention.py _bwd_dkv_...  flash_attention
+K9 whole-step decode        decode_megakernel.py _mega_...   decode_megakernel
+K10 paged decode attention  paged_attention.py _kernel       paged_attention
 ==========================  ===============================  ==============
 """
 
@@ -29,7 +31,8 @@ from rlinf_tpu_torch.ops.cuda._build import SOURCES, build  # noqa: F401
 def kernels():
     """{name: CudaKernel} of every kernel of the port; each has ``launches``."""
     from rlinf_tpu_torch.ops.cuda import (
-        decode_attention, flash_attention, linear_ce, sampler_kernel,
+        decode_attention, decode_megakernel, flash_attention, linear_ce,
+        paged_attention, sampler_kernel,
     )
 
     return {
@@ -41,4 +44,6 @@ def kernels():
         "linear_ce_bwd": linear_ce.KERNEL_BWD,
         "flash_attention_bwd_dq": flash_attention.KERNEL_DQ,
         "flash_attention_bwd_dkv": flash_attention.KERNEL_DKV,
+        "decode_megakernel": decode_megakernel.KERNEL,
+        "paged_attention": paged_attention.KERNEL,
     }

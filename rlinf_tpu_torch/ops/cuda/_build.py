@@ -35,7 +35,8 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "flash_attention_fwd.cu", "decode_attention.cu", "sampler.cu",
-    "linear_ce.cu", "flash_attention_bwd.cu",
+    "linear_ce.cu", "flash_attention_bwd.cu", "paged_attention.cu",
+    "decode_megakernel.cu",
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,10 @@
 """Rollout engines on the card.
 
-Port of ``rlinf_tpu/rollout/__init__.py``. Only the static engine is ported;
-the continuous and paged engines raise until their slices land. "auto"
+Port of ``rlinf_tpu/rollout/__init__.py``: static batch generation,
+continuous slot-pool batching, or paged-KV continuous batching. "auto"
 knobs resolve on the DEVICE the engine runs on: int8 weights and the
 hand-written kernels on CUDA, no quantization and the plain versions on
-the CPU.
+the CPU. Only sharded rollout (``mesh=``) is not ported.
 """
 
 import torch
@@ -58,13 +58,13 @@ def build_rollout_engine(cfg, mesh=None, device="cuda"):
     """Build the rollout engine selected by ``cfg.rollout``.
 
     "auto" resolves to static under a mesh and continuous otherwise, as in
-    the JAX package; only "static" is ported.
+    the JAX package.
     """
     device = resolve_device(device)
     if mesh is not None:
         raise NotImplementedError(
             "sharded rollout (mesh=...) comes with the port's parallel slice")
-    engine, quant, _ = resolve_rollout_paths(cfg, mesh=mesh, device=device)
+    engine, quant, decode_attn = resolve_rollout_paths(cfg, mesh=mesh, device=device)
     if engine == "static":
         return RolloutEngine(
             cfg.model, cfg.sampling,
@@ -74,13 +74,37 @@ def build_rollout_engine(cfg, mesh=None, device="cuda"):
             weight_quant=quant,
             device=device,
         )
+    ro = cfg.rollout
+    max_seq_len = min(
+        cfg.model.max_seq_len,
+        cfg.data.max_prompt_len + cfg.sampling.max_new_tokens,
+    )
     if engine == "continuous":
-        raise NotImplementedError(
-            "rollout.engine='continuous' (ContinuousBatchingEngine and the "
-            "decode megakernel) comes with a later slice of the port; use "
-            "engine='static'")
+        from rlinf_tpu_torch.rollout.continuous_engine import ContinuousBatchingEngine
+
+        return ContinuousBatchingEngine(
+            cfg.model, cfg.sampling,
+            num_slots=ro.num_slots,
+            max_seq_len=max_seq_len,
+            prompt_bucket=ro.prompt_bucket,
+            decode_chunk=ro.decode_chunk,
+            weight_quant=quant,
+            kv_quant=ro.kv_quant,
+            decode_attn_impl=ro.decode_attn_impl,
+            attn_impl=cfg.attn_impl,
+            device=device,
+        )
     if engine == "paged":
-        raise NotImplementedError(
-            "rollout.engine='paged' (paged engine and paged attention) comes "
-            "with a later slice of the port; use engine='static'")
+        from rlinf_tpu_torch.rollout.paged_engine import PagedContinuousEngine
+
+        return PagedContinuousEngine(
+            cfg.model, cfg.sampling,
+            num_slots=ro.num_slots,
+            max_seq_len=max_seq_len,
+            prompt_bucket=ro.prompt_bucket,
+            decode_chunk=ro.decode_chunk,
+            page_size=ro.page_size,
+            attn_impl=decode_attn,
+            device=device,
+        )
     raise ValueError(f"unknown rollout engine {engine!r}")

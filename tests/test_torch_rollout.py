@@ -1,5 +1,5 @@
-"""The port's static rollout path (generate, RolloutEngine, engine selection)
-against the JAX package on ``LLMConfig.tiny()``, on the CPU.
+"""The port's static rollout path (generate, RolloutEngine) and the engine
+selection of ``build_rollout_engine`` against the JAX package on ``LLMConfig.tiny()``, on the CPU.
 
 The port runs with the kernel implementation names ("pallas"), which on CPU
 tensors take the plain versions; the JAX side runs its XLA decode path (its
@@ -32,6 +32,8 @@ from rlinf_tpu_torch.models.llm.sampler import SamplingParams, generate
 from rlinf_tpu_torch.rollout import (
     RolloutEngine, build_rollout_engine, resolve_recompute_logprobs, resolve_rollout_paths,
 )
+from rlinf_tpu_torch.rollout.continuous_engine import ContinuousBatchingEngine
+from rlinf_tpu_torch.rollout.paged_engine import PagedContinuousEngine
 
 torch.set_num_threads(2)
 
@@ -148,11 +150,22 @@ def test_build_rollout_engine_resolves_on_the_device():
     assert resolve_rollout_paths(_trainer_cfg(), device="cpu")[0] == "continuous"
     assert resolve_recompute_logprobs(_trainer_cfg(engine="static"), device="cuda")
     assert not resolve_recompute_logprobs(_trainer_cfg(engine="static"), device="cpu")
-    for engine in ("auto", "continuous", "paged"):
+    for engine in ("auto", "continuous"):
+        eng = build_rollout_engine(
+            _trainer_cfg(engine=engine, kv_quant="int8", num_slots=8, decode_chunk=4),
+            device="cpu")
+        assert type(eng) is ContinuousBatchingEngine
+        assert (eng.num_slots, eng.decode_chunk, eng.prompt_bucket) == (8, 4, 64)
+        assert (eng.weight_quant, eng.kv_quant, eng.attn_impl) == ("none", "int8", "xla")
+        assert eng.max_seq_len == 32 + 4 and eng.use_mega is False and eng.compact
+    eng = build_rollout_engine(_trainer_cfg(engine="paged", page_size=8, num_slots=4),
+                               device="cpu")
+    assert type(eng) is PagedContinuousEngine
+    assert (eng.page_size, eng.num_slots, eng.attn_impl) == (8, 4, "xla")
+    assert eng.max_pages_per_slot == 5 and eng.num_pages == 1 + 4 * 5
+    for engine in ("static", "auto", "paged"):
         with pytest.raises(NotImplementedError):
-            build_rollout_engine(_trainer_cfg(engine=engine), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_rollout_engine(_trainer_cfg(engine="static"), mesh=object(), device="cpu")
+            build_rollout_engine(_trainer_cfg(engine=engine), mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         build_rollout_engine(_trainer_cfg(engine="bogus"), device="cpu")
 
@@ -167,5 +180,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         generate(tp, tcfg, torch.Generator(), ids, mask, sp)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_rollout_engine(_trainer_cfg(engine="static"))
-    with pytest.raises(NotImplementedError):
-        generate(tp, tcfg, torch.Generator(), ids, mask, sp, mega=object(), device="cpu")
+    for engine in ("auto", "paged"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_rollout_engine(_trainer_cfg(engine=engine))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        generate(tp, tcfg, torch.Generator(), ids, mask, sp, kv_quant="int8", mega=object())
