@@ -14,7 +14,8 @@ Phases, each printing one JSON line:
    to 512 tokens, 256 new tokens): error against a stated tolerance, the
    kernel's, the plain version's and one library call's time (CUDA events),
    and the least time the card could take (bytes or operations at the
-   card's published peak).
+   card's published peak). K4 runs on the head packed once, at B=64 and
+   at B=8, sampled and greedy (the difference is what the draws cost).
 3. main path: ``build_rollout_engine`` (static engine, int8 weights,
    hand-written kernels, bf16 packed KV cache) rolls out 64 prompts of
    128-512 tokens to 256 new tokens at the full width and depth of
@@ -32,17 +33,24 @@ Phases, each printing one JSON line:
 
 5. training kernels: K5/K6 (fused linear cross-entropy) at one row chunk
    of the training path (4096 rows, tied [V, D] embedding, non-zero
-   entropy gradient) and K7/K8 (flash-attention backward) at one
-   microbatch of the training batch (16 right-padded rows, T=768), each
-   against its plain version with a stated tolerance and timed beside its
-   bound, its plain version and a library call.
+   entropy gradient; K6 also with the untied [D, V] weight, its two
+   passes read apart from a profiler trace) and K7/K8 (flash-attention
+   backward) at one microbatch of the training batch (16 right-padded
+   rows, T=768), each against its plain version with a stated tolerance
+   and timed beside its bound, its plain version and a library call. Then
+   K4 and K6 against their plain versions at ragged shapes.
 6. training path: GRPO on phase 3's rollout (64 rows as 8 groups of 8,
    a stated reward rule on the token ids), ``build_train_batch`` (T=768),
-   ``make_logprob_fn`` (recompute), then two ``make_policy_train_step``
+   ``make_logprob_fn`` (recompute), then four ``make_policy_train_step``
    calls at full width and depth (remat, attn_impl="pallas", 4
-   microbatches, adamw with master weights, entropy bonus 1e-3). Gates:
-   every training kernel launched, finite loss and grad norm, step-1
-   |approx_kl| < 1e-3, params moved. A third step runs under the profiler.
+   microbatches, adamw with master weights, entropy bonus 1e-3): the step
+   time is the median of steps 2-4, and each step's seconds stand beside
+   the allocator's device allocations and the garbage collector's pauses
+   in it. Gates: every
+   training kernel launched, finite loss and grad norm, step-1
+   |approx_kl| < 1e-3, params moved. One more step runs under the
+   profiler: device time by kernel, with K6's passes read from the whole
+   trace.
 7. whole-step check: one train step at check_q8_generate's configuration,
    kernels against the plain path from the same params.
 
@@ -56,8 +64,8 @@ Between phases 4 and 5, the megakernel, continuous and paged paths:
    its bound; K10 beside scaled_dot_product_attention, K9 beside the
    device-busy time of one per-layer int8-KV decode step.
 9. megakernel generate: ``generate(kv_quant="int8", mega=...)`` on phase
-   3's prompts; launch gate K9 = 255, K3 = 0, K1 = 28, K4 = 256; the idle
-   share of a decode step.
+   3's prompts, with the lm head packed once; launch gate K9 = 255, K3 = 0,
+   K1 = 28, K4 = 256; the idle share of a decode step.
 10. engine shadow: a 16-token greedy ``generate(mega=)`` and a 16-token
    paged-engine run at full size with every K9 / K10 call checked against
    its plain version on the same inputs.
@@ -83,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -283,44 +292,51 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
         raise AssertionError(f"K3 disagrees with its plain version: {err}")
     del rot, kdq, vdq
 
-    # --- K4: fused int8 lm-head sampler at [B, D] x [D, V] -------------------
-    hidden = randn(B, D)
+    # --- K4: fused int8 lm-head sampler at [B, D] x [D, V], on the head
+    # packed once (as the serving paths hold it), at B and at 8 rows -------
     lm = quantize_tensor(randn(D, V, scale=0.02, dtype=torch.float32))
     lm_q, lm_s = lm.q, lm.scale
-    tok, lp = SK.fused_lmhead_sample(hidden, lm_q, lm_s, 3, greedy=True)
-    tok_r, lp_r = SK.fused_lmhead_sample_plain(hidden, lm_q, lm_s, 3, greedy=True)
-    tok_s, lp_s = SK.fused_lmhead_sample(hidden, lm_q, lm_s, 11, temperature=0.9)
-    tok_sr, _ = SK.fused_lmhead_sample_plain(hidden, lm_q, lm_s, 11, temperature=0.9)
-    z = (hidden.float() @ lm_q.float()) * lm_s.reshape(1, V) / 0.9
-    lp_given = torch.log_softmax(z, -1).gather(1, tok_s.long()[:, None])[:, 0]
-    torch.cuda.synchronize()
-    greedy_agree = (tok == tok_r).float().mean().item()
-    err = (lp - lp_r).abs().max().item()
-    sampled_lp_err = (lp_s - lp_given).abs().max().item()
-    sampled_agree = (tok_s == tok_sr).float().mean().item()
-    ms = cuda_ms(lambda: SK.fused_lmhead_sample(hidden, lm_q, lm_s, 5, temperature=1.0), 10)
-    plain_ms = cuda_ms(lambda: SK.fused_lmhead_sample_plain(
-        hidden, lm_q, lm_s, 5, temperature=1.0), 3)
+    head = SK.pack_lm_head(lm_q, lm_s)
     lm_bf16 = (lm_q.float() * lm_s).bfloat16()
+    k4 = {}
+    for rows in (B, 8):
+        hidden = randn(rows, D)
+        tok, lp = SK.fused_lmhead_sample_packed(hidden, head, 3, greedy=True)
+        tok_r, lp_r = SK.fused_lmhead_sample_plain(hidden, lm_q, lm_s, 3, greedy=True)
+        tok_s, lp_s = SK.fused_lmhead_sample_packed(hidden, head, 11, temperature=0.9)
+        tok_sr, _ = SK.fused_lmhead_sample_plain(hidden, lm_q, lm_s, 11, temperature=0.9)
+        z = (hidden.float() @ lm_q.float()) * lm_s.reshape(1, V) / 0.9
+        lp_given = torch.log_softmax(z, -1).gather(1, tok_s.long()[:, None])[:, 0]
+        torch.cuda.synchronize()
+        greedy_agree = (tok == tok_r).float().mean().item()
+        err = (lp - lp_r).abs().max().item()
+        sampled_lp_err = (lp_s - lp_given).abs().max().item()
+        ms = cuda_ms(lambda: SK.fused_lmhead_sample_packed(hidden, head, 5, temperature=1.0), 20)
+        # the same product and stream without the draws
+        greedy_ms = cuda_ms(lambda: SK.fused_lmhead_sample_packed(hidden, head, 5, greedy=True), 20)
+        plain_ms = cuda_ms(lambda: SK.fused_lmhead_sample_plain(
+            hidden, lm_q, lm_s, 5, temperature=1.0), 3)
 
-    def library():
-        logits = torch.matmul(hidden, lm_bf16).float()
-        return torch.log_softmax(logits, -1), logits.argmax(-1)
+        def library():
+            logits = torch.matmul(hidden, lm_bf16).float()
+            return torch.log_softmax(logits, -1), logits.argmax(-1)
 
-    lib_ms = cuda_ms(library, 10)
-    b_ms, b_by = bound(nbytes(hidden, lm_q, lm_s, tok, lp), 2.0 * B * D * V, peaks)
+        lib_ms = cuda_ms(library, 10)
+        b_ms, b_by = bound(nbytes(hidden, head.w, head.scale, tok, lp), 2.0 * rows * D * V, peaks)
+        k4[rows] = dict(
+            shapes=f"hidden[{rows},{D}] bf16, lm head [{D},{V}] int8 packed",
+            max_abs_err=err, tolerance=5e-3, greedy_token_agreement=greedy_agree,
+            sampled_token_agreement=(tok_s == tok_sr).float().mean().item(),
+            sampled_logprob_err=sampled_lp_err, ms=ms, greedy_ms=greedy_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if greedy_agree != 1.0 or not err < 5e-3 or not sampled_lp_err < 5e-3:
+            raise AssertionError(
+                f"K4 disagrees with its plain version at B={rows}: greedy agreement "
+                f"{greedy_agree}, lp err {err}, sampled lp err {sampled_lp_err}")
     results.append(dict(
         name="fused_lmhead_sample", route="cuda", source="rlinf_tpu_torch/csrc/sampler.cu",
-        replaces="rlinf_tpu/ops/pallas/sampler_kernel.py:167",
-        shapes=f"hidden[{B},{D}] bf16 lm_q[{D},{V}] int8",
-        max_abs_err=err, tolerance=5e-3, greedy_token_agreement=greedy_agree,
-        sampled_token_agreement=sampled_agree, sampled_logprob_err=sampled_lp_err,
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library="matmul(bf16) + log_softmax + argmax", bound_ms=b_ms, bound_by=b_by))
-    if greedy_agree != 1.0 or not err < 5e-3 or not sampled_lp_err < 5e-3:
-        raise AssertionError(
-            f"K4 disagrees with its plain version: greedy agreement {greedy_agree}, "
-            f"lp err {err}, sampled lp err {sampled_lp_err}")
+        replaces="rlinf_tpu/ops/pallas/sampler_kernel.py:167", **k4[B],
+        library="matmul(bf16) + log_softmax + argmax", at_batch_8=k4[8]))
     return results
 
 
@@ -576,35 +592,48 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
     if not max(errs) < 2e-3:
         raise AssertionError(f"K5 disagrees with its plain version: {errs}")
 
-    # --- K6: fused linear-CE backward (non-zero entropy gradient) -----------
+    # --- K6: fused linear-CE backward (non-zero entropy gradient), the tied
+    # [V, D] layout of the training path and the untied [D, V] one; the
+    # passes read apart from a profiler trace --------------------------------
     g_lp, g_ent = randn(n, dtype=torch.float32), randn(n, scale=0.1, dtype=torch.float32)
     mu = lse - ent
-    dz, dh = LCE.ce_backward(h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd")
-    dz_r, dh_r = LCE.ce_backward_plain(h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd")
-    dw = LCE.weight_grad(h, dz, "vd", V, w.dtype)
-    dw_r = LCE.weight_grad(h, dz_r, "vd", V, w.dtype)
-    torch.cuda.synchronize()
-    k6 = {"dz": rel_err(dz, dz_r), "dh": rel_err(dh, dh_r), "dw": rel_err(dw, dw_r)}
-    dh_abs = (dh.float() - dh_r.float()).abs().max().item()
-    del dz_r, dh_r, dw, dw_r
-    ms = cuda_ms(lambda: LCE.ce_backward(h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd"), 3, warmup=1)
-    plain_ms = cuda_ms(lambda: LCE.ce_backward_plain(
-        h, w, tgt, lse, mu, g_lp, g_ent, 1.0, "vd"), 2, warmup=1)
     lpv, entv = library()
     loss = (lpv * g_lp + entv * g_ent).sum()
     lib_ms = cuda_ms(lambda: torch.autograd.grad(loss, (hl,), retain_graph=True), 3, warmup=1)
     del lpv, entv, loss, hl, wl
-    b_ms, b_by = bound(nbytes(h, w, tgt, lse, mu, g_lp, g_ent, dz, dh), 4.0 * n * D * V, peaks)
+    torch.cuda.empty_cache()
+    k6 = {}
+    for layout in ("vd", "dv"):
+        wl_ = w if layout == "vd" else w.t().contiguous()
+        args = (h, wl_, tgt, lse, mu, g_lp, g_ent, 1.0, layout)
+        dz, dh = LCE.ce_backward(*args)
+        dz_r, dh_r = LCE.ce_backward_plain(*args)
+        dw = LCE.weight_grad(h, dz, layout, V, w.dtype)
+        dw_r = LCE.weight_grad(h, dz_r, layout, V, w.dtype)
+        torch.cuda.synchronize()
+        errs = {"dz": rel_err(dz, dz_r), "dh": rel_err(dh, dh_r), "dw": rel_err(dw, dw_r)}
+        dh_abs = (dh.float() - dh_r.float()).abs().max().item()
+        del dz_r, dh_r, dw, dw_r
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: LCE.ce_backward(*args), 3, warmup=1)
+        plain_ms = cuda_ms(lambda: LCE.ce_backward_plain(*args), 2, warmup=1)
+        traced_ms, traced_n = device_ms_by_kernel(lambda: LCE.ce_backward(*args), K6_TRACED_CALLS)
+        by_pass = k6_passes(traced_ms, 2.0 * n * D * V)
+        by_pass["launches_traced"] = {p: sum(c for key, c in traced_n.items() if name in key)
+                                      for p, name in K6_PASSES}
+        b_ms, b_by = bound(nbytes(h, wl_, tgt, lse, mu, g_lp, g_ent, dz, dh), 4.0 * n * D * V, peaks)
+        k6[layout] = dict(max_abs_err=dh_abs, rel_err=errs, tolerance_rel=1e-2, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **by_pass)
+        if not max(errs.values()) < 1e-2:
+            raise AssertionError(f"K6 ({layout}) disagrees with its plain version: {errs}")
+        del wl_, args, dz, dh
+        torch.cuda.empty_cache()
     results.append(dict(
         name="linear_ce_bwd", route="cuda", source="rlinf_tpu_torch/csrc/linear_ce.cu",
         replaces="rlinf_tpu/ops/pallas/linear_ce.py:283",
-        shapes=f"as K5, dz[{n},{dz.shape[1]}] bf16 out",
-        max_abs_err=dh_abs, rel_err=k6, tolerance_rel=1e-2,
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library="autograd backward of the K5 library call, d/dh", bound_ms=b_ms, bound_by=b_by))
-    if not max(k6.values()) < 1e-2:
-        raise AssertionError(f"K6 disagrees with its plain version: {k6}")
-    del h, w, tgt, lp, ent, lse, dz, dh, mu
+        shapes=f"as K5, dz[{n},{LCE._v_pad(V)}] bf16 out", **k6["vd"], library_ms=lib_ms,
+        library="autograd backward of the K5 library call, d/dh", untied_dv=k6["dv"]))
+    del h, w, tgt, lp, ent, lse, mu
     torch.cuda.empty_cache()
 
     # --- K7 / K8: flash-attention backward at one microbatch ----------------
@@ -662,6 +691,54 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
     return results
 
 
+def ragged_shapes(seed) -> dict:
+    """K4 and K6 against their plain versions where the shapes leave ragged
+    edges: K4 at B = 100 (a full and a partial row block) and at D = 200,
+    V = 1000 (the packed head padded in depth and vocabulary); K6 at 320
+    rows (two and a half 128-row tiles), D = 200, V = 1000, both layouts.
+    Bars as at the main shapes: K4 greedy tokens equal and logprob error
+    < 5e-3, K6 relative error < 1e-2 and the pad columns of dz zero."""
+    from rlinf_tpu_torch.models.llm.quant import quantize_tensor
+    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
+    from rlinf_tpu_torch.ops.cuda import sampler_kernel as SK
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 42)
+    out = {}
+    for B, D, V in ((100, 1536, 151936), (8, 200, 1000), (100, 200, 1000)):
+        lm = quantize_tensor(torch.randn((D, V), generator=g, device="cuda") * 0.05)
+        head = SK.pack_lm_head(lm.q, lm.scale)
+        hidden = torch.randn((B, D), generator=g, device="cuda").bfloat16()
+        tok, lp = SK.fused_lmhead_sample_packed(hidden, head, 3, greedy=True)
+        ref_tok, ref_lp = SK.fused_lmhead_sample_plain(hidden, lm.q, lm.scale, 3, greedy=True)
+        tok_s, _ = SK.fused_lmhead_sample_packed(hidden, head, 9, temperature=0.7)
+        ref_s, _ = SK.fused_lmhead_sample_plain(hidden, lm.q, lm.scale, 9, temperature=0.7)
+        r = {"greedy_agree": (tok == ref_tok).float().mean().item(),
+             "lp_err": (lp - ref_lp).abs().max().item(),
+             "sampled_agree": (tok_s == ref_s).float().mean().item()}
+        out[f"K4 B={B} D={D} V={V}"] = r
+        if r["greedy_agree"] != 1.0 or not r["lp_err"] < 5e-3:
+            raise AssertionError(f"K4 at B={B}, D={D}, V={V}: {r}")
+    n, D, V = 320, 200, 1000
+    h = torch.randn((n, D), generator=g, device="cuda").bfloat16()
+    tgt = torch.randint(0, V, (n,), generator=g, device="cuda", dtype=torch.int32)
+    g_lp = torch.randn((n,), generator=g, device="cuda")
+    g_ent = torch.randn((n,), generator=g, device="cuda")
+    w_vd = (torch.randn((V, D), generator=g, device="cuda") * 0.1).bfloat16()
+    for layout in ("vd", "dv"):
+        w = w_vd if layout == "vd" else w_vd.t().contiguous()
+        _, ent, lse = LCE.ce_forward_plain(h, w, tgt, 1.3, layout)
+        args = (h, w, tgt, lse, lse - ent, g_lp, g_ent, 1.3, layout)
+        dz, dh = LCE.ce_backward(*args)
+        dz_r, dh_r = LCE.ce_backward_plain(*args)
+        torch.cuda.synchronize()
+        r = {"dz": rel_err(dz, dz_r), "dh": rel_err(dh, dh_r),
+             "dz_pad_zero": bool((dz[:, V:] == 0).all().item())}
+        out[f"K6 {layout} n={n} D={D} V={V}"] = r
+        if not (r["dz"] < 1e-2 and r["dh"] < 1e-2 and r["dz_pad_zero"]):
+            raise AssertionError(f"K6 ({layout}) at n={n}, D={D}, V={V}: {r}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
@@ -680,7 +757,8 @@ def _kernel_sites():
              DA.decode_attention_packed_xla),
             (M, "decode_attention_packed_q8", "decode_attention_q8",
              DA.decode_attention_packed_q8_xla),
-            (S, "fused_lmhead_sample", "fused_lmhead_sample", SK.fused_lmhead_sample_plain)]
+            (S, "fused_lmhead_sample_packed", "fused_lmhead_sample",
+             SK.fused_lmhead_sample_packed_plain)]
 
 
 def _engine_sites():
@@ -765,6 +843,51 @@ def profile_window(fn, top: int = 10) -> dict:
     return {"wall_ms": wall_ms,
             "device_busy_ms": sum(e.device_time_total for e in events) / 1e3,
             "by_kernel_ms": {e.key[:60]: e.device_time_total / 1e3 for e in events[:top]}}
+
+
+def device_ms_by_kernel(fn, calls: int):
+    """({kernel: mean device ms of one launch}, {kernel: launches recorded})
+    of the GPU kernels that ``fn`` launches, from a torch.profiler trace of
+    ``calls`` calls after one untraced call. Each mean is over the launches
+    the trace recorded, not the calls made: in a process that has already
+    run profiler sessions, a new session can lose the first device records
+    it should hold (every record of a session of two K6 calls), so the
+    window holds several calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_time_total > 0 and e.key != "Command Buffer Full"]
+    return ({e.key: e.device_time_total / 1e3 / e.count for e in events},
+            {e.key: e.count for e in events})
+
+
+# K6 calls in the trace that reads its passes apart (launches_traced tells
+# how many of each pass's K6_TRACED_CALLS launches the trace kept)
+K6_TRACED_CALLS = 8
+# K6's kernels by the names the trace gives them (csrc/linear_ce.cu)
+K6_PASSES = (("pass_a", "ce_bwd_gemm_kernel<0"), ("pass_b", "ce_bwd_gemm_kernel<1"),
+             ("merge", "dh_merge_kernel"))
+
+
+def k6_passes(by_kernel: dict, flop: float = 0.0) -> dict:
+    """K6's pass A (dz), pass B (dh partials) and slice merge from a trace's
+    time by kernel, and where ``flop`` is given the TFLOP/s of a pass that
+    does that many operations. Raises where the trace holds no time for a
+    pass."""
+    out = {f"{p}_ms": sum(ms for key, ms in by_kernel.items() if name in key)
+           for p, name in K6_PASSES}
+    if not (out["pass_a_ms"] > 0 and out["pass_b_ms"] > 0):
+        raise AssertionError(f"the trace holds no time for K6's passes: {sorted(by_kernel)}")
+    if flop:
+        for p in ("pass_a", "pass_b"):
+            out[f"{p}_tflops"] = flop / out[f"{p}_ms"] / 1e9
+    return out
 
 
 def run_counted(kernels, fn):
@@ -1166,11 +1289,49 @@ def reward_rule(response_ids, response_mask):
     return (even * 2 > response_mask.sum(-1)).astype(np.float32)
 
 
+TRAIN_STEPS = 4
+
+
+class StepWatch:
+    """What the host did in one train step besides dispatch: the caching
+    allocator's device allocations and retries, and the garbage collector's
+    pauses."""
+
+    def __init__(self):
+        self.gc_s, self._t = 0.0, None
+        gc.callbacks.append(self._on_gc)
+
+    def _on_gc(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.gc_s += time.perf_counter() - self._t
+            self._t = None
+
+    def step(self, fn):
+        """Run ``fn`` to completion -> (its result, the step's record)."""
+        before = torch.cuda.memory_stats()
+        self.gc_s = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = torch.cuda.memory_stats()
+        return out, {"seconds": secs, "gc_pause_s": self.gc_s, **{
+            k: after.get(k, 0) - before.get(k, 0)
+            for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")}}
+
+    def close(self):
+        gc.callbacks.remove(self._on_gc)
+
+
 def training_path(cfg, params, rollout, kerns, gpu, seed):
     """GRPO on the serving phase's rollout: rule rewards, GRPO advantages
-    over 8 groups of 8, build_train_batch, the logprob recompute, then two
-    train steps (remat, attn_impl="pallas", 4 microbatches, adamw with
-    master weights, entropy bonus 1e-3) through the public entry points."""
+    over 8 groups of 8, build_train_batch, the logprob recompute, then
+    TRAIN_STEPS train steps (remat, attn_impl="pallas", 4 microbatches,
+    adamw with master weights, entropy bonus 1e-3) through the public entry
+    points. The steps after the first give the step time: their median."""
     from rlinf_tpu_torch.algorithms import get_advantage_fn
     from rlinf_tpu_torch.config import (
         AlgorithmConfig, RunnerConfig, TrainerConfig, validate_config,
@@ -1205,7 +1366,8 @@ def training_path(cfg, params, rollout, kerns, gpu, seed):
     watch = {k: params["blocks"][k][0].flatten()[:4096].clone() for k in ("wq", "down")}
     watch["embed"] = params["embed"][:64].clone()
     torch.cuda.reset_peak_memory_stats()
-    times, metrics = {}, []
+    times, metrics, steps = {}, [], []
+    watch_host = StepWatch()
 
     def run():
         t0 = time.perf_counter()
@@ -1218,11 +1380,9 @@ def training_path(cfg, params, rollout, kerns, gpu, seed):
             "mean_abs": float(np.abs(lp - batch.old_logprobs)[batch.loss_mask].mean())}
         batch.old_logprobs = np.where(batch.loss_mask, lp, 0.0).astype(np.float32)
         state = TrainState(0, params, tx.init(params))
-        for i in (1, 2):
-            t0 = time.perf_counter()
-            state, m = step_fn(state, batch.to_dict())
-            torch.cuda.synchronize()
-            times[f"step{i}_s"] = time.perf_counter() - t0
+        for i in range(1, TRAIN_STEPS + 1):
+            (state, m), rec = watch_host.step(lambda: step_fn(state, batch.to_dict()))
+            steps.append(rec)
             metrics.append({k: float(v) for k, v in m.items()})
             if i == 1:
                 times["moved_after_step1"] = {
@@ -1232,10 +1392,14 @@ def training_path(cfg, params, rollout, kerns, gpu, seed):
         return state
 
     state, secs, counts = run_counted(kerns, run)
+    watch_host.close()
+    later = sorted(r["seconds"] for r in steps[1:])
+    step_s = later[len(later) // 2]
     out = {"phase": "training", "gpu": gpu, "model": "qwen2_1_5b", "layers": cfg.num_layers,
            "batch": B, "seq_len": T, "train_tokens": tokens, "num_microbatches": 4,
            "rewards_mean": float(rewards.mean()), "seconds": secs, **times,
-           "train_tokens_per_s": tokens / times["step2_s"],
+           "steps": steps, "step_s_median": step_s, "step_s_min": later[0],
+           "train_tokens_per_s": tokens / step_s,
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
            "metrics": metrics, "launches": counts}
     emit(out)
@@ -1254,7 +1418,10 @@ def training_path(cfg, params, rollout, kerns, gpu, seed):
 
 
 def profile_train_step(state, batch, step_fn, top: int = 12) -> dict:
-    """Device time by kernel over one more train step under torch.profiler."""
+    """Device time by kernel over one more train step under torch.profiler:
+    the ``top`` kernels, every kernel of the port, and K6's passes (the
+    mean of one launch, and the launches the trace holds), all read from
+    the whole trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1267,9 +1434,16 @@ def profile_train_step(state, batch, step_fn, top: int = 12) -> dict:
               if e.device_time_total > 0 and e.key != "Command Buffer Full"]
     events.sort(key=lambda e: e.device_time_total, reverse=True)
     busy = sum(e.device_time_total for e in events) / 1e3
+    port = [e for e in events if "(anonymous namespace)::" in e.key]
+    k6 = k6_passes({e.key: e.device_time_total / 1e3 / e.count for e in events})
+    k6["launches_traced"] = {p: sum(e.count for e in events if name in e.key)
+                             for p, name in K6_PASSES}
     return {"phase": "train_profile", "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
             "by_kernel_ms": {e.key[:60]: e.device_time_total / 1e3 for e in events[:top]},
-            "by_kernel_calls": {e.key[:60]: e.count for e in events[:top]}}
+            "by_kernel_calls": {e.key[:60]: e.count for e in events[:top]},
+            "port_kernels_ms": {e.key[:60]: e.device_time_total / 1e3 for e in port},
+            "port_kernels_calls": {e.key[:60]: e.count for e in port},
+            "k6_step_ms": k6}
 
 
 def whole_step_check(kerns, seed) -> dict:
@@ -1362,7 +1536,9 @@ def main() -> int:
     from rlinf_tpu_torch.models.llm import model as M
     from rlinf_tpu_torch.models.llm.config import LLMConfig
     from rlinf_tpu_torch.models.llm.quant import QTensor, quantize_params
-    from rlinf_tpu_torch.models.llm.sampler import SamplingParams, generate
+    from rlinf_tpu_torch.models.llm.sampler import (
+        SamplingParams, generate, with_packed_lm_head,
+    )
     from rlinf_tpu_torch.ops.cuda import build, kernels
     from rlinf_tpu_torch.rollout import build_rollout_engine
 
@@ -1516,12 +1692,15 @@ def main() -> int:
     emit({"phase": "engine_kernels", "gpu": gpu, "results": new_results})
     torch.cuda.empty_cache()
 
-    # 9. generate(mega=): phase 3's prompts, the whole decode step in one launch
+    # 9. generate(mega=): phase 3's prompts, the whole decode step in one launch,
+    # on decode weights whose lm head is packed once (as the engines make them)
     with torch.inference_mode():
+        mqparams = with_packed_lm_head(qparams)
+
         def mega_generate(sampling, seed=args.seed + 1):
             return generate(params, cfg, torch.Generator().manual_seed(seed), ids, mask, sampling,
-                            attn_impl="pallas", decode_params=qparams, kv_quant="int8", mega=mega,
-                            device="cuda")
+                            attn_impl="pallas", decode_params=mqparams, kv_quant="int8",
+                            mega=mega, device="cuda")
         out, secs, counts = run_counted(kerns, lambda: mega_generate(sp))
         check_output(out.response_ids.cpu(), out.response_logprobs.cpu(), out.response_mask.cpu(),
                      B, N, cfg.vocab_size)
@@ -1563,7 +1742,7 @@ def main() -> int:
             and stats["paged_attention"]["calls"] == L * 15
             and stats["paged_attention"]["max_abs_err"] < 1e-2):
         raise AssertionError(f"K9/K10 shadow check failed: {stats}")
-    del qparams, mega
+    del qparams, mqparams, mega
     torch.cuda.empty_cache()
 
     # 11. the continuous engine (per-layer and hybrid) and the paged engine
@@ -1584,6 +1763,11 @@ def main() -> int:
                                    pad_id=0).attention_mask[:16]
     results += check_training_kernels(cfg, train_mask, peaks, args.seed)
     emit({"phase": "training_kernels", "gpu": gpu, "results": results[4:]})
+    torch.cuda.empty_cache()
+
+    # 5b. K4 and K6 against their plain versions at ragged shapes
+    with torch.inference_mode():
+        emit({"phase": "ragged_shapes", **ragged_shapes(args.seed)})
     torch.cuda.empty_cache()
 
     # 6. the training path on the rollout, then one more step under the profiler

@@ -16,27 +16,49 @@
 //
 // What bounds them on an H100: operations. At the training shapes (4096
 // rows, D = 1536, V = 151936) K5 is one 1.91 TFLOP product against 0.47 GB
-// of W; K6 is two such products plus 1.24 GB of dz written. The products
-// run on the tensor cores as warp-level mma.sync m16n8k16 bf16 tiles with
-// f32 accumulation: 8 warps of a CTA each own 32 x 32 outputs of a 64 x 128
-// tile, fed from shared memory one 32-deep stage at a time while the next
-// stage's global loads are in flight in registers. wgmma, TMA and a deeper
-// pipeline are later work.
+// of W; K6 is two such products plus 1.24 GB of dz written.
 //
-// Design. A GPU has no sequential grid to carry the running softmax
-// statistics across vocab tiles. K5 gives each CTA 64 rows and one slice
-// of the vocab: it walks the slice's 128-column tiles, keeps per-thread
-// online statistics (max, sum of exp, sum of exp * x, target logit) in
-// registers, merges them across the 4 lanes and the 4 warps that share a
-// row at the end and writes one partial per (slice, row); a second pass merges the slices
-// (the scheme of K4 in sampler.cu). Rows are the fastest grid dimension,
-// so the CTAs in flight read the same W tiles and W comes from device
-// memory about once. K6 runs two passes: pass A writes dz one (64-row,
-// 128-column) tile per CTA; pass B is the product dh = dz W over the
-// whole vocab, one (64-row, 128-column-of-D) tile per CTA, so dh needs no
-// atomics and no cross-CTA reduction.
+// K5 runs its products as warp-level mma.sync m16n8k16 bf16 tiles with f32
+// accumulation: 8 warps of a CTA each own 32 x 32 outputs of a 64 x 128
+// tile, fed from shared memory one 32-deep stage at a time while the next
+// stage's global loads are in flight in registers. It gives each CTA 64 rows
+// and one slice of the vocab: it walks the slice's 128-column tiles, keeps
+// per-thread online statistics (max, sum of exp, sum of exp * x, target
+// logit) in registers, merges them across the 4 lanes and the 4 warps that
+// share a row at the end and writes one partial per (slice, row); a second
+// pass merges the slices (the scheme of K4 in sampler.cu). Rows are the
+// fastest grid dimension, so the CTAs in flight read the same W tiles and W
+// comes from device memory about once.
+//
+// K6 runs on Hopper's asynchronous tensor cores: wgmma.mma_async
+// m64n128k16 bf16 with f32 sums, both operands in shared memory in the
+// 128-byte swizzle, brought in by TMA (cp.async.bulk.tensor.2d on a
+// CUtensorMap) and tracked by mbarriers. One persistent CTA on each SM has a
+// producer warpgroup and two consumer warpgroups (setmaxnreg 40 / 232); a
+// consumer owns whole 128 x 128 output tiles, two m64 halves with 64 f32
+// sums a thread each, and has its own three-stage ring fed by its own
+// producer thread, so each (producer, consumer) pair is a plain pipeline.
+// The CTA's tiles alternate between the two consumers: while one runs its
+// epilogue the other's products keep the tensor cores busy. Two passes, as
+// dw needs dz:
+//   pass A: dz for each (128-row, 128-vocab-column) tile over K = D, rows
+//     the fastest tile index so that the CTAs in flight share W tiles (W is
+//     read from device memory about once, h stays in the L2); the epilogue
+//     works on the accumulators and stores dz in bf16.
+//   pass B: dh = dz W over K = V_pad, thin (4096 x 1536, 384 tiles) and
+//     deep: the vocabulary is cut into s slices of whole 64-blocks
+//     (ops/cuda/linear_ce.py dh_slices picks s so that tiles x s fill whole
+//     rounds of the 264 consumers), each writes f32 partials, and a small
+//     third launch adds them in slice order: deterministic, no atomics.
+// The tied "vd" weight is k-contiguous as pass A's B operand and n-
+// contiguous as pass B's, "dv" the other way round; an n-contiguous B tile
+// is loaded as two 64-column TMA boxes and read with wgmma's transpose bit,
+// not transposed by hand. TMA fills rows past n and columns past V with
+// zeros; the epilogues mask them.
 
 #include "common.cuh"
+
+#include <cuda.h>
 
 namespace {
 
@@ -317,74 +339,335 @@ __global__ void __launch_bounds__(NT) ce_fwd_combine_kernel(
   lse[row] = l;
 }
 
-// K6 pass A: dz for one (64-row, 128-column) tile.
-template <bool KC>
-__global__ void __launch_bounds__(NT) ce_dz_kernel(
-    const __nv_bfloat16* __restrict__ h, const __nv_bfloat16* __restrict__ w,
-    const int* __restrict__ tgt, const float* __restrict__ lse,
-    const float* __restrict__ mu, const float* __restrict__ g_lp,
-    const float* __restrict__ g_ent, __nv_bfloat16* __restrict__ dz, int D, int V,
-    int Vp, int ldw, float inv_temp, bool vec) {
-  __shared__ __align__(16) Tiles sm;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  Acc acc;
-  zero(acc);
-  tile_gemm<KC>(h, D, m0, w, ldw, n0, V, D, vec, sm, acc);
+// ---------------------------------------------------------------------------
+// K6: wgmma with TMA-fed rings
+// ---------------------------------------------------------------------------
+
+constexpr int GM = 128;        // rows of a K6 tile (two m64 wgmma halves)
+constexpr int GN = 128;        // columns of a K6 tile
+constexpr int GK = 64;         // depth of a stage: 128 bytes of bf16, the swizzle span
+constexpr int RING = 3;        // stages of each consumer's ring
+constexpr int TILE_BYTES = GM * GK * 2;     // 16 KB: the A or the B tile of a stage
+constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+constexpr int G_THREADS = 384;              // producer warpgroup + two consumer warpgroups
+constexpr int G_SMEM = 2 * RING * STAGE_BYTES + 1024;  // + room to align the rings to 1024
+constexpr int MERGE_NT = 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// One 2-D TMA box at coordinates (c0 inner, c1 outer) into shared memory;
+// the bytes are counted on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a tile in the 128-byte swizzle (layout type 1):
+// start address, leading and stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// d (+)= A B for one m64n128k16 step; TB = 1: B is n-contiguous (transposed).
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
+                                              uint32_t accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// Keeps the compiler from moving work on the accumulators across a wgmma
+// fence or wait.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+struct GemmArgs {
+  int n, D, V, Vp;
+  int n_items, n_mt, n_nt, n_kb, n_slices;
+  float inv_temp;
+  const int* tgt;
+  const float *lse, *mu, *g_lp, *g_ent;
+  __nv_bfloat16* dz;  // pass A's output [n, Vp]
+  float* part;        // pass B's output [n_slices, n, D]
+};
+
+// A tile index -> its rows m0, columns n0, k-blocks [kb0, kb1) and slice.
+template <int PASS>
+__device__ __forceinline__ void decode_item(const GemmArgs& a, int item, int& m0, int& n0,
+                                            int& kb0, int& kb1, int& slice) {
+  if (PASS == 0) {  // dz: rows fastest
+    m0 = (item % a.n_mt) * GM;
+    n0 = (item / a.n_mt) * GN;
+    kb0 = 0;
+    kb1 = a.n_kb;
+    slice = 0;
+  } else {          // dh partials: hidden columns fastest, then rows, then slices
+    n0 = (item % a.n_nt) * GN;
+    const int rest = item / a.n_nt;
+    m0 = (rest % a.n_mt) * GM;
+    slice = rest / a.n_mt;
+    kb0 = static_cast<int>(static_cast<long long>(slice) * a.n_kb / a.n_slices);
+    kb1 = static_cast<int>(static_cast<long long>(slice + 1) * a.n_kb / a.n_slices);
+  }
+}
+
+// The accumulators of one consumer: acc[h][4 * j + 2 * r + e] holds row
+// m0 + 64 h + 16 warp + lane / 4 + 8 r, column n0 + 8 j + 2 (lane % 4) + e.
+template <int PASS>
+__device__ __forceinline__ void gemm_epilogue(const GemmArgs& a, float (&acc)[2][64], int m0,
+                                              int n0, int slice, int warp, int lane) {
+  const int rq = warp * 16 + lane / 4, cq = 2 * (lane % 4);
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + acc_row(mi, 2 * hh);
-      const float l = lse[row], u = mu[row], gl = g_lp[row], ge = g_ent[row];
-      const int tg = tgt[row];
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        float d[2];
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + 64 * h + rq + 8 * r;
+      if (row >= a.n) continue;
+      if (PASS == 0) {
+        const float l = a.lse[row], u = a.mu[row], gl = a.g_lp[row], ge = a.g_ent[row];
+        const int tg = a.tgt[row];
+        __nv_bfloat16* out = a.dz + (size_t)row * a.Vp + n0 + cq;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = n0 + acc_col(ni, c);
-          d[c] = 0.f;
-          if (col < V) {
-            const float x = acc[mi][ni][2 * hh + c] * inv_temp;
-            const float p = expf(x - l);
-            const float onehot = col == tg ? 1.f : 0.f;
-            d[c] = (gl * (onehot - p) - ge * (p * (x - u))) * inv_temp;
+        for (int j = 0; j < GN / 8; ++j) {
+          float d[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = n0 + 8 * j + cq + e;
+            d[e] = 0.f;
+            if (col < a.V) {
+              const float x = acc[h][4 * j + 2 * r + e] * a.inv_temp;
+              const float p = expf(x - l);
+              const float onehot = col == tg ? 1.f : 0.f;
+              d[e] = (gl * (onehot - p) - ge * (p * (x - u))) * a.inv_temp;
+            }
           }
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) = __floats2bfloat162_rn(d[0], d[1]);
         }
-        const int col = n0 + acc_col(ni, 0);  // even; Vp is even
-        if (col < Vp)
-          *reinterpret_cast<__nv_bfloat162*>(&dz[(size_t)row * Vp + col]) =
-              __floats2bfloat162_rn(d[0], d[1]);
+      } else {
+        float* out = a.part + ((size_t)slice * a.n + row) * a.D + n0 + cq;
+#pragma unroll
+        for (int j = 0; j < GN / 8; ++j)
+          if (n0 + 8 * j + cq < a.D)
+            *reinterpret_cast<float2*>(out + 8 * j) =
+                make_float2(acc[h][4 * j + 2 * r], acc[h][4 * j + 2 * r + 1]);
       }
     }
 }
 
-// K6 pass B: dh = dz[:, :V] W^T for one (64-row, 128-column-of-D) tile.
-template <bool KC>
-__global__ void __launch_bounds__(NT) ce_dh_kernel(
-    const __nv_bfloat16* __restrict__ dz, const __nv_bfloat16* __restrict__ w,
-    __nv_bfloat16* __restrict__ dh, int D, int V, int Vp, int ldw, bool vec) {
-  __shared__ __align__(16) Tiles sm;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  Acc acc;
-  zero(acc);
-  tile_gemm<KC>(dz, Vp, m0, w, ldw, n0, D, V, vec, sm, acc);
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = m0 + acc_row(mi, 2 * hh);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = n0 + acc_col(ni, c);
-          if (col < D) dh[(size_t)row * D + col] = __float2bfloat16(acc[mi][ni][2 * hh + c]);
+// PASS 0: dz tiles (A = h [n, D], B = W as (k = d, n = v)); PASS 1: dh
+// partials (A = dz [n, Vp], B = W as (k = v, n = d)). B_MN: B is
+// n-contiguous in memory.
+template <int PASS, bool B_MN>
+__global__ void __launch_bounds__(G_THREADS, 1) ce_bwd_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+    const GemmArgs a) {
+  extern __shared__ unsigned char g_smem[];
+  __shared__ __align__(8) uint64_t bars[2][2][RING];  // [consumer][full, empty][stage]
+  const uint32_t base = (smem_u32(g_smem) + 1023u) & ~1023u;
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < 2; ++c)
+      for (int s = 0; s < RING; ++s) {
+        mbar_init(smem_u32(&bars[c][0][s]), 1);  // the producer's expect_tx
+        mbar_init(smem_u32(&bars[c][1][s]), 4);  // one arrival per consumer warp
+      }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    // lane 0 of warp c feeds consumer c: the CTA's tiles il = c, c + 2, ...
+    if (warp < 2 && lane == 0) {
+      const int c = warp;
+      const uint32_t ring = base + c * RING * STAGE_BYTES;
+      int k = 0;  // stages issued into this ring
+      for (int il = c;; il += 2) {
+        const int item = blockIdx.x + il * gridDim.x;
+        if (item >= a.n_items) break;
+        int m0, n0, kb0, kb1, slice;
+        decode_item<PASS>(a, item, m0, n0, kb0, kb1, slice);
+        for (int kb = kb0; kb < kb1; ++kb, ++k) {
+          const int s = k % RING;
+          const uint32_t full = smem_u32(&bars[c][0][s]), empty = smem_u32(&bars[c][1][s]);
+          mbar_wait(empty, ((k / RING) & 1) ^ 1);
+          mbar_expect_tx(full, STAGE_BYTES);
+          const uint32_t sa = ring + s * STAGE_BYTES, sb = sa + TILE_BYTES;
+          tma_load(sa, &tm_a, full, kb * GK, m0);
+          if (B_MN) {  // two boxes of 64 k-rows x 64 columns
+            tma_load(sb, &tm_b, full, n0, kb * GK);
+            tma_load(sb + TILE_BYTES / 2, &tm_b, full, n0 + 64, kb * GK);
+          } else {     // one box of 128 rows x 64 k
+            tma_load(sb, &tm_b, full, kb * GK, n0);
+          }
         }
+      }
     }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1;
+    const uint32_t ring = base + c * RING * STAGE_BYTES;
+    float acc[2][64];
+    int k = 0;  // stages consumed from this ring
+    for (int il = c;; il += 2) {
+      const int item = blockIdx.x + il * gridDim.x;
+      if (item >= a.n_items) break;
+      int m0, n0, kb0, kb1, slice;
+      decode_item<PASS>(a, item, m0, n0, kb0, kb1, slice);
+      const int nk = kb1 - kb0;
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      for (int kk = 0; kk < nk; ++kk, ++k) {
+        const int s = k % RING;
+        mbar_wait(smem_u32(&bars[c][0][s]), (k / RING) & 1);
+        const uint32_t sa = ring + s * STAGE_BYTES, sb = sa + TILE_BYTES;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int j = 0; j < GK / 16; ++j) {
+          const uint32_t on = (kk > 0 || j > 0) ? 1u : 0u;
+          // K-major tiles: 128-byte rows, 8-row groups 1024 B apart, k16 = 32 B.
+          // n-contiguous B: 64-column halves 8 KB apart, 8-k groups 1024 B
+          // apart, k16 = 16 rows of 128 B.
+          const uint64_t db = B_MN ? gmma_desc(sb + j * 2048, TILE_BYTES / 2, 1024)
+                                   : gmma_desc(sb + j * 32, 16, 1024);
+          wgmma_m64n128<B_MN ? 1 : 0>(acc[0], gmma_desc(sa + j * 32, 16, 1024), db, on);
+          wgmma_m64n128<B_MN ? 1 : 0>(acc[1], gmma_desc(sa + 8192 + j * 32, 16, 1024), db, on);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the stage before this one is read: give it back to the producer
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (kk > 0 && lane == 0) mbar_arrive(smem_u32(&bars[c][1][(k + RING - 1) % RING]));
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (nk > 0 && lane == 0) mbar_arrive(smem_u32(&bars[c][1][(k + RING - 1) % RING]));
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      gemm_epilogue<PASS>(a, acc, m0, n0, slice, warp, lane);
+    }
+  }
+}
+
+// dh = bf16(sum over slices, in slice order, of part[slice]).
+__global__ void __launch_bounds__(MERGE_NT) dh_merge_kernel(const float* __restrict__ part,
+                                                            __nv_bfloat16* __restrict__ dh,
+                                                            size_t count, int n_slices) {
+  const size_t i = ((size_t)blockIdx.x * MERGE_NT + threadIdx.x) * 4;
+  if (i >= count) return;
+  float4 s = *reinterpret_cast<const float4*>(part + i);
+  for (int k = 1; k < n_slices; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(part + (size_t)k * count + i);
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(dh + i) = __floats2bfloat162_rn(s.x, s.y);
+  *reinterpret_cast<__nv_bfloat162*>(dh + i + 2) = __floats2bfloat162_rn(s.z, s.w);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver-API function: reached through the
+// runtime's entry-point query, so the library links no libcuda.
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A bf16 matrix of `outer` rows of `inner` elements (row stride `ld`) read
+// in boxes of 64 x box_outer with the 128-byte swizzle; out of bounds reads
+// give zeros.
+bool make_map(CUtensorMap* m, const void* ptr, int inner, int outer, int ld, int box_outer) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int PASS, bool B_MN>
+cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb, const GemmArgs& a, int grid,
+                        cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(ce_bwd_gemm_kernel<PASS, B_MN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  if (err != cudaSuccess) return err;
+  const int blocks = grid < a.n_items ? grid : a.n_items;
+  ce_bwd_gemm_kernel<PASS, B_MN><<<blocks, G_THREADS, G_SMEM, st>>>(ta, tb, a);
+  return cudaGetLastError();
+}
+
 
 }  // namespace
 
@@ -420,41 +703,48 @@ extern "C" int linear_ce_fwd(int device, const void* h, const void* w, const voi
   return cudaGetLastError();
 }
 
-// K6. As K5, plus lse, mu, g_lp, g_ent f32 [n]; dz bf16 [n, Vp] (Vp >= V,
-// pad columns written 0); dh bf16 [n, D].
+// K6. As K5, plus lse, mu, g_lp, g_ent f32 [n]; dz bf16 [n, Vp] (Vp a
+// multiple of 128, pad columns written 0); dh bf16 [n, D]; part f32
+// [n_slices, n, D] scratch. D % 8 == 0, and V % 8 == 0 for "dv" (TMA row
+// strides are multiples of 16 bytes). grid: CTAs, at most one an SM.
 extern "C" int linear_ce_bwd(int device, const void* h, const void* w, const void* tgt,
                              const void* lse, const void* mu, const void* g_lp,
-                             const void* g_ent, void* dz, void* dh, int n, int D, int V,
-                             int Vp, int vd, float inv_temp, void* stream) {
+                             const void* g_ent, void* dz, void* dh, void* part, int n, int D,
+                             int V, int Vp, int vd, int n_slices, int grid, float inv_temp,
+                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n % BM != 0 || Vp < V || Vp % 8 != 0) return cudaErrorInvalidValue;
+  if (n < 1 || D % 8 || Vp < V || Vp % GN || (!vd && V % 8) || n_slices < 1 ||
+      n_slices > Vp / GK || grid < 1 || !aligned16(h) || !aligned16(w) || !aligned16(dz))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* hb = static_cast<const __nv_bfloat16*>(h);
-  const auto* wb = static_cast<const __nv_bfloat16*>(w);
-  auto* dzb = static_cast<__nv_bfloat16*>(dz);
-  const int* tg = static_cast<const int*>(tgt);
-  const float* l = static_cast<const float*>(lse);
-  const float* u = static_cast<const float*>(mu);
-  const float* gl = static_cast<const float*>(g_lp);
-  const float* ge = static_cast<const float*>(g_ent);
-  const dim3 grid_a(n / BM, (Vp + BN - 1) / BN);
-  const int ldw = vd ? D : V;
-  const bool vec = aligned16(h) && aligned16(w) && aligned16(dz) && D % 8 == 0 && ldw % 8 == 0;
-  if (vd)
-    ce_dz_kernel<true><<<grid_a, NT, 0, st>>>(hb, wb, tg, l, u, gl, ge, dzb, D, V, Vp, ldw,
-                                               inv_temp, vec);
-  else
-    ce_dz_kernel<false><<<grid_a, NT, 0, st>>>(hb, wb, tg, l, u, gl, ge, dzb, D, V, Vp, ldw,
-                                                inv_temp, vec);
-  err = cudaGetLastError();
+  // W as a matrix: vd [V rows of D], dv [D rows of V]. As B it is k-contiguous
+  // in pass A and n-contiguous in pass B for vd, the other way round for dv.
+  const int w_inner = vd ? D : V, w_outer = vd ? V : D;
+  CUtensorMap tm_h, tm_dz, tm_wa, tm_wb;
+  if (!make_map(&tm_h, h, D, n, D, GM) || !make_map(&tm_dz, dz, Vp, n, Vp, GM) ||
+      !make_map(&tm_wa, w, w_inner, w_outer, w_inner, vd ? GN : 64) ||
+      !make_map(&tm_wb, w, w_inner, w_outer, w_inner, vd ? 64 : GN))
+    return cudaErrorInvalidValue;
+  GemmArgs a{n, D, V, Vp, 0, (n + GM - 1) / GM, Vp / GN, (D + GK - 1) / GK, 1, inv_temp,
+             static_cast<const int*>(tgt), static_cast<const float*>(lse),
+             static_cast<const float*>(mu), static_cast<const float*>(g_lp),
+             static_cast<const float*>(g_ent), static_cast<__nv_bfloat16*>(dz),
+             static_cast<float*>(part)};
+  a.n_items = a.n_mt * a.n_nt;
+  err = vd ? launch_gemm<0, false>(tm_h, tm_wa, a, grid, st)
+           : launch_gemm<0, true>(tm_h, tm_wa, a, grid, st);
   if (err != cudaSuccess) return err;
-  const dim3 grid_b((D + BN - 1) / BN, n / BM);
-  auto* dhb = static_cast<__nv_bfloat16*>(dh);
-  // dh = dz W^T: B(k = vocab, n = hidden) is row-major for vd, k-contiguous for dv
-  if (vd)
-    ce_dh_kernel<false><<<grid_b, NT, 0, st>>>(dzb, wb, dhb, D, V, Vp, ldw, vec);
-  else
-    ce_dh_kernel<true><<<grid_b, NT, 0, st>>>(dzb, wb, dhb, D, V, Vp, ldw, vec);
+  a.n_nt = (D + GN - 1) / GN;
+  a.n_kb = Vp / GK;
+  a.n_slices = n_slices;
+  a.n_items = a.n_nt * a.n_mt * n_slices;
+  err = vd ? launch_gemm<1, true>(tm_dz, tm_wb, a, grid, st)
+           : launch_gemm<1, false>(tm_dz, tm_wb, a, grid, st);
+  if (err != cudaSuccess) return err;
+  const size_t count = (size_t)n * D;
+  const unsigned blocks = static_cast<unsigned>((count / 4 + MERGE_NT - 1) / MERGE_NT);
+  dh_merge_kernel<<<blocks, MERGE_NT, 0, st>>>(static_cast<const float*>(part),
+                                               static_cast<__nv_bfloat16*>(dh), count, n_slices);
   return cudaGetLastError();
 }

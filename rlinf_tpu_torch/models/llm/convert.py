@@ -15,16 +15,17 @@ import torch
 
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import QTensor
+from rlinf_tpu_torch.utils.device import resolve_device
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """A tensor with its own copy of ``a`` (JAX hands out read-only arrays)."""
     a = np.array(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device)
+    return t.to(resolve_device(device))
 
 
 def _convert(node, device):
@@ -35,17 +36,17 @@ def _convert(node, device):
     return tensor_from_numpy(node, device)
 
 
-def params_from_numpy(tree: dict, cfg: LLMConfig, device="cpu") -> dict:
+def params_from_numpy(tree: dict, cfg: LLMConfig, device="cuda") -> dict:
     """Convert a JAX-layout param tree of numpy arrays for ``cfg``."""
     embed_shape = tuple(np.shape(tree["embed"]))
     if embed_shape != (cfg.vocab_size, cfg.hidden_size):
         raise ValueError(
             f"embed shape {embed_shape} does not match the config "
             f"({cfg.vocab_size}, {cfg.hidden_size})")
-    return _convert(tree, torch.device(device))
+    return _convert(tree, resolve_device(device))
 
 
-def cache_from_numpy(tree, device="cpu"):
+def cache_from_numpy(tree, device="cuda"):
     """A KV cache of the JAX package given as numpy arrays -> the port's
     tensors with the same nesting: the stacked int8 cache of the megakernel
     ``(kc, vc, ks, vs)``, per-layer ``(k, v[, k_scale, v_scale])`` tuples, or

@@ -31,6 +31,7 @@ from rlinf_tpu_torch.ops.cuda.decode_attention import (
 )
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from rlinf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, object]
 
@@ -42,11 +43,12 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def init_params(cfg: LLMConfig, seed: int, device="cpu") -> Params:
+def init_params(cfg: LLMConfig, seed: int, device="cuda") -> Params:
     """Random init matching the HF Qwen2 scheme (normal(0.02), ones norms),
     drawn with numpy from ``seed`` so that it does not depend on the device."""
     if cfg.is_moe:
         raise NotImplementedError("MoE layers are not ported yet")
+    device = resolve_device(device)
     dt = cfg.compute_dtype
     d, f, l = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     qd, kvd = cfg.q_dim, cfg.kv_dim
@@ -305,8 +307,9 @@ def prefill(
 PackedKVLayers = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
 
 
-def init_kv_cache_packed(cfg: LLMConfig, batch: int, max_len: int, device="cpu") -> PackedKVLayers:
+def init_kv_cache_packed(cfg: LLMConfig, batch: int, max_len: int, device="cuda") -> PackedKVLayers:
     """Tuple of per-layer (k, v), each [B, S_max, Kv*Hd]."""
+    device = resolve_device(device)
     shape = (batch, max_len, cfg.kv_dim)
     dt = cfg.compute_dtype
     return tuple(
@@ -403,8 +406,9 @@ def decode_step_packed(
 PackedKVQ8Layers = Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], ...]
 
 
-def init_kv_cache_packed_q8(cfg: LLMConfig, batch: int, max_len: int, device="cpu") -> PackedKVQ8Layers:
+def init_kv_cache_packed_q8(cfg: LLMConfig, batch: int, max_len: int, device="cuda") -> PackedKVQ8Layers:
     """Per-layer (k int8 [B,S,KD], v int8, k_scale f32 [B,S], v_scale)."""
+    device = resolve_device(device)
     shape = (batch, max_len, cfg.kv_dim)
     return tuple(
         (torch.zeros(shape, dtype=torch.int8, device=device),

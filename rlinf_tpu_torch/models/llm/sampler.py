@@ -23,7 +23,9 @@ from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import QTensor
 from rlinf_tpu_torch.ops.cuda.decode_megakernel import decode_step_mega
-from rlinf_tpu_torch.ops.cuda.sampler_kernel import fused_lmhead_sample, gumbel_noise
+from rlinf_tpu_torch.ops.cuda.sampler_kernel import (
+    fused_lmhead_sample_packed, gumbel_noise, pack_lm_head,
+)
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import rope_frequencies
 from rlinf_tpu_torch.utils.device import resolve_device
@@ -110,6 +112,17 @@ def _fused_sampler_ok(dparams: M.Params, sp: SamplingParams, device) -> bool:
     )
 
 
+def with_packed_lm_head(dparams: M.Params) -> M.Params:
+    """Decode params with the int8 lm head also packed for the fused
+    sampler (``lm_head_packed``, ops/cuda/sampler_kernel.py pack_lm_head).
+    Called where the decode weights are made, once per set of weights; a
+    dict that already holds the packed head is returned as it is."""
+    if "lm_head_packed" in dparams:
+        return dparams
+    lm = dparams["lm_head"]
+    return {**dparams, "lm_head_packed": pack_lm_head(lm.q, lm.scale)}
+
+
 def _sample_hidden(
     dparams: M.Params,
     cfg: LLMConfig,
@@ -119,12 +132,15 @@ def _sample_hidden(
     use_fused: bool,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """hidden -> (token, behaviour logprob), via the fused lm-head sampler
-    kernel (ops/cuda/sampler_kernel.py) or the plain logits path."""
+    kernel (ops/cuda/sampler_kernel.py) on the head that
+    ``with_packed_lm_head`` packed, or the plain logits path."""
     if use_fused:
-        lm = dparams["lm_head"]
-        return fused_lmhead_sample(
-            hidden.to(cfg.compute_dtype).contiguous(), lm.q, lm.scale, _next_seed(generator),
-            temperature=sp.temperature, greedy=sp.greedy,
+        if "lm_head_packed" not in dparams:
+            raise ValueError("the fused sampler reads the packed lm head: make the decode "
+                             "params with with_packed_lm_head once, before the decode loop")
+        return fused_lmhead_sample_packed(
+            hidden.to(cfg.compute_dtype).contiguous(), dparams["lm_head_packed"],
+            _next_seed(generator), temperature=sp.temperature, greedy=sp.greedy,
         )
     logits = M.lm_head_logits(dparams, cfg, hidden)
     return sample_from_logits(generator, logits, sp)
@@ -149,7 +165,9 @@ def generate(
     """Batched generation on ``device`` (params must live there).
 
     decode_params: optional separate (e.g. int8-quantized) params for the
-    decode loop; prefill always runs on ``params``.
+    decode loop; prefill always runs on ``params``. With the fused sampler
+    their int8 lm head is packed once before the loop unless
+    ``with_packed_lm_head`` already did it.
     kv_quant="int8": int8 KV cache, quantized on write.
     mega: optional (MegaPlan, MegaWeights) from
     ops/cuda/decode_megakernel.pack_decode_weights: the whole decode step
@@ -191,6 +209,8 @@ def generate(
         _fused_sampler_ok(dparams, sp, device) if sampler_impl is None
         else sampler_impl == "fused"
     )
+    if use_fused:
+        dparams = with_packed_lm_head(dparams)     # once, unless the caller packed it
     tok, lp = _sample_hidden(dparams, cfg, generator, last_hidden, sp, use_fused)
     if use_mega:
         # stack the per-layer q8 tuples into [L, B, S, ...] arrays for the

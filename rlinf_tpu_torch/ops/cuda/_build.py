@@ -16,6 +16,7 @@ without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -112,6 +113,13 @@ def load_library(source: str) -> ctypes.CDLL:
 
 def stream_handle() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``: the persistent
+    kernels launch one CTA on each."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class CudaKernel:

@@ -16,24 +16,54 @@ to bf16 before ``dh`` and ``dw`` are formed, and ``dh`` is cast to
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F as C_F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
+    F as C_F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
 )
 
-ROW_BLOCK = 64      # rows per CTA of the kernels (csrc BM)
-VOCAB_TILE = 128    # vocab columns per tile (csrc BN); dz is [rows, V_pad]
+ROW_BLOCK = 64      # rows per CTA of K5 (csrc BM); K6 masks its 128-row tiles
+VOCAB_TILE = 128    # vocab columns per tile (csrc BN, GN); dz is [rows, V_pad]
 TARGET_CTAS = 1056  # K5 splits the vocab until about this many CTAs run
+GEMM_TILE = 128     # K6 tile rows and columns (csrc GM, GN)
+VOCAB_BLOCK = 64    # K6 depth of a stage (csrc GK): pass B's slices are whole blocks
+CONSUMERS = 2       # K6 consumer warpgroups of a CTA (one CTA an SM)
+MAX_SLICES = 32     # most vocab slices of K6 pass B
 
 KERNEL_FWD = CudaKernel(
     "linear_ce.cu", "linear_ce_fwd", [I, P, P, P, P, P, P, P, I, I, I, I, I, C_F, P])
 KERNEL_BWD = CudaKernel(
     "linear_ce.cu", "linear_ce_bwd",
-    [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, C_F, P])
+    [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, C_F, P])
+
+
+def vocab_slices(v_pad: int, n_slices: int) -> List[Tuple[int, int]]:
+    """K6 pass B's cut of [0, v_pad) into ``n_slices`` runs of whole 64-blocks,
+    in order (csrc decode_item: block slice * n_kb // n_slices onward)."""
+    n_kb = -(-v_pad // VOCAB_BLOCK)
+    edges = [s * n_kb // n_slices * VOCAB_BLOCK for s in range(n_slices + 1)]
+    edges[-1] = v_pad
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def dh_slices(n: int, D: int, v_pad: int, sms: int) -> int:
+    """Vocab slices of K6 pass B: the fewest that make tiles x slices fill
+    whole rounds of the card's consumers (two an SM), else the least idle
+    share of the last round. Each slice keeps at least one 64-block."""
+    tiles = -(-n // GEMM_TILE) * -(-D // GEMM_TILE)
+    slots = CONSUMERS * sms
+    best, best_waste = 1, None
+    for s in range(1, min(MAX_SLICES, -(-v_pad // VOCAB_BLOCK)) + 1):
+        items = tiles * s
+        waste = -(-items // slots) * slots / items
+        if best_waste is None or waste < best_waste - 1e-12:
+            best, best_waste = s, waste
+        if items % slots == 0:
+            break
+    return best
 
 
 def _vocab(w: torch.Tensor, w_layout: str) -> int:
@@ -103,19 +133,27 @@ def ce_forward(h2, w, tgt, inv_temp: float, w_layout: str):
 
 def ce_backward(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layout: str):
     """K6 -> (dz bf16 [n, V_pad], dh bf16 [n, D]). CPU tensors run the plain
-    version."""
+    version. Pass B's f32 partials take ``dh_slices`` x n x D x 4 bytes of
+    scratch (277 MB at 4096 rows, D = 1536, 11 slices)."""
     if h2.device.type == "cpu":
         return ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp, w_layout)
     n, D, V = _check_inputs(h2, w, tgt, w_layout)
     for name, t in (("lse", lse), ("mu", mu), ("g_lp", g_lp), ("g_ent", g_ent)):
         check_cuda_tensor(name, t, torch.float32, (n,))
+    if D % 8 or (w_layout == "dv" and V % 8):
+        raise ValueError(f"linear_ce backward: D={D} (and V={V} for dv) must be multiples of 8")
     vp = _v_pad(V)
-    dz = torch.empty((n, vp), dtype=torch.bfloat16, device=h2.device)
-    dh = torch.empty((n, D), dtype=torch.bfloat16, device=h2.device)
+    dev = h2.device
+    sms = sm_count(dev.index)
+    n_slices = dh_slices(n, D, vp, sms)
+    dz = torch.empty((n, vp), dtype=torch.bfloat16, device=dev)
+    dh = torch.empty((n, D), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((n_slices, n, D), dtype=torch.float32, device=dev)
     KERNEL_BWD(
-        h2.device.index, h2.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
+        dev.index, h2.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
         mu.data_ptr(), g_lp.data_ptr(), g_ent.data_ptr(), dz.data_ptr(), dh.data_ptr(),
-        n, D, V, vp, int(w_layout == "vd"), float(inv_temp), stream_handle(),
+        part.data_ptr(), n, D, V, vp, int(w_layout == "vd"), n_slices, sms,
+        float(inv_temp), stream_handle(),
     )
     return dz, dh
 

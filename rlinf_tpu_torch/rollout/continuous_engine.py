@@ -42,7 +42,7 @@ from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import quantize_params
 from rlinf_tpu_torch.models.llm.sampler import (
-    SamplingParams, _sample_hidden, sample_from_logits,
+    SamplingParams, _sample_hidden, sample_from_logits, with_packed_lm_head,
 )
 from rlinf_tpu_torch.ops.cuda.decode_megakernel import (
     decode_step_mega, make_plan, pack_decode_weights,
@@ -290,14 +290,18 @@ class ContinuousBatchingEngine:
     def prepare_params(self, params):
         """Returns (prefill_params, decode_params): identical unless int8
         weight-only decode quantization is enabled. Fresh learner params are
-        re-quantized per rollout; the megakernel's packed copy of them is
-        made only when a decode round first runs on a stacked cache."""
+        re-quantized per rollout, with the fused sampler's packed lm head;
+        the megakernel's packed copy of them is made only when a decode
+        round first runs on a stacked cache."""
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine runs on {self.device}")
         self._mega_mw = None
         if self.weight_quant == "int8":
-            return params, quantize_params(params)
+            dparams = quantize_params(params)
+            if self.sampler_impl == "fused":
+                dparams = with_packed_lm_head(dparams)
+            return params, dparams
         return params, params
 
     def trim_prompt(self, ids: Sequence[int], budget: int) -> List[int]:

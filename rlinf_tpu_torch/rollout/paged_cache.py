@@ -16,6 +16,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from rlinf_tpu_torch.utils.device import resolve_device
+
 
 class PagePool:
     """Allocator over ``num_pages`` pages of ``page_size`` tokens for up to
@@ -119,9 +121,10 @@ class PagePool:
 
 def init_page_pool_cache(
     num_layers: int, num_pages: int, page_size: int, num_kv_heads: int,
-    head_dim: int, dtype=torch.bfloat16, device="cpu",
+    head_dim: int, dtype=torch.bfloat16, device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Device page pools: (k_pages, v_pages) [L, num_pages, Kv, P, Hd]."""
+    device = resolve_device(device)
     shape = (num_layers, num_pages, num_kv_heads, page_size, head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

@@ -35,7 +35,7 @@ torch.set_num_threads(2)
 def _params(jcfg, seed=0):
     tcfg = TConfig(**dataclasses.asdict(jcfg))
     jp = JM.init_params(jcfg, jax.random.PRNGKey(seed))
-    return tcfg, jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    return tcfg, jp, params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -154,7 +154,7 @@ def test_linear_logprobs_dispatch_matches_jax(impl):
     jcfg = JConfig.tiny()
     tcfg = TConfig(**{f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__})
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
     r = np.random.default_rng(5)
     hidden = r.normal(size=(2, 8, jcfg.hidden_size)).astype(np.float32)
     ids = r.integers(0, jcfg.vocab_size, (2, 8)).astype(np.int32)
@@ -163,3 +163,80 @@ def test_linear_logprobs_dispatch_matches_jax(impl):
                                            chunk_size=4)
     for g, w in zip(got, want):
         np.testing.assert_allclose(_np(g), _np(w), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6 pass B's plan: the vocabulary cut into slices whose f32 partials of
+# dh = dz W are added in slice order
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("V", [1000, 1500, 151936])
+def test_vocab_slices_cover_the_padded_vocabulary_in_order(V):
+    vp = tce._v_pad(V)
+    n_kb = -(-vp // tce.VOCAB_BLOCK)
+    counts = {1, 2, 3, 7, min(11, n_kb), n_kb, tce.dh_slices(4096, 1536, vp, 132),
+              tce.dh_slices(64, 64, vp, 132)}
+    for s in sorted(counts):
+        cuts = tce.vocab_slices(vp, s)
+        assert len(cuts) == s and cuts[0][0] == 0 and cuts[-1][1] == vp
+        assert all(a < b for a, b in cuts)                          # none empty
+        assert all(b == c for (_, b), (c, _) in zip(cuts, cuts[1:]))  # in order, no gap or overlap
+        assert all(a % tce.VOCAB_BLOCK == 0 for a, _ in cuts)       # whole 64-blocks
+
+
+def test_dh_slices_fill_whole_rounds_of_the_card():
+    """At the training chunk (4096 rows, D = 1536, Qwen2-1.5B's vocabulary)
+    on 132 SMs: 384 output tiles x 11 slices = 16 rounds of 264 consumers."""
+    vp = tce._v_pad(151936)
+    s = tce.dh_slices(4096, 1536, vp, 132)
+    assert s == 11 and (384 * s) % (tce.CONSUMERS * 132) == 0
+    for n, D, V, sms in ((64, 64, 1000, 132), (4096, 1536, 151936, 114), (320, 200, 1000, 8)):
+        vp = tce._v_pad(V)
+        s = tce.dh_slices(n, D, vp, sms)
+        assert 1 <= s <= min(tce.MAX_SLICES, vp // tce.VOCAB_BLOCK)
+
+
+@pytest.mark.parametrize("w_layout", ["vd", "dv"])
+def test_slice_partials_in_order_give_the_plain_dh(w_layout):
+    """The pass-B scheme on the CPU: f32 partials of dz W over the slices,
+    added in slice order, equal the plain version's dh."""
+    r = np.random.default_rng(6)
+    n, D, V = 128, 24, 1000
+    h = _t(r.normal(size=(n, D)).astype(np.float32))
+    w = _t((r.normal(size=(V, D) if w_layout == "vd" else (D, V)) * 0.2).astype(np.float32))
+    tgt = _t(r.integers(0, V, n).astype(np.int32))
+    _, ent, lse = tce.ce_forward_plain(h, w, tgt, 1.0, w_layout)
+    g = _t(r.normal(size=n).astype(np.float32))
+    dz, dh = tce.ce_backward_plain(h, w, tgt, lse, lse - ent, g, 0.1 * g, 1.0, w_layout)
+    wv = torch.nn.functional.pad(w if w_layout == "vd" else w.t(), (0, 0, 0, dz.shape[1] - V))
+    acc = torch.zeros((n, D))
+    for a, b in tce.vocab_slices(dz.shape[1], 5):
+        acc += dz[:, a:b].float() @ wv[a:b]
+    np.testing.assert_allclose(_np(acc), _np(dh), atol=1e-5, rtol=1e-5)
+
+
+def test_k6_wrapper_and_source_agree_on_their_constants():
+    import re
+
+    from rlinf_tpu_torch.ops.cuda import _build
+
+    text = (_build.CSRC / "linear_ce.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+    assert const("GM") == const("GN") == tce.GEMM_TILE == tce.VOCAB_TILE
+    assert const("GK") == tce.VOCAB_BLOCK and const("BM") == tce.ROW_BLOCK
+    assert "n_slices > Vp / GK" in text       # the source refuses empty slices too
+
+
+def test_backward_wrapper_goes_to_its_kernel_for_tensors_off_the_cpu(monkeypatch):
+    def never(*a, **kw):
+        raise AssertionError("the plain version was called for a tensor off the CPU")
+
+    monkeypatch.setattr(tce, "ce_backward_plain", never)
+    n, D, V = 64, 16, 40
+    meta = dict(device="meta")
+    h, w = torch.zeros((n, D), dtype=torch.bfloat16, **meta), torch.zeros((V, D), dtype=torch.bfloat16, **meta)
+    tgt = torch.zeros((n,), dtype=torch.int32, **meta)
+    f = torch.zeros((n,), **meta)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tce.ce_backward(h, w, tgt, f, f, f, f, 1.0, "vd")
+    assert tce.KERNEL_BWD.launches == 0

@@ -56,7 +56,7 @@ def setup():
     for k in ("bq", "bk", "bv"):
         blocks[k] = jnp.asarray(r.normal(size=blocks[k].shape) * 0.1, blocks[k].dtype)
     jp = dict(jp, blocks=blocks)
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
     jq, tq = j_quantize_params(jp), quantize_params(tp)
     return jcfg, tcfg, jp, tp, jq, tq
 
@@ -135,7 +135,7 @@ def _both_steps(setup, write_pos, positions, starts, seed):
     tcos, tsin = rope_frequencies(tcfg.head_dim_, tcfg.max_seq_len, tcfg.rope_theta)
     twp = int(write_pos) if np.ndim(write_pos) == 0 else torch.as_tensor(write_pos, dtype=torch.int32)
     tout = TMK.decode_step_mega(
-        tplan, tmw, tx0, *cache_from_numpy(cache), twp,
+        tplan, tmw, tx0, *cache_from_numpy(cache, device="cpu"), twp,
         torch.as_tensor(positions, dtype=torch.int32), torch.as_tensor(starts, dtype=torch.int32),
         tcos, tsin)
     tout = [tout[0].float().numpy()] + [t.numpy() for t in tout[1:]]

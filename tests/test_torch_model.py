@@ -73,7 +73,7 @@ def _torch_leaves(tree):
 def test_params_from_numpy_round_trip(dtype):
     jcfg, tcfg = _configs(dtype=dtype)
     jp = _jax_params(jcfg)
-    tp = params_from_numpy(_to_numpy(jp), tcfg)
+    tp = params_from_numpy(_to_numpy(jp), tcfg, device="cpu")
     assert tp["embed"].dtype == tcfg.compute_dtype
     jflat = jax.tree_util.tree_leaves(jp)
     assert len(jflat) == len(_torch_leaves(tp))
@@ -81,17 +81,17 @@ def test_params_from_numpy_round_trip(dtype):
         np.testing.assert_array_equal(_np(tp["blocks"][name]), _np(w))
     np.testing.assert_array_equal(_np(tp["embed"]), _np(jp["embed"]))
     # quantized leaves become the port's QTensor
-    tq = params_from_numpy(_to_numpy(j_quantize_params(jp)), tcfg)
+    tq = params_from_numpy(_to_numpy(j_quantize_params(jp)), tcfg, device="cpu")
     assert isinstance(tq["lm_head"], QTensor) and tq["lm_head"].q.dtype == torch.int8
     with pytest.raises(ValueError):
-        params_from_numpy(_to_numpy(jp), dataclasses.replace(tcfg, vocab_size=7))
+        params_from_numpy(_to_numpy(jp), dataclasses.replace(tcfg, vocab_size=7), device="cpu")
 
 
 def test_quantize_params_matches_jax():
     jcfg, tcfg = _configs()
     jp = _jax_params(jcfg)
     jq = _to_numpy(j_quantize_params(jp))
-    tq = quantize_params(params_from_numpy(_to_numpy(jp), tcfg))
+    tq = quantize_params(params_from_numpy(_to_numpy(jp), tcfg, device="cpu"))
     assert set(tq["blocks"]) == set(jq["blocks"])
     assert {"wqkv", "wgu"} <= set(tq["blocks"]) and "wq" not in tq["blocks"]
     pairs = [(tq["lm_head"], jq["lm_head"])] + [
@@ -108,7 +108,7 @@ def test_quantize_params_matches_jax():
 def test_forward_hidden_and_prefill_match_jax(attn_impl):
     jcfg, tcfg = _configs()
     jp = _jax_params(jcfg)
-    tp = params_from_numpy(_to_numpy(jp), tcfg)
+    tp = params_from_numpy(_to_numpy(jp), tcfg, device="cpu")
     ids, mask = _prompts(tcfg)
     jh, _ = JM.forward_hidden(jp, jcfg, jnp.asarray(ids), attention_mask=jnp.asarray(mask))
     th, _ = TM.forward_hidden(tp, tcfg, torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
@@ -129,7 +129,7 @@ def test_forward_hidden_and_prefill_match_jax(attn_impl):
 def _decode_case(quant_weights):
     jcfg, tcfg = _configs()
     jp = _jax_params(jcfg)
-    tp = params_from_numpy(_to_numpy(jp), tcfg)
+    tp = params_from_numpy(_to_numpy(jp), tcfg, device="cpu")
     ids, mask = _prompts(tcfg)
     B, P = ids.shape
     _, jcache = JM.prefill(jp, jcfg, jnp.asarray(ids), jnp.asarray(mask), P + 4)
@@ -195,10 +195,10 @@ def test_decode_step_packed_q8_matches_jax(ragged):
 
 def test_init_params_seeded_and_moe_rejected():
     _, tcfg = _configs()
-    a = TM.init_params(tcfg, 3)
-    b = TM.init_params(tcfg, 3)
+    a = TM.init_params(tcfg, 3, device="cpu")
+    b = TM.init_params(tcfg, 3, device="cpu")
     assert torch.equal(a["blocks"]["wq"], b["blocks"]["wq"])
     assert a["blocks"]["wq"].shape == (tcfg.num_layers, tcfg.hidden_size, tcfg.q_dim)
     assert "lm_head" not in a and a["blocks"]["bq"].abs().sum() == 0
     with pytest.raises(NotImplementedError):
-        TM.init_params(dataclasses.replace(tcfg, num_experts=4), 0)
+        TM.init_params(dataclasses.replace(tcfg, num_experts=4), 0, device="cpu")

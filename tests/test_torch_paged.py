@@ -55,7 +55,7 @@ def _case(dtype, B=5, H=8, Kv=2, Hd=64, P=16, max_pages=4, seed=0):
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     jargs = (jnp.asarray(q, jdt), jnp.asarray(kp, jdt), jnp.asarray(vp, jdt),
              jnp.asarray(table), jnp.asarray(lengths))
-    targs = cache_from_numpy(tuple(np.asarray(a) for a in jargs))
+    targs = cache_from_numpy(tuple(np.asarray(a) for a in jargs), device="cpu")
     return jargs, targs, lengths
 
 
@@ -133,7 +133,7 @@ def test_page_pool_cache_write_matches_jax():
     r = np.random.default_rng(0)
     L, NP, Kv, P, Hd, B = 2, 7, 2, 4, 8, 3
     jk, jv = JPC.init_page_pool_cache(L, NP, P, Kv, Hd, jnp.float32)
-    tk, tv = TPC.init_page_pool_cache(L, NP, P, Kv, Hd, torch.float32)
+    tk, tv = TPC.init_page_pool_cache(L, NP, P, Kv, Hd, torch.float32, device="cpu")
     assert tuple(tk.shape) == jk.shape == (L, NP, Kv, P, Hd) and not tk.any() and not tv.any()
     k_new, v_new = r.normal(size=(2, B, Kv, Hd)).astype(np.float32)
     pages, offs = np.array([3, 1, 6], np.int32), np.array([0, 3, 2], np.int32)
@@ -153,7 +153,7 @@ def engine_setup():
                    qkv_bias=False, rope_theta=1e4)
     tcfg = TConfig(**dataclasses.asdict(jcfg))
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, tcfg, jp, tp
 
 

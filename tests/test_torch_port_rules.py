@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that no other test holds.
 
 * Nothing under ``rlinf_tpu_torch/`` or in ``chip_smoke.py`` imports
-  ``jax`` or the JAX package ``rlinf_tpu``.
+  ``jax`` or the JAX package ``rlinf_tpu``, and ``chip_smoke.py`` imports
+  nothing of the repo but the port.
 * Every module of the port imports on a machine without ``nvcc`` or a
   card, and importing them loads no JAX.
 * A kernel's launch count rises only for a launch the CUDA runtime
@@ -12,6 +13,7 @@
 * Every source under ``csrc/`` is built and every kernel is registered; a
   wrapper given a CUDA tensor goes to its kernel and raises where that
   cannot be built, it does not take the plain version.
+* A public ``device`` parameter defaults to ``"cuda"`` (or has no default).
 """
 
 import ast
@@ -51,6 +53,42 @@ def test_no_jax_or_reference_imports(path):
     assert path.exists(), path
     bad = [m for m in _imported_modules(path) if m and _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py stands alone beside the port: it loads no script of
+    the repo by path and imports no module of the repo but the port's."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "spec_from_file_location" not in src and "scripts" not in src
+    local = {p.stem for p in ROOT.glob("*.py")} | {p.name for p in ROOT.iterdir() if p.is_dir()}
+    mods = {m.split(".")[0] for m in _imported_modules(ROOT / "chip_smoke.py") if m}
+    assert mods & local <= {"rlinf_tpu_torch"}, mods & local
+
+
+def test_chip_smoke_reads_k6_passes_by_the_source_names():
+    """chip_smoke.py reads K6's pass A, pass B and merge from a profiler
+    trace by kernel name: each name it looks for is a kernel of
+    csrc/linear_ce.cu (pass A and pass B the template's PASS 0 and 1)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cu = (PORT / "csrc" / "linear_ce.cu").read_text()
+    assert re.search(r"template <int PASS, bool B_MN>\s*__global__ .*ce_bwd_gemm_kernel\(", cu)
+    assert re.search(r"__global__ .*dh_merge_kernel\(", cu)
+    names = dict(cs.K6_PASSES)
+    assert names == {"pass_a": "ce_bwd_gemm_kernel<0", "pass_b": "ce_bwd_gemm_kernel<1",
+                     "merge": "dh_merge_kernel"}
+    trace = {"void (anonymous namespace)::ce_bwd_gemm_kernel<0, false>(CUtensorMap, ...)": 3.0,
+             "void (anonymous namespace)::ce_bwd_gemm_kernel<1, true>(CUtensorMap, ...)": 4.0,
+             "void (anonymous namespace)::dh_merge_kernel(float const*, ...)": 0.5,
+             "void (anonymous namespace)::ce_fwd_kernel<true>(...)": 9.0}
+    got = cs.k6_passes(trace, 6e12)
+    assert (got["pass_a_ms"], got["pass_b_ms"], got["merge_ms"]) == (3.0, 4.0, 0.5)
+    assert got["pass_a_tflops"] == pytest.approx(2000.0)
+    with pytest.raises(AssertionError, match="no time for K6"):
+        cs.k6_passes({"void (anonymous namespace)::ce_fwd_kernel<true>(...)": 9.0})
 
 
 def test_port_imports_without_nvcc_or_jax(tmp_path):
@@ -164,7 +202,7 @@ def _mega_call(dev):
 
     cfg = LLMConfig(vocab_size=64, hidden_size=128, num_layers=1, num_heads=2, num_kv_heads=1,
                     head_dim=64, intermediate_size=128, max_seq_len=128)
-    plan, mw = MK.pack_decode_weights(quantize_params(M.init_params(cfg, 0)), cfg)
+    plan, mw = MK.pack_decode_weights(quantize_params(M.init_params(cfg, 0, device="cpu")), cfg)
     mw = type(mw)(*(t.to(dev) for t in mw))
     B, S = 8, 128
     cache = (torch.zeros((1, B, S, 64), dtype=torch.int8, device=dev),
@@ -212,3 +250,72 @@ def test_megakernel_wrapper_and_source_agree_on_their_constants():
     staged = const("MROWS") * (MK.MAX_STAGED_DEPTH + const("APAD")) * 2 + 4 * 2 * const("NW") * 16 * 32
     assert staged <= const("SMEM_CAP") < staged + const("MROWS") * MK.K_BLOCK * 2
     assert text.count("stamp(a.clock") == len(MK.PHASES) + 2
+
+
+# Public functions whose ``device`` may default elsewhere than the card, by
+# (file, name): the rope tables are internal, and every caller passes a device.
+DEVICE_DEFAULT_EXCEPTIONS = {("ops/rope.py", "rope_frequencies")}
+
+
+def _device_defaults(tree):
+    """(function name, line, default source or None) of every ``device``
+    parameter of a public function or of a public class's ``__init__``."""
+    public_classes = {id(f) for c in ast.walk(tree) if isinstance(c, ast.ClassDef)
+                      and not c.name.startswith("_") for f in c.body}
+    for node in ast.walk(tree):
+        if not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if node.name.startswith("_") and not (node.name == "__init__" and id(node) in public_classes):
+            continue
+        a = node.args
+        pos = a.posonlyargs + a.args
+        pairs = list(zip(pos, [None] * (len(pos) - len(a.defaults)) + list(a.defaults)))
+        for arg, default in pairs + list(zip(a.kwonlyargs, a.kw_defaults)):
+            if arg.arg == "device":
+                yield node.name, node.lineno, None if default is None else ast.unparse(default)
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")), ids=lambda p: str(p.relative_to(ROOT)))
+def test_public_device_parameters_default_to_the_card(path):
+    """The port's entry points run on the card unless the caller asks for the
+    CPU: a public ``device`` parameter defaults to "cuda" or has no default."""
+    rel = str(path.relative_to(PORT))
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(name, line, d) for name, line, d in _device_defaults(tree)
+           if d is not None and d != "'cuda'" and (rel, name) not in DEVICE_DEFAULT_EXCEPTIONS]
+    assert not bad, f"{rel}: device defaults other than 'cuda': {bad}"
+
+
+def _tensor_makers():
+    from rlinf_tpu_torch.models.llm import convert as C
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.rollout import paged_cache as PC
+    import numpy as np
+
+    cfg = LLMConfig(vocab_size=16, hidden_size=8, num_layers=1, num_heads=1, num_kv_heads=1,
+                    head_dim=8, intermediate_size=16, max_seq_len=8)
+    tree = {"embed": np.zeros((16, 8), np.float32)}
+    return {
+        "init_params": lambda: M.init_params(cfg, 0),
+        "init_kv_cache_packed": lambda: M.init_kv_cache_packed(cfg, 1, 8),
+        "init_kv_cache_packed_q8": lambda: M.init_kv_cache_packed_q8(cfg, 1, 8),
+        "init_page_pool_cache": lambda: PC.init_page_pool_cache(1, 2, 4, 1, 8),
+        "tensor_from_numpy": lambda: C.tensor_from_numpy(np.zeros(3, np.float32)),
+        "params_from_numpy": lambda: C.params_from_numpy(tree, cfg),
+        "cache_from_numpy": lambda: C.cache_from_numpy((np.zeros(3, np.float32),)),
+    }
+
+
+@pytest.mark.parametrize("name", ["cache_from_numpy", "init_kv_cache_packed",
+                                  "init_kv_cache_packed_q8", "init_page_pool_cache",
+                                  "init_params", "params_from_numpy", "tensor_from_numpy"])
+def test_tensor_makers_default_to_the_card(name, monkeypatch):
+    """With no device given, the functions that make tensors ask for the
+    card, and raise where there is none (instead of making CPU tensors that
+    a later call on the card would not find)."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _tensor_makers()[name]()

@@ -44,7 +44,7 @@ def _setup(seed=0):
     jcfg = JConfig.tiny()
     tcfg = TConfig(**dataclasses.asdict(jcfg))
     jp = JM.init_params(jcfg, jax.random.PRNGKey(seed))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
     r = np.random.default_rng(seed)
     ids = r.integers(1, tcfg.vocab_size, (B, P)).astype(np.int32)
     lens = np.array([P, 5, 11])

@@ -182,7 +182,7 @@ def test_policy_train_step_matches_jax(n_mb, remat, dtype, loss_type, impl):
     opt = dict(lr=1e-3, eps=1e-3, weight_decay=0.01, master_weights=dtype == "bfloat16")
     jp = JM.init_params(jcfg, jax.random.PRNGKey(1))
     p0 = jax.tree_util.tree_map(np.array, jp)       # the JAX step donates jp
-    tp = params_from_numpy(p0, tcfg)
+    tp = params_from_numpy(p0, tcfg, device="cpu")
     batch = _batch(tcfg, decoupled=loss_type == "decoupled")
     batch["ref_logprobs"] = batch["old_logprobs"] + 0.05
 
@@ -229,10 +229,10 @@ def test_grad_and_apply_equals_train_step():
     opt = TS.OptimizerConfig(lr=1e-3)
     batch = _batch(tcfg, seed=3)
     tx = TS.make_optimizer(opt)
-    p1 = TM.init_params(tcfg, 0)
+    p1 = TM.init_params(tcfg, 0, device="cpu")
     s1, m1 = TL.make_policy_train_step(tcfg, loss_cfg, tx, num_microbatches=2, device="cpu")(
         TS.TrainState(0, p1, tx.init(p1)), batch)
-    p2 = TM.init_params(tcfg, 0)
+    p2 = TM.init_params(tcfg, 0, device="cpu")
     grad_step, apply_step, zero_grads = TL.make_policy_grad_and_apply(tcfg, loss_cfg, tx,
                                                                       device="cpu")
     acc = zero_grads(p2)
@@ -250,7 +250,7 @@ def test_logprob_fn_matches_jax(temperature, impl):
     summation-order noise)."""
     jcfg, tcfg = _configs("float32")
     jp = JM.init_params(jcfg, jax.random.PRNGKey(2))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
     batch = _batch(tcfg, seed=4)
     jlp, jent = JL.make_logprob_fn(jcfg, chunk_size=8, temperature=temperature)(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
@@ -264,7 +264,7 @@ def test_logprob_fn_matches_jax(temperature, impl):
 def test_forward_logits_and_remat_options():
     jcfg, tcfg = _configs("float32")
     jp = JM.init_params(jcfg, jax.random.PRNGKey(3))
-    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
     ids = np.random.default_rng(5).integers(0, tcfg.vocab_size, (2, 6)).astype(np.int32)
     got = TM.forward_logits(tp, tcfg, torch.from_numpy(ids), remat=True, unroll_layers=True)
     want = JM.forward_logits(jp, jcfg, jnp.asarray(ids))
