@@ -36,9 +36,14 @@ Phases, each printing one JSON line:
    entropy gradient; K6 also with the untied [D, V] weight, its two
    passes read apart from a profiler trace) and K7/K8 (flash-attention
    backward) at one microbatch of the training batch (16 right-padded
-   rows, T=768), each against its plain version with a stated tolerance
-   and timed beside its bound, its plain version and a library call. Then
-   K4 and K6 against their plain versions at ragged shapes.
+   rows, T=768; K7 forms delta itself), each against its plain version
+   with a stated tolerance and timed beside its bound, its plain version
+   and a library call; the whole flash_attention_bwd call beside the
+   library call; K7/K8 also at ragged shapes (T=700 left-padded at Hd=64,
+   Sq=100, a row with no valid key). Then K4 and K6 against their plain
+   versions at ragged shapes (K6 also at D=100, V=1001), and
+   causal_attention forward + backward through the kernels and the plain
+   path at T = 512-2048 (12,288 tokens each).
 6. training path: GRPO on phase 3's rollout (64 rows as 8 groups of 8,
    a stated reward rule on the token ids), ``build_train_batch`` (T=768),
    ``make_logprob_fn`` (recompute), then four ``make_policy_train_step``
@@ -49,8 +54,8 @@ Phases, each printing one JSON line:
    in it. Gates: every
    training kernel launched, finite loss and grad norm, step-1
    |approx_kl| < 1e-3, params moved. One more step runs under the
-   profiler: device time by kernel, with K6's passes read from the whole
-   trace.
+   profiler: device time by kernel, with K6's passes and K7's and K8's
+   time a step read from the whole trace.
 7. whole-step check: one train step at check_q8_generate's configuration,
    kernels against the plain path from the same params.
 
@@ -640,29 +645,34 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
     valid = torch.as_tensor(attention_mask, device=dev)
     B, T = valid.shape
     pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
-    valid_u8 = valid.to(torch.uint8)
-    q, k, v, do = randn(B, T, H, Hd), randn(B, T, Kv, Hd), randn(B, T, Kv, Hd), randn(B, T, H, Hd)
-    scale = Hd**-0.5
-    o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, valid_u8, scale)
-    got = FA.flash_attention_bwd(q, k, v, pos, pos, valid_u8, o, lse, do, scale)
-    want = FA.flash_attention_bwd_plain(q, k, v, pos, pos, valid_u8, o, lse, do, scale)
-    torch.cuda.synchronize()
-    errs = {nm: rel_err(a, b) for nm, a, b in zip(("dq", "dk", "dv"), got, want)}
-    abs_errs = {nm: (a.float() - b.float()).abs().max().item()
-                for nm, a, b in zip(("dq", "dk", "dv"), got, want)}
-    dq, dk, dv = got
-    del want
-    delta = FA._delta(o, do)
+    args = flash_bwd_inputs(randn, pos, valid, H, Kv, Hd)
+    q, k, v, _, _, valid_u8, o, lse, do, scale = args
+    (dq, dk, dv), errs, abs_errs = flash_bwd_errors(args)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), pos.data_ptr(),
-              valid_u8.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+              valid_u8.data_ptr())
 
     def dims():
         return (B, T, T, H, Kv, Hd, float(scale), torch.cuda.current_stream().cuda_stream)
 
-    ms_dq = cuda_ms(lambda: FA.KERNEL_DQ(0, *common, dq.data_ptr(), *dims()), 5)
-    ms_dkv = cuda_ms(lambda: FA.KERNEL_DKV(0, *common, dk.data_ptr(), dv.data_ptr(), *dims()), 5)
-    plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(
-        q, k, v, pos, pos, valid_u8, o, lse, do, scale), 2, warmup=1)
+    def k7():
+        FA.KERNEL_DQ(0, *common, o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), *dims())
+
+    def k8():
+        FA.KERNEL_DKV(0, *common, do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), *dims())
+
+    k7()
+    torch.cuda.synchronize()
+    delta_err = rel_err(delta, FA._delta(o, do))
+    # right after the multi-GB plain version, a few calls read high: each
+    # timer warms up on ten calls first
+    ms_dq, ms_dkv = cuda_ms(k7, 50, warmup=10), cuda_ms(k8, 50, warmup=10)
+    # the whole call (K7 with its delta, then K8) beside the library's one
+    # call in the same run: the comparison that counts
+    whole_ms = cuda_ms(lambda: FA.flash_attention_bwd(*args), 50, warmup=10)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_bwd_plain(*args), 2, warmup=1)
     mask = (pos[:, None, :] <= pos[:, :, None]) & valid[:, None, :]
     ql = q.transpose(1, 2).detach().requires_grad_(True)
     kl_ = k.detach().requires_grad_(True)
@@ -671,35 +681,127 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
         ql, kl_.repeat_interleave(G, 2).transpose(1, 2), vl.repeat_interleave(G, 2).transpose(1, 2),
         attn_mask=mask[:, None])
     do_t = do.transpose(1, 2)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl_, vl), do_t, retain_graph=True), 5)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(ol, (ql, kl_, vl), do_t, retain_graph=True), 50,
+                     warmup=10)
+    del ql, kl_, vl, ol, do_t
+    ragged = flash_bwd_ragged(randn)
     pairs = int(mask.sum().item())
-    ins = nbytes(q, k, v, do, pos, pos, valid_u8, lse, delta)
-    for name, site, out_bytes, products, ms_k in (
-            ("flash_attention_bwd_dq", 311, nbytes(dq), 3, ms_dq),
-            ("flash_attention_bwd_dkv", 342, nbytes(dk, dv), 4, ms_dkv)):
-        b_ms, b_by = bound(ins + out_bytes, 2.0 * products * Hd * H * pairs, peaks)
-        results.append(dict(
-            name=name, route="cuda", source="rlinf_tpu_torch/csrc/flash_attention_bwd.cu",
-            replaces=f"rlinf_tpu/ops/pallas/flash_attention.py:{site}",
-            shapes=f"q/do[{B},{T},{H},{Hd}] k/v[{B},{T},{Kv},{Hd}] bf16, right-padded rows",
-            max_abs_err=max(abs_errs.values()), rel_err=errs, tolerance_rel=2e-2,
-            ms=ms_k, plain_ms=plain_ms, plain="dq, dk and dv together", library_ms=lib_ms,
-            library="autograd backward of scaled_dot_product_attention (dq, dk, dv)",
-            bound_ms=b_ms, bound_by=b_by))
-    if not max(errs.values()) < 2e-2:
-        raise AssertionError(f"K7/K8 disagree with their plain version: {errs}")
+    common_fields = dict(
+        source="rlinf_tpu_torch/csrc/flash_attention_bwd.cu",
+        shapes=f"q/do[{B},{T},{H},{Hd}] k/v[{B},{T},{Kv},{Hd}] bf16, right-padded rows",
+        max_abs_err=max(abs_errs.values()), rel_err=errs, tolerance_rel=2e-2,
+        plain_ms=plain_ms, plain="dq, dk and dv together (delta included)", library_ms=lib_ms,
+        library="autograd backward of scaled_dot_product_attention (dq, dk, dv)",
+        whole_call_ms=whole_ms, whole_call_over_library=whole_ms / lib_ms)
+    # the bound counts 3 (K7) and 4 (K8) products on the unmasked pairs
+    for name, site, ins, outs, products, ms_k, extra in (
+            ("flash_attention_bwd_dq", 311, nbytes(q, k, v, o, do, pos, pos, valid_u8, lse),
+             nbytes(dq, delta), 3, ms_dq, {"delta_rel_err": delta_err, "ragged": ragged}),
+            ("flash_attention_bwd_dkv", 342, nbytes(q, k, v, do, pos, pos, valid_u8, lse, delta),
+             nbytes(dk, dv), 4, ms_dkv, {})):
+        b_ms, b_by = bound(ins + outs, 2.0 * products * Hd * H * pairs, peaks)
+        results.append(dict(name=name, route="cuda",
+                            replaces=f"rlinf_tpu/ops/pallas/flash_attention.py:{site}",
+                            ms=ms_k, bound_ms=b_ms, bound_by=b_by, **common_fields, **extra))
+    if not (max(errs.values()) < 2e-2 and delta_err < 1e-4):
+        raise AssertionError(f"K7/K8 disagree with their plain version: {errs}, delta {delta_err}")
     return results
+
+
+def flash_bwd_inputs(randn, pos, valid, H, Kv, Hd):
+    """(q, k, v, pos, pos, valid, o, lse, do, scale) of one flash-attention
+    backward: random bf16 inputs, o and lse from K1."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+
+    B, T = valid.shape
+    q, k, v, do = randn(B, T, H, Hd), randn(B, T, Kv, Hd), randn(B, T, Kv, Hd), randn(B, T, H, Hd)
+    valid_u8 = valid.to(torch.uint8)
+    scale = Hd**-0.5
+    o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, valid_u8, scale)
+    return q, k, v, pos, pos, valid_u8, o, lse, do, scale
+
+
+def flash_bwd_errors(args):
+    """K7 + K8 against their plain version on the same inputs -> (their
+    (dq, dk, dv), relative errors, absolute errors)."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+
+    got = FA.flash_attention_bwd(*args)
+    want = FA.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    return (got, {nm: rel_err(a, b) for nm, a, b in zip(names, got, want)},
+            {nm: (a.float() - b.float()).abs().max().item() for nm, a, b in zip(names, got, want)})
+
+
+def flash_bwd_ragged(randn) -> dict:
+    """K7 + K8 against their plain version where the tiles leave ragged
+    edges, at the main check's bar (relative error < 2e-2 on dq, dk, dv):
+    T=700 left-padded at Hd=64 with H=14, Kv=2 (Qwen2-0.5B's heads), and
+    Sq=Sk=100 right-padded at Hd=128; in each, row 1 has no valid key, and
+    its gradients must be exactly zero."""
+    out = {}
+    for B, T, H, Kv, Hd, left in ((4, 700, 14, 2, 64, True), (3, 100, 12, 2, 128, False)):
+        lens = torch.linspace(T // 3, T, B, device="cuda").round().long().flip(0)
+        ar = torch.arange(T, device="cuda")[None]
+        valid = ar >= (T - lens)[:, None] if left else ar < lens[:, None]
+        pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
+        valid[1] = False
+        args = flash_bwd_inputs(randn, pos, valid, H, Kv, Hd)
+        got, errs, _ = flash_bwd_errors(args)
+        key = f"{'left' if left else 'right'}-padded B={B} T={T} H={H} Kv={Kv} Hd={Hd}"
+        out[key] = {"rel_err": errs,
+                    "masked_row_zero": all(bool((t[1] == 0).all().item()) for t in got)}
+        if not (max(errs.values()) < 2e-2 and out[key]["masked_row_zero"]):
+            raise AssertionError(f"K7/K8 at {key}: {out[key]}")
+    return out
+
+
+def attn_impl_crossover(cfg, seed) -> dict:
+    """causal_attention forward + backward through the kernels
+    (impl="pallas": K1, K7, K8) and through the plain path (impl="xla") on
+    one Qwen2-1.5B layer's q, k, v at a fixed 12,288 tokens, for T = 512,
+    768, 1024 and 2048 (B = 12,288 / T, no padding). Each time is the mean
+    of 50 calls after 10 warm-up calls. It records the plain path's time
+    over the kernels' at each T and the pairs of neighbouring T between
+    which the faster path changes (none where one path wins throughout);
+    resolve_attn_impl's threshold (1024 tokens) is not changed by it."""
+    from rlinf_tpu_torch.ops.attention import causal_attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 30)
+    H, Kv, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    out = {}
+    for T in (512, 768, 1024, 2048):
+        B = 12288 // T
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
+                       for shape in ((B, T, H, Hd), (B, T, Kv, Hd), (B, T, Kv, Hd), (B, T, H, Hd)))
+        row = {"batch": B}
+        for impl in ("pallas", "xla"):
+            def step():
+                qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+                torch.autograd.backward(causal_attention(qq, kk, vv, impl=impl), do)
+            row[f"{impl}_ms"] = cuda_ms(step, 50, warmup=10)
+        row["xla_over_pallas"] = row["xla_ms"] / row["pallas_ms"]
+        out[f"T={T}"] = row
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    wins = [(int(key[2:]), r["xla_over_pallas"] > 1) for key, r in out.items()]
+    out["kernels_win_at_T"] = [T for T, won in wins if won]
+    out["crossover_between_T"] = [[t0, t1] for (t0, w0), (t1, w1) in zip(wins, wins[1:])
+                                  if w0 != w1]
+    return out
 
 
 def ragged_shapes(seed) -> dict:
     """K4 and K6 against their plain versions where the shapes leave ragged
     edges: K4 at B = 100 (a full and a partial row block) and at D = 200,
     V = 1000 (the packed head padded in depth and vocabulary); K6 at 320
-    rows (two and a half 128-row tiles), D = 200, V = 1000, both layouts.
-    Bars as at the main shapes: K4 greedy tokens equal and logprob error
-    < 5e-3, K6 relative error < 1e-2 and the pad columns of dz zero."""
+    rows (two and a half 128-row tiles), D = 200, V = 1000, and at D = 100,
+    V = 1001 (depth zero-padded to 104, the untied weight's rows to 1008),
+    both layouts. Bars as at the main shapes: K4 greedy tokens equal and
+    logprob error < 5e-3, K6 relative error < 1e-2 and the pad columns of
+    dz zero."""
     from rlinf_tpu_torch.models.llm.quant import quantize_tensor
-    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
     from rlinf_tpu_torch.ops.cuda import sampler_kernel as SK
 
     g = torch.Generator(device="cuda").manual_seed(seed + 42)
@@ -718,7 +820,17 @@ def ragged_shapes(seed) -> dict:
         out[f"K4 B={B} D={D} V={V}"] = r
         if r["greedy_agree"] != 1.0 or not r["lp_err"] < 5e-3:
             raise AssertionError(f"K4 at B={B}, D={D}, V={V}: {r}")
-    n, D, V = 320, 200, 1000
+    for n, D, V in ((320, 200, 1000), (320, 100, 1001)):
+        out.update(k6_ragged(g, n, D, V))
+    return out
+
+
+def k6_ragged(g, n, D, V) -> dict:
+    """K6 against its plain version at n rows, depth D and vocabulary V, in
+    both layouts: relative error < 1e-2 on dz and dh, pad columns of dz 0."""
+    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
+
+    out = {}
     h = torch.randn((n, D), generator=g, device="cuda").bfloat16()
     tgt = torch.randint(0, V, (n,), generator=g, device="cuda", dtype=torch.int32)
     g_lp = torch.randn((n,), generator=g, device="cuda")
@@ -865,6 +977,25 @@ def device_ms_by_kernel(fn, calls: int):
               if e.device_time_total > 0 and e.key != "Command Buffer Full"]
     return ({e.key: e.device_time_total / 1e3 / e.count for e in events},
             {e.key: e.count for e in events})
+
+
+# K7's and K8's kernels by the names the trace gives them
+# (csrc/flash_attention_bwd.cu)
+FLASH_BWD_KERNELS = (("dq", "flash_bwd_dq_kernel"), ("dkv", "flash_bwd_dkv_kernel"))
+
+
+def flash_bwd_step(events) -> dict:
+    """K7's and K8's device ms and launches in a trace's events (the
+    profiler's key_averages), summed over the whole trace. Raises where the
+    trace holds no time for one of them."""
+    out = {}
+    for p, name in FLASH_BWD_KERNELS:
+        mine = [e for e in events if name in e.key]
+        out[f"{p}_ms"] = sum(e.device_time_total for e in mine) / 1e3
+        out[f"{p}_launches_traced"] = sum(e.count for e in mine)
+        if not out[f"{p}_ms"] > 0:
+            raise AssertionError(f"the trace holds no time for {name}: {[e.key for e in events]}")
+    return out
 
 
 # K6 calls in the trace that reads its passes apart (launches_traced tells
@@ -1419,9 +1550,9 @@ def training_path(cfg, params, rollout, kerns, gpu, seed):
 
 def profile_train_step(state, batch, step_fn, top: int = 12) -> dict:
     """Device time by kernel over one more train step under torch.profiler:
-    the ``top`` kernels, every kernel of the port, and K6's passes (the
-    mean of one launch, and the launches the trace holds), all read from
-    the whole trace."""
+    the ``top`` kernels, every kernel of the port, K6's passes (the mean of
+    one launch, and the launches the trace holds) and K7's and K8's time a
+    step and launches, all read from the whole trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1443,7 +1574,7 @@ def profile_train_step(state, batch, step_fn, top: int = 12) -> dict:
             "by_kernel_calls": {e.key[:60]: e.count for e in events[:top]},
             "port_kernels_ms": {e.key[:60]: e.device_time_total / 1e3 for e in port},
             "port_kernels_calls": {e.key[:60]: e.count for e in port},
-            "k6_step_ms": k6}
+            "k6_step_ms": k6, "k7_k8_step": flash_bwd_step(events)}
 
 
 def whole_step_check(kerns, seed) -> dict:
@@ -1768,6 +1899,10 @@ def main() -> int:
     # 5b. K4 and K6 against their plain versions at ragged shapes
     with torch.inference_mode():
         emit({"phase": "ragged_shapes", **ragged_shapes(args.seed)})
+    torch.cuda.empty_cache()
+
+    # 5c. where the kernels overtake the plain attention path
+    emit({"phase": "attn_impl_threshold", "gpu": gpu, **attn_impl_crossover(cfg, args.seed)})
     torch.cuda.empty_cache()
 
     # 6. the training path on the rollout, then one more step under the profiler

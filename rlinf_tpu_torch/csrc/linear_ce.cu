@@ -54,11 +54,14 @@
 // contiguous as pass B's, "dv" the other way round; an n-contiguous B tile
 // is loaded as two 64-column TMA boxes and read with wgmma's transpose bit,
 // not transposed by hand. TMA fills rows past n and columns past V with
-// zeros; the epilogues mask them.
+// zeros; the epilogues mask them. TMA row strides are multiples of 16
+// bytes, so the wrapper zero-pads the depth D to a multiple of 8 (a zero
+// depth column changes no logit) and, for an untied [D, V] weight with
+// V % 8 != 0, copies W into rows of a multiple of 8 and passes that row
+// stride as ldw: the maps still read only V columns, so pad columns stay
+// masked. The TMA, mbarrier and wgmma primitives are in hopper.cuh.
 
-#include "common.cuh"
-
-#include <cuda.h>
+#include "hopper.cuh"
 
 namespace {
 
@@ -353,85 +356,6 @@ constexpr int G_THREADS = 384;              // producer warpgroup + two consumer
 constexpr int G_SMEM = 2 * RING * STAGE_BYTES + 1024;  // + room to align the rings to 1024
 constexpr int MERGE_NT = 256;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// One 2-D TMA box at coordinates (c0 inner, c1 outer) into shared memory;
-// the bytes are counted on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma matrix descriptor of a tile in the 128-byte swizzle (layout type 1):
-// start address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// d (+)= A B for one m64n128k16 step; TB = 1: B is n-contiguous (transposed).
-template <int TB>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              uint32_t accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
-}
-
-// Keeps the compiler from moving work on the accumulators across a wgmma
-// fence or wait.
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 struct GemmArgs {
   int n, D, V, Vp;
   int n_items, n_mt, n_nt, n_kb, n_slices;
@@ -523,7 +447,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) ce_bwd_gemm_kernel(
         mbar_init(smem_u32(&bars[c][0][s]), 1);  // the producer's expect_tx
         mbar_init(smem_u32(&bars[c][1][s]), 4);  // one arrival per consumer warp
       }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -567,13 +491,13 @@ __global__ void __launch_bounds__(G_THREADS, 1) ce_bwd_gemm_kernel(
       int m0, n0, kb0, kb1, slice;
       decode_item<PASS>(a, item, m0, n0, kb0, kb1, slice);
       const int nk = kb1 - kb0;
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
       for (int kk = 0; kk < nk; ++kk, ++k) {
         const int s = k % RING;
         mbar_wait(smem_u32(&bars[c][0][s]), (k / RING) & 1);
         const uint32_t sa = ring + s * STAGE_BYTES, sb = sa + TILE_BYTES;
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        wgmma_fence();
 #pragma unroll
         for (int j = 0; j < GK / 16; ++j) {
           const uint32_t on = (kk > 0 || j > 0) ? 1u : 0u;
@@ -582,18 +506,18 @@ __global__ void __launch_bounds__(G_THREADS, 1) ce_bwd_gemm_kernel(
           // apart, k16 = 16 rows of 128 B.
           const uint64_t db = B_MN ? gmma_desc(sb + j * 2048, TILE_BYTES / 2, 1024)
                                    : gmma_desc(sb + j * 32, 16, 1024);
-          wgmma_m64n128<B_MN ? 1 : 0>(acc[0], gmma_desc(sa + j * 32, 16, 1024), db, on);
-          wgmma_m64n128<B_MN ? 1 : 0>(acc[1], gmma_desc(sa + 8192 + j * 32, 16, 1024), db, on);
+          wgmma_ss<GN, B_MN ? 1 : 0>(acc[0], gmma_desc(sa + j * 32, 16, 1024), db, on);
+          wgmma_ss<GN, B_MN ? 1 : 0>(acc[1], gmma_desc(sa + 8192 + j * 32, 16, 1024), db, on);
         }
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        wgmma_commit();
         // the stage before this one is read: give it back to the producer
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        wgmma_wait<1>();
         if (kk > 0 && lane == 0) mbar_arrive(smem_u32(&bars[c][1][(k + RING - 1) % RING]));
       }
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_wait<0>();
       if (nk > 0 && lane == 0) mbar_arrive(smem_u32(&bars[c][1][(k + RING - 1) % RING]));
-      fence_acc(acc[0]);
-      fence_acc(acc[1]);
+      fence_regs(acc[0]);
+      fence_regs(acc[1]);
       gemm_epilogue<PASS>(a, acc, m0, n0, slice, warp, lane);
     }
   }
@@ -618,44 +542,6 @@ __global__ void __launch_bounds__(MERGE_NT) dh_merge_kernel(const float* __restr
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function: reached through the
-// runtime's entry-point query, so the library links no libcuda.
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A bf16 matrix of `outer` rows of `inner` elements (row stride `ld`) read
-// in boxes of 64 x box_outer with the 128-byte swizzle; out of bounds reads
-// give zeros.
-bool make_map(CUtensorMap* m, const void* ptr, int inner, int outer, int ld, int box_outer) {
-  const EncodeTiledFn enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int PASS, bool B_MN>
 cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb, const GemmArgs& a, int grid,
@@ -705,26 +591,30 @@ extern "C" int linear_ce_fwd(int device, const void* h, const void* w, const voi
 
 // K6. As K5, plus lse, mu, g_lp, g_ent f32 [n]; dz bf16 [n, Vp] (Vp a
 // multiple of 128, pad columns written 0); dh bf16 [n, D]; part f32
-// [n_slices, n, D] scratch. D % 8 == 0, and V % 8 == 0 for "dv" (TMA row
-// strides are multiples of 16 bytes). grid: CTAs, at most one an SM.
+// [n_slices, n, D] scratch. W's rows are ldw elements apart (ldw >= D for
+// vd, >= V for dv); D and ldw are multiples of 8, as TMA row strides are
+// multiples of 16 bytes (ops/cuda/linear_ce.py pads them). grid: CTAs, at
+// most one an SM.
 extern "C" int linear_ce_bwd(int device, const void* h, const void* w, const void* tgt,
                              const void* lse, const void* mu, const void* g_lp,
                              const void* g_ent, void* dz, void* dh, void* part, int n, int D,
-                             int V, int Vp, int vd, int n_slices, int grid, float inv_temp,
-                             void* stream) {
+                             int V, int Vp, int ldw, int vd, int n_slices, int grid,
+                             float inv_temp, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (n < 1 || D % 8 || Vp < V || Vp % GN || (!vd && V % 8) || n_slices < 1 ||
-      n_slices > Vp / GK || grid < 1 || !aligned16(h) || !aligned16(w) || !aligned16(dz))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   // W as a matrix: vd [V rows of D], dv [D rows of V]. As B it is k-contiguous
   // in pass A and n-contiguous in pass B for vd, the other way round for dv.
   const int w_inner = vd ? D : V, w_outer = vd ? V : D;
+  if (n < 1 || D % 8 || Vp < V || Vp % GN || ldw % 8 || ldw < w_inner || n_slices < 1 ||
+      n_slices > Vp / GK || grid < 1 || !aligned16(h) || !aligned16(w) || !aligned16(dz))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // The maps read W's real extent (TMA fills what lies past it with zeros),
+  // so pad columns of a padded row stride are never read.
   CUtensorMap tm_h, tm_dz, tm_wa, tm_wb;
   if (!make_map(&tm_h, h, D, n, D, GM) || !make_map(&tm_dz, dz, Vp, n, Vp, GM) ||
-      !make_map(&tm_wa, w, w_inner, w_outer, w_inner, vd ? GN : 64) ||
-      !make_map(&tm_wb, w, w_inner, w_outer, w_inner, vd ? 64 : GN))
+      !make_map(&tm_wa, w, w_inner, w_outer, ldw, vd ? GN : 64) ||
+      !make_map(&tm_wb, w, w_inner, w_outer, ldw, vd ? 64 : GN))
     return cudaErrorInvalidValue;
   GemmArgs a{n, D, V, Vp, 0, (n + GM - 1) / GM, Vp / GN, (D + GK - 1) / GK, 1, inv_temp,
              static_cast<const int*>(tgt), static_cast<const float*>(lse),

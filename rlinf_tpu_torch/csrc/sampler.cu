@@ -54,7 +54,7 @@
 // tiling, and ops/cuda/sampler_kernel.py reproduces it bit for bit in torch;
 // the uniform takes 23 mantissa bits, as the TPU kernel does.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -160,71 +160,6 @@ __device__ __forceinline__ uint32_t word(const uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma descriptor of a K-major tile in the 128-byte swizzle (layout type
-// 1): 128-byte rows, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// d (+)= A B for one m64nNk16 step: A (64 vocab columns x 16 depths) from
-// registers, B (16 depths x N hidden rows) from shared memory.
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
-                                         uint32_t accumulate) {
-  if constexpr (N == 16) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  }
-  if constexpr (N == 32) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  }
-  if constexpr (N == 64) {
-    asm volatile(
-        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-  }
-}
-
-// Keep the compiler from moving or reusing registers that an asynchronous
-// wgmma reads or writes across a fence or wait.
-template <int K>
-__device__ __forceinline__ void fence_regs(float (&d)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&f)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[j][i])::"memory");
-}
-
 __device__ __forceinline__ void wg_barrier(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
@@ -321,14 +256,14 @@ __global__ void __launch_bounds__(NT, 1) sample_kernel(const SampleArgs a) {
             f[j][2] = r0w[1];
             f[j][3] = r1w[1];
           }
-          asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          wgmma_fence();
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            wgmma_rs<N>(acc, f[j], gmma_desc(hid + kb * N * 128 + j * 32),
+            wgmma_rs<N, 0>(acc, f[j], gmma_desc(hid + kb * N * 128 + j * 32, 16, 1024),
                         (kb > 0 || j > 0) ? 1u : 0u);
-          asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+          wgmma_commit();
           // the previous k-block's products are done: its fragments may change
-          asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+          wgmma_wait<1>();
           fence_regs(af[(u & 1) ^ 1]);
           // refill this slot: U k-blocks ahead, into the next group once this
           // one's depth is issued
@@ -336,7 +271,7 @@ __global__ void __launch_bounds__(NT, 1) sample_kernel(const SampleArgs a) {
           if (nxt < total) load(nxt, wv[u]);
         }
       }
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      wgmma_wait<0>();
       fence_regs(acc);
       fence_regs(af[0]);
       fence_regs(af[1]);

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, under
 ``<checkout>/build/kernels`` (listed in ``.gitignore``). The file name holds
-a hash of the source, the shared header and the flags, so an edit rebuilds
+a hash of the source, the shared headers and the flags, so an edit rebuilds
 and an unchanged source is loaded as it is. The library is bound with
 ``ctypes``: every entry point takes device pointers, sizes and the CUDA
 stream, launches on that stream, allocates nothing, and returns
@@ -40,6 +40,8 @@ SOURCES = (
     "decode_megakernel.cu",
 )
 
+HEADERS = ("common.cuh", "hopper.cuh")
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -58,7 +60,7 @@ def _nvcc() -> str:
 
 def _library_path(source: str) -> Path:
     h = hashlib.sha256()
-    for name in (source, "common.cuh"):
+    for name in (source, *HEADERS):
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"

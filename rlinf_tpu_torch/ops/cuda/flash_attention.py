@@ -36,7 +36,7 @@ KERNEL = CudaKernel(
 )
 KERNEL_DQ = CudaKernel(
     "flash_attention_bwd.cu", "flash_attention_bwd_dq",
-    [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
 )
 KERNEL_DKV = CudaKernel(
     "flash_attention_bwd.cu", "flash_attention_bwd_dkv",
@@ -109,8 +109,8 @@ def flash_attention_fwd(
 
 
 def _delta(o, do):
-    """rowsum(o * do) in fp32 -> [B, H, Sq], formed outside the kernels as
-    the JAX package forms it."""
+    """rowsum(o * do) in fp32 -> [B, H, Sq], as the JAX package forms it
+    outside its kernels (on the card K7 forms it in its prologue)."""
     return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -141,16 +141,18 @@ def flash_attention_bwd_plain(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
 
 def flash_attention_bwd(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
     """K7 + K8 -> (dq, dk, dv) from the forward's o and lse and the output
-    gradient do. CPU tensors run the plain version."""
+    gradient do. K7 forms delta = rowsum(o * do) itself and writes it for
+    K8, which runs after it on the same stream. CPU tensors run the plain
+    version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale)
     B, Sq, H, D = q.shape
-    delta = _delta(o, do)
     Sk, K = k.shape[1], k.shape[2]
     if D not in (64, 128) or K == 0 or H % K:
         raise ValueError(f"flash_attention_bwd: unsupported H={H} K={K} D={D}")
-    for name, t, shape in (("q", q, (B, Sq, H, D)), ("do", do, (B, Sq, H, D)),
-                           ("k", k, (B, Sk, K, D)), ("v", v, (B, Sk, K, D))):
+    for name, t, shape in (("q", q, (B, Sq, H, D)), ("o", o, (B, Sq, H, D)),
+                           ("do", do, (B, Sq, H, D)), ("k", k, (B, Sk, K, D)),
+                           ("v", v, (B, Sk, K, D))):
         check_cuda_tensor(name, t, torch.bfloat16, shape)
     check_cuda_tensor("pos_q", pos_q, torch.int32, (B, Sq))
     check_cuda_tensor("pos_kv", pos_kv, torch.int32, (B, Sk))
@@ -159,11 +161,14 @@ def flash_attention_bwd(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
-              valid.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr())
+              valid.data_ptr())
     dims = (B, Sq, Sk, H, K, D, float(scale), stream_handle())
-    KERNEL_DQ(q.device.index, *common, dq.data_ptr(), *dims)
-    KERNEL_DKV(q.device.index, *common, dk.data_ptr(), dv.data_ptr(), *dims)
+    KERNEL_DQ(q.device.index, *common, o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+              delta.data_ptr(), dq.data_ptr(), *dims)
+    KERNEL_DKV(q.device.index, *common, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               dk.data_ptr(), dv.data_ptr(), *dims)
     return dq, dk, dv
 
 

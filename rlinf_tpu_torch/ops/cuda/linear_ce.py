@@ -32,12 +32,13 @@ GEMM_TILE = 128     # K6 tile rows and columns (csrc GM, GN)
 VOCAB_BLOCK = 64    # K6 depth of a stage (csrc GK): pass B's slices are whole blocks
 CONSUMERS = 2       # K6 consumer warpgroups of a CTA (one CTA an SM)
 MAX_SLICES = 32     # most vocab slices of K6 pass B
+ROW_ALIGN = 8       # K6's TMA row strides are multiples of 16 bytes: 8 bf16
 
 KERNEL_FWD = CudaKernel(
     "linear_ce.cu", "linear_ce_fwd", [I, P, P, P, P, P, P, P, I, I, I, I, I, C_F, P])
 KERNEL_BWD = CudaKernel(
     "linear_ce.cu", "linear_ce_bwd",
-    [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, C_F, P])
+    [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, C_F, P])
 
 
 def vocab_slices(v_pad: int, n_slices: int) -> List[Tuple[int, int]]:
@@ -101,6 +102,17 @@ def ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layou
     return F.pad(dz, (0, _v_pad(V) - V)), dh
 
 
+def pad_depth(h2, w, w_layout: str):
+    """(h2, w) with the depth D zero-padded to a multiple of ``ROW_ALIGN``,
+    as K6's tensor maps need. Exact: a zero depth column adds nothing to
+    any logit, and the pad columns of dh are sliced off."""
+    pad = (-h2.shape[1]) % ROW_ALIGN
+    if not pad:
+        return h2, w
+    w = F.pad(w, (0, 0, 0, pad)) if w_layout == "dv" else F.pad(w, (0, pad))
+    return F.pad(h2, (0, pad)), w
+
+
 def _check_inputs(h2, w, tgt, w_layout):
     n, D = h2.shape
     V = _vocab(w, w_layout)
@@ -133,28 +145,40 @@ def ce_forward(h2, w, tgt, inv_temp: float, w_layout: str):
 
 def ce_backward(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layout: str):
     """K6 -> (dz bf16 [n, V_pad], dh bf16 [n, D]). CPU tensors run the plain
-    version. Pass B's f32 partials take ``dh_slices`` x n x D x 4 bytes of
-    scratch (277 MB at 4096 rows, D = 1536, 11 slices)."""
+    version. Any D and V: the depth is zero-padded to a multiple of 8
+    (``pad_depth``), and an untied ``[D, V]`` weight with V % 8 != 0 is
+    copied into rows of a multiple of 8 whose stride the kernel takes apart
+    from V. Either padding copies the whole weight (and the depth padding
+    h2) on every call: a configuration with D % 8 != 0, or an untied weight
+    with V % 8 != 0, pays one [V, D] copy per train-step chunk; D = 1536,
+    V = 151936 pay none. Pass B's f32 partials take ``dh_slices`` x n x D x
+    4 bytes of scratch (277 MB at 4096 rows, D = 1536, 11 slices)."""
     if h2.device.type == "cpu":
         return ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp, w_layout)
     n, D, V = _check_inputs(h2, w, tgt, w_layout)
     for name, t in (("lse", lse), ("mu", mu), ("g_lp", g_lp), ("g_ent", g_ent)):
         check_cuda_tensor(name, t, torch.float32, (n,))
-    if D % 8 or (w_layout == "dv" and V % 8):
-        raise ValueError(f"linear_ce backward: D={D} (and V={V} for dv) must be multiples of 8")
+    h2p, wp = pad_depth(h2, w, w_layout)
+    if w_layout == "dv" and V % ROW_ALIGN:
+        # rows of a multiple of 8: the kernel reads V columns of each, so the
+        # pad columns stay masked like those past V
+        wp = F.pad(wp, (0, (-V) % ROW_ALIGN))
+    Dp = h2p.shape[1]
     vp = _v_pad(V)
     dev = h2.device
     sms = sm_count(dev.index)
-    n_slices = dh_slices(n, D, vp, sms)
+    n_slices = dh_slices(n, Dp, vp, sms)
     dz = torch.empty((n, vp), dtype=torch.bfloat16, device=dev)
-    dh = torch.empty((n, D), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((n_slices, n, D), dtype=torch.float32, device=dev)
+    dh = torch.empty((n, Dp), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((n_slices, n, Dp), dtype=torch.float32, device=dev)
     KERNEL_BWD(
-        dev.index, h2.data_ptr(), w.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
+        dev.index, h2p.data_ptr(), wp.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
         mu.data_ptr(), g_lp.data_ptr(), g_ent.data_ptr(), dz.data_ptr(), dh.data_ptr(),
-        part.data_ptr(), n, D, V, vp, int(w_layout == "vd"), n_slices, sms,
+        part.data_ptr(), n, Dp, V, vp, wp.shape[1], int(w_layout == "vd"), n_slices, sms,
         float(inv_temp), stream_handle(),
     )
+    if Dp != D:
+        dh = dh[:, :D].contiguous()
     return dz, dh
 
 

@@ -240,3 +240,27 @@ def test_backward_wrapper_goes_to_its_kernel_for_tensors_off_the_cpu(monkeypatch
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         tce.ce_backward(h, w, tgt, f, f, f, f, 1.0, "vd")
     assert tce.KERNEL_BWD.launches == 0
+
+
+@pytest.mark.parametrize("w_layout", ["vd", "dv"])
+def test_depth_padding_gives_the_unpadded_backward(w_layout):
+    """K6's wrapper zero-pads the depth to a multiple of 8 (TMA row strides
+    are multiples of 16 bytes). Through the plain backward at D = 100: the
+    padded run, with dh sliced back, equals the unpadded run (a zero depth
+    column adds an exact 0 to every logit, so dz is bit-identical and dh
+    agrees to float32 summation order, 1e-6 relative)."""
+    r = np.random.default_rng(7)
+    n, D, V = 64, 100, 300
+    h = _t(r.normal(size=(n, D)).astype(np.float32))
+    w = _t((r.normal(size=(V, D) if w_layout == "vd" else (D, V)) * 0.2).astype(np.float32))
+    tgt = _t(r.integers(0, V, n).astype(np.int32))
+    _, ent, lse = tce.ce_forward_plain(h, w, tgt, 1.0, w_layout)
+    g = _t(r.normal(size=n).astype(np.float32))
+    hp, wp = tce.pad_depth(h, w, w_layout)
+    assert hp.shape == (n, 104) and wp.shape == ((V, 104) if w_layout == "vd" else (104, V))
+    assert torch.all(hp[:, D:] == 0) and torch.all((wp[:, D:] if w_layout == "vd" else wp[D:]) == 0)
+    dz, dh = tce.ce_backward_plain(h, w, tgt, lse, lse - ent, g, 0.1 * g, 1.0, w_layout)
+    dzp, dhp = tce.ce_backward_plain(hp, wp, tgt, lse, lse - ent, g, 0.1 * g, 1.0, w_layout)
+    np.testing.assert_array_equal(_np(dzp), _np(dz))
+    _rel_close(dhp[:, :D], dh, 1e-6)
+    assert tce.pad_depth(hp, wp, w_layout)[0] is hp      # a multiple of 8 is left as it is

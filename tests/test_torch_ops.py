@@ -177,26 +177,38 @@ def _right_padded(r, B, S):
     return pos, valid
 
 
-@pytest.mark.parametrize("padding", ["left", "right", "masked_row"])
+# (row layout, S, D) of each case; the Pallas kernels run blocks of 16.
+# "hd64" is Qwen2-0.5B's head width; "s48" holds the plain backward against
+# the Pallas kernel at S=48 with blocks of 16. On the CPU the port runs its
+# plain version, so the CUDA tiles' ragged edges are checked on the card
+# (chip_smoke.py, flash_bwd_ragged), not here.
+_FLASH_BWD_CASES = {"left": ("left", 64, 16), "right": ("right", 64, 16),
+                    "masked_row": ("masked_row", 64, 16), "hd64": ("right", 64, 64),
+                    "s48": ("left", 48, 16)}
+
+
+@pytest.mark.parametrize("padding", ["left", "right", "masked_row", "hd64", "s48"])
 def test_flash_backward_matches_jax_grad(padding):
     """The autograd Function (K1 forward, K7/K8 backward; here their plain
     versions) against jax.grad through the Pallas flash attention in
-    interpret mode: GQA (H=4, K=2), S=64, fp32, a random cotangent.
+    interpret mode: GQA (H=4, K=2), fp32, a random cotangent; S=64 and
+    D=16 unless the case says otherwise (``_FLASH_BWD_CASES``).
 
     "masked_row" gives row 2 no valid key at all: there K1 gives 0 and the
     Pallas forward the mean of the visited values, so outputs are compared
     only at rows with a valid key; both backwards mask p before the
     exponent, so such a row adds no gradient and gradients agree
-    everywhere. Outputs within 1e-5; gradients (up to ~20 in size) within
-    1e-5 absolute plus 1e-5 relative."""
+    everywhere. In every case outputs agree within 1e-5 and gradients (up
+    to ~20 in size) within 1e-5 absolute plus 1e-5 relative."""
+    layout, S, D = _FLASH_BWD_CASES[padding]
     r = np.random.default_rng(15)
-    B, S, H, K, D = 3, 64, 4, 2, 16
+    B, H, K = 3, 4, 2
     q = r.normal(size=(B, S, H, D)).astype(np.float32)
     k = r.normal(size=(B, S, K, D)).astype(np.float32)
     v = r.normal(size=(B, S, K, D)).astype(np.float32)
     cot = r.normal(size=(B, S, H, D)).astype(np.float32)
-    pos, valid = (_left_padded if padding == "left" else _right_padded)(r, B, S)
-    if padding == "masked_row":
+    pos, valid = (_left_padded if layout == "left" else _right_padded)(r, B, S)
+    if layout == "masked_row":
         valid[2] = False
     tq, tk, tv = (_t(a).requires_grad_(True) for a in (q, k, v))
     o = tflash.flash_attention(tq, tk, tv, positions_q=_t(pos), positions_kv=_t(pos),

@@ -65,15 +65,20 @@ def test_chip_smoke_imports_only_the_port():
     assert mods & local <= {"rlinf_tpu_torch"}, mods & local
 
 
-def test_chip_smoke_reads_k6_passes_by_the_source_names():
-    """chip_smoke.py reads K6's pass A, pass B and merge from a profiler
-    trace by kernel name: each name it looks for is a kernel of
-    csrc/linear_ce.cu (pass A and pass B the template's PASS 0 and 1)."""
+def _chip_smoke():
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
+    return cs
+
+
+def test_chip_smoke_reads_k6_passes_by_the_source_names():
+    """chip_smoke.py reads K6's pass A, pass B and merge from a profiler
+    trace by kernel name: each name it looks for is a kernel of
+    csrc/linear_ce.cu (pass A and pass B the template's PASS 0 and 1)."""
+    cs = _chip_smoke()
     cu = (PORT / "csrc" / "linear_ce.cu").read_text()
     assert re.search(r"template <int PASS, bool B_MN>\s*__global__ .*ce_bwd_gemm_kernel\(", cu)
     assert re.search(r"__global__ .*dh_merge_kernel\(", cu)
@@ -89,6 +94,63 @@ def test_chip_smoke_reads_k6_passes_by_the_source_names():
     assert got["pass_a_tflops"] == pytest.approx(2000.0)
     with pytest.raises(AssertionError, match="no time for K6"):
         cs.k6_passes({"void (anonymous namespace)::ce_fwd_kernel<true>(...)": 9.0})
+
+
+def test_chip_smoke_reads_k7_and_k8_by_the_source_names():
+    """chip_smoke.py reads K7's and K8's time a train step from the
+    profiler trace by kernel name: each name it looks for is a __global__
+    kernel of csrc/flash_attention_bwd.cu, and neither name matches the
+    other kernel."""
+    cs = _chip_smoke()
+    cu = (PORT / "csrc" / "flash_attention_bwd.cu").read_text()
+    names = dict(cs.FLASH_BWD_KERNELS)
+    assert set(names) == {"dq", "dkv"}
+    for name in names.values():
+        assert re.search(rf"__global__ void __launch_bounds__\([^)]*\) {name}\(", cu), name
+    trace = [type("E", (), dict(key=f"void (anonymous namespace)::{k}<128, {w}>(CUtensorMap, ...)",
+                                device_time_total=t, count=n))
+             for k, w, t, n in (("flash_bwd_dq_kernel", 1, 3000.0, 4),
+                                ("flash_bwd_dkv_kernel", 2, 5000.0, 4),
+                                ("flash_fwd_kernel", 1, 9000.0, 8))]
+    got = cs.flash_bwd_step(trace)
+    assert got == {"dq_ms": 3.0, "dq_launches_traced": 4, "dkv_ms": 5.0, "dkv_launches_traced": 4}
+    with pytest.raises(AssertionError, match="no time for flash_bwd_dkv_kernel"):
+        cs.flash_bwd_step(trace[:1])
+
+
+def _header_functions(text):
+    """Names of the functions a header defines."""
+    return set(re.findall(
+        r"^(?:template <[^>]*>\s*)?(?:__device__ __forceinline__|inline)\s+[\w:<>]+[\s*&]+(\w+)\(",
+        text, re.M))
+
+
+@pytest.mark.parametrize("source", ["linear_ce.cu", "flash_attention_bwd.cu", "sampler.cu"])
+def test_hopper_primitives_live_in_one_header(source):
+    """csrc/hopper.cuh holds the TMA, mbarrier and wgmma primitives; the
+    sources that run on wgmma include it and define none of them again."""
+    header = (_build.CSRC / "hopper.cuh").read_text()
+    shared = _header_functions(header)
+    assert {"smem_u32", "mbar_wait", "tma_load", "tma_load_3d", "gmma_desc", "wgmma_ss",
+            "wgmma_rs", "fence_regs", "encode_tiled", "make_map"} <= shared
+    text = (_build.CSRC / source).read_text()
+    assert '#include "hopper.cuh"' in text
+    code = "\n".join(line.split("//")[0] for line in text.splitlines())
+    again = [n for n in shared
+             if re.search(rf"^\s*(?:template <[^>]*>\s*)?(?!return\b|else\b)(?:[A-Za-z_][\w:<>]*[\s*&]+)+{n}\s*\(",
+                          code, re.M)]
+    assert not again, f"{source} defines {again} again"
+
+
+def test_kernel_argtypes_match_their_c_entry_points():
+    """Each wrapper's ctypes argument list has as many entries as its C
+    entry point has parameters (ctypes would pass a wrong count unchecked)."""
+    from rlinf_tpu_torch.ops.cuda import kernels
+
+    for k in kernels().values():
+        text = (_build.CSRC / k.source).read_text()
+        params = re.search(rf'extern "C" int {k.symbol}\(([^)]*)\)', text).group(1)
+        assert len(params.split(",")) == len(k.argtypes), k.symbol
 
 
 def test_port_imports_without_nvcc_or_jax(tmp_path):
@@ -152,7 +214,7 @@ def test_no_kernel_launch_inside_try(path):
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
 
 
-@pytest.mark.parametrize("source", _build.SOURCES + ("common.cuh",))
+@pytest.mark.parametrize("source", _build.SOURCES + _build.HEADERS)
 def test_csrc_sources_are_plain_c_interfaces(source):
     text = (_build.CSRC / source).read_text()
     code = "\n".join(line.split("//")[0] for line in text.splitlines())
@@ -215,8 +277,23 @@ def _mega_call(dev):
         plan, mw, x0, *cache, z + 3, z + 3, z, cos, sin)
 
 
-@pytest.mark.parametrize("make", [_paged_call, _mega_call],
-                         ids=["paged_attention", "decode_megakernel"])
+def _flash_bwd_call(dev):
+    import torch
+
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+
+    B, S, H, K, D = 1, 8, 2, 1, 64
+    q = torch.zeros((B, S, H, D), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((B, S, K, D), dtype=torch.bfloat16, device=dev)
+    pos = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    valid = torch.ones((B, S), dtype=torch.uint8, device=dev)
+    lse = torch.zeros((B, H, S), device=dev)
+    return FA, "flash_attention_bwd_plain", lambda: FA.flash_attention_bwd(
+        q, kv, kv, pos, pos, valid, q, lse, q, D**-0.5)
+
+
+@pytest.mark.parametrize("make", [_paged_call, _mega_call, _flash_bwd_call],
+                         ids=["paged_attention", "decode_megakernel", "flash_attention_bwd"])
 def test_new_wrappers_take_the_plain_version_for_cpu_tensors_only(make, monkeypatch):
     """Tensors that do not lie on the CPU (here on the ``meta`` device, which
     holds no data) never reach the plain version: the wrapper goes to its
