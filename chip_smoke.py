@@ -98,6 +98,7 @@ import argparse
 import contextlib
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -151,6 +152,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, reps: int = 20, iters: int = 10) -> float:
+    """Device time of one call with the host's launch overhead out of the
+    way: ``reps`` calls captured in one CUDA graph (after three warm-up
+    calls), replayed ``iters`` times between CUDA events. For calls whose
+    device time is shorter than their host-side dispatch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def bound(nbytes: float, flops: float, peaks):
     bw, fl = peaks
     t_bytes, t_ops = nbytes / bw * 1e3, flops / fl * 1e3
@@ -159,6 +187,77 @@ def bound(nbytes: float, flops: float, peaks):
 
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+# The kernels whose compiler report the build phase prints, by source: the
+# __global__ names of csrc/flash_attention_fwd.cu (K1) and
+# csrc/paged_attention.cu (K10: the split kernel and the merge).
+REPORTED_KERNELS = {"flash_attention_fwd.cu": ("flash_fwd_kernel",),
+                    "paged_attention.cu": ("paged_split_kernel", "paged_merge_kernel")}
+
+
+def _kernel_key(mangled: str, names) -> str:
+    """'name<HD>' (or 'name') of the reported kernel a mangled symbol is, else ''."""
+    for name in names:
+        m = re.search(rf"\d+{name}(?:ILi(\d+)E)?", mangled)
+        if m:
+            return f"{name}<{m.group(1)}>" if m.group(1) else name
+    return ""
+
+
+def ptxas_report(log: str, names) -> dict:
+    """{kernel: registers, spill bytes, stack, and ptxas's performance
+    notes} of the named kernels, from an ``nvcc -Xptxas -v`` log."""
+    out, key = {}, ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            key = _kernel_key(m.group(1), names)
+            if key:
+                out.setdefault(key, {"notes": []})
+            continue
+        if not key:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[key].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key]["registers"] = int(m.group(1))
+        if re.search(r"C7\d\d\d|Performance Loss|serialized", line):
+            out[key]["notes"].append(line.strip())
+    return out
+
+
+def sass_counts(sass: str, names) -> dict:
+    """{kernel: count of each tensor-core instruction and of the wgmma
+    waits} of the named kernels, from ``cuobjdump -sass`` output: one
+    WARPGROUP.DEPBAR for every HGMMA means ptxas serialised the wgmma."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        key = _kernel_key(part.split("\n", 1)[0], names)
+        if key:
+            out[key] = {op: part.count(op) for op in
+                        ("HGMMA", "WARPGROUP.DEPBAR", "HMMA", "MOVM", "UBLKCP", "UTMALDG")}
+    return out
+
+
+def kernel_reports() -> dict:
+    """ptxas's registers and spills and the SASS instruction counts of the
+    REPORTED_KERNELS, from the libraries just built."""
+    import shutil
+
+    from rlinf_tpu_torch.ops.cuda import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for src, names in REPORTED_KERNELS.items():
+        sass = subprocess.run([tool, "-sass", str(_build._library_path(src))], capture_output=True,
+                              text=True, check=True, timeout=120).stdout
+        out[src] = {"ptxas": ptxas_report(_build.build_log(src), names),
+                    "sass": sass_counts(sass, names)}
+    return out
 
 
 class Rotation:
@@ -178,10 +277,45 @@ class Rotation:
 # Phase 2: every kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def k1_figures(rot, pos, valid, peaks) -> dict:
+    """K1 on the first of ``rot``'s (q, k, v) sets against its plain
+    version (o and lse max-abs error < 2e-2, else raise), its time over the
+    rotated sets, the plain version's and scaled_dot_product_attention's
+    (CUDA events), and its bound: the bytes of q, k, v, the masks, o and lse,
+    or 4 Hd operations per unmasked (query, key) pair and head."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+
+    q, k, v = rot.sets[0]
+    B, T, H, Hd = q.shape
+    G = H // k.shape[2]
+    valid_u8 = valid.to(torch.uint8)
+    scale = Hd**-0.5
+    o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, valid_u8, scale)
+    o_ref, lse_ref = FA.flash_attention_fwd_plain(q, k, v, pos, pos, valid_u8, scale)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    del o_ref, lse_ref
+    if not err < 2e-2 or not lse_err < 2e-2:
+        raise AssertionError(f"K1 disagrees with its plain version at {tuple(q.shape)}: "
+                             f"{err} (lse {lse_err})")
+    ms = cuda_ms(lambda: FA.flash_attention_fwd(*rot.next(), pos, pos, valid_u8, scale), 20,
+                 warmup=5)
+    plain_ms = cuda_ms(lambda: FA.flash_attention_fwd_plain(q, k, v, pos, pos, valid_u8, scale), 3)
+    mask4 = ((pos[:, None, :] <= pos[:, :, None]) & valid[:, None, :])[:, None]
+    qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, 2).transpose(1, 2),
+                  v.repeat_interleave(G, 2).transpose(1, 2))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask4), 10, warmup=3)
+    pairs = int(mask4.sum().item())
+    b_ms, b_by = bound(nbytes(q, k, v, pos, pos, valid_u8, o, lse), 4.0 * Hd * H * pairs, peaks)
+    return dict(max_abs_err=err, lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, unmasked_pairs=pairs)
+
+
 def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     from rlinf_tpu_torch.models.llm.quant import quantize_tensor
     from rlinf_tpu_torch.ops.cuda import decode_attention as DA
-    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
     from rlinf_tpu_torch.ops.cuda import sampler_kernel as SK
 
     dev = torch.device("cuda")
@@ -198,35 +332,16 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     # --- K1: prefill flash attention, [B, P] left-padded --------------------
     valid = torch.arange(P, device=dev)[None, :] >= (P - plen)[:, None]
     pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
-    valid_u8 = valid.to(torch.uint8)
     rot = Rotation(lambda: (randn(B, P, H, Hd), randn(B, P, Kv, Hd), randn(B, P, Kv, Hd)), 3)
-    q, k, v = rot.sets[0]
-    scale = Hd**-0.5
-    o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, valid_u8, scale)
-    o_ref, lse_ref = FA.flash_attention_fwd_plain(q, k, v, pos, pos, valid_u8, scale)
-    torch.cuda.synchronize()
-    err = (o.float() - o_ref.float()).abs().max().item()
-    lse_err = (lse - lse_ref).abs().max().item()
-    ms = cuda_ms(lambda: FA.flash_attention_fwd(*rot.next(), pos, pos, valid_u8, scale), 10)
-    plain_ms = cuda_ms(lambda: FA.flash_attention_fwd_plain(q, k, v, pos, pos, valid_u8, scale), 3)
-    mask4 = ((pos[:, None, :] <= pos[:, :, None]) & valid[:, None, :])[:, None]
-    qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, 2).transpose(1, 2),
-                  v.repeat_interleave(G, 2).transpose(1, 2))
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask4), 5)
-    pairs = int(mask4.sum().item())
-    b_ms, b_by = bound(nbytes(q, k, v, pos, pos, valid_u8, o, lse), 4.0 * Hd * H * pairs, peaks)
+    k1 = k1_figures(rot, pos, valid, peaks)
     results.append(dict(
         name="flash_attention_fwd", route="cuda",
         source="rlinf_tpu_torch/csrc/flash_attention_fwd.cu",
         replaces="rlinf_tpu/ops/pallas/flash_attention.py:166",
-        shapes=f"q[{B},{P},{H},{Hd}] k/v[{B},{P},{Kv},{Hd}] bf16",
-        max_abs_err=err, lse_max_abs_err=lse_err, tolerance=2e-2,
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library="scaled_dot_product_attention",
-        bound_ms=b_ms, bound_by=b_by))
-    if not err < 2e-2 or not lse_err < 2e-2:
-        raise AssertionError(f"K1 disagrees with its plain version: {err} (lse {lse_err})")
-    del rot, q, k, v, o, o_ref, qt, kt, vt, mask4
+        shapes=f"prefill: q[{B},{P},{H},{Hd}] k/v[{B},{P},{Kv},{Hd}] bf16, left-padded",
+        **k1, tolerance=2e-2, library="scaled_dot_product_attention",
+        ragged=flash_fwd_ragged(randn)))
+    del rot
 
     # --- K2/K3: decode attention over [B, S_max] packed caches, mid decode --
     starts = (P - plen).to(torch.int32)
@@ -399,30 +514,20 @@ def mega_case(MK, plan, mw, cfg, qparams, B, S, wp, positions, starts, gen):
     return errs, cache, args
 
 
-def check_new_kernels(cfg, qparams, peaks, seed):
-    """K10 at the paged engine's shapes (64 rows, 48 pages of 16 tokens a
-    row, ragged lengths with a 0) and K9 on Qwen2-1.5B packed weights and a
-    random int8 cache: first at a small shape (a grid that does not fit
-    deadlocks rather than errs), then B=64, S=768 with one write slot and
-    with ragged per-row slots, and once at B=8."""
-    from rlinf_tpu_torch.models.llm import model as M
-    from rlinf_tpu_torch.models.llm.config import LLMConfig
-    from rlinf_tpu_torch.models.llm.quant import quantize_params
-    from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
+def paged_case(g, B, H, Kv, Hd, Pg, max_pages, peaks, timed=True) -> dict:
+    """K10 against its plain version (max-abs error < 1e-2, the row of
+    length 0 exactly 0, else raise) on a random pool and page table of B
+    rows whose lengths are random but for rows of 0, 1 and max_pages * Pg
+    tokens; with ``timed``, its time beside its plain version, SDPA on the
+    pages gathered beforehand, and its bound (the valid pages' bytes, or 4
+    Hd operations per valid token and head)."""
     from rlinf_tpu_torch.ops.cuda import paged_attention as PA
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(seed + 40)
-    H, Kv, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     G = H // Kv
-    results = []
-
-    # --- K10 -----------------------------------------------------------------
-    B, Pg, max_pages = 64, 16, 48
     num_pages = 1 + B * max_pages
-    lengths = torch.randint(1, max_pages * Pg + 1, (B,), generator=g, device=dev, dtype=torch.int32)
-    lengths[3] = 0
-    lengths[5] = max_pages * Pg
+    lengths = torch.randint(2, max_pages * Pg, (B,), generator=g, device=dev, dtype=torch.int32)
+    lengths[3 % B], lengths[5 % B], lengths[6 % B] = 0, max_pages * Pg, 1
     table = torch.zeros((B, max_pages), dtype=torch.int32, device=dev)
     perm = (torch.randperm(num_pages - 1, generator=g, device=dev) + 1).to(torch.int32)
     used = (lengths + Pg - 1) // Pg
@@ -436,38 +541,78 @@ def check_new_kernels(cfg, qparams, peaks, seed):
         return tuple((torch.randn((num_pages, Kv, Pg, Hd), generator=g, device=dev) * 0.5
                       ).to(torch.bfloat16) for _ in range(2))
 
-    rot = Rotation(pools, 3)
+    rot = Rotation(pools, 3 if timed else 1)
     kp, vp = rot.sets[0]
     q = torch.randn((B, H, Hd), generator=g, device=dev).to(torch.bfloat16)
     out = PA.paged_attention(q, kp, vp, table, lengths)
     ref = PA.paged_attention_xla(q, kp, vp, table, lengths)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    empty_row = out[3].float().abs().max().item()
-    ms = cuda_ms(lambda: PA.paged_attention(q, *rot.next(), table, lengths), 50)
-    plain_ms = cuda_ms(lambda: PA.paged_attention_xla(q, kp, vp, table, lengths), 10)
+    tokens = int(lengths.sum().item())
+    r = {"shapes": f"q[{B},{H},{Hd}] pages[{num_pages},{Kv},{Pg},{Hd}] bf16 table[{B},{max_pages}], "
+                   f"{tokens} valid tokens, rows of 0, 1 and {max_pages * Pg} tokens",
+         "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+         "empty_row_max_abs": out[3 % B].float().abs().max().item(),
+         "split_plan": PA.split_plan(B * Kv, max_pages, torch.cuda.get_device_properties(0)
+                                     .multi_processor_count)}
+    if not r["max_abs_err"] < 1e-2 or r["empty_row_max_abs"] != 0.0:
+        raise AssertionError(f"K10 disagrees with its plain version at {r['shapes']}: {r}")
+    if not timed:
+        return r
+    call = lambda: PA.paged_attention(q, *rot.next(), table, lengths)
+    r["ms"] = graph_ms(call)
+    r["eager_ms"] = cuda_ms(call, 50, warmup=5)
+    r["plain_ms"] = cuda_ms(lambda: PA.paged_attention_xla(q, kp, vp, table, lengths), 10)
     S = max_pages * Pg
     dense = lambda p: p[table.long()].permute(0, 2, 1, 3, 4).reshape(B, Kv, S, Hd)
     kd = dense(kp).repeat_interleave(G, 1)
     vd = dense(vp).repeat_interleave(G, 1)
     smask = (torch.arange(S, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q[:, :, None, :], kd, vd, attn_mask=smask), 20)
-    tokens = int(lengths.sum().item())
-    b_ms, b_by = bound(nbytes(q, out, lengths) + int(used.sum().item()) * 4
-                       + 2 * tokens * Kv * Hd * 2, 4.0 * Hd * H * tokens, peaks)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=smask)
+    r["library_ms"] = graph_ms(library)
+    r["library_eager_ms"] = cuda_ms(library, 20)
+    r["bound_ms"], r["bound_by"] = bound(
+        nbytes(q, out, lengths) + int(used.sum().item()) * 4 + 2 * tokens * Kv * Hd * 2,
+        4.0 * Hd * H * tokens, peaks)
+    return r
+
+
+def check_new_kernels(cfg, qparams, peaks, seed):
+    """K10 at the paged engine's shapes (64 rows, 48 pages of 16 tokens a
+    row, ragged lengths with rows of 0, 1 and all tokens) and at 8 rows,
+    then at other geometries (Hd=64 with G=7, G=16, pages of 32 and of 8
+    tokens); and K9 on Qwen2-1.5B packed weights and a random int8 cache:
+    first at a small shape (a grid that does not fit deadlocks rather than
+    errs), then B=64, S=768 with one write slot and with ragged per-row
+    slots, and once at B=8."""
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.models.llm.quant import quantize_params
+    from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
+    from rlinf_tpu_torch.ops.cuda import paged_attention as PA
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 40)
+    H, Kv, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    G = H // Kv
+    results = []
+
+    # --- K10 -----------------------------------------------------------------
+    main = paged_case(g, 64, H, Kv, Hd, 16, 48, peaks)
+    b8 = paged_case(g, 8, H, Kv, Hd, 16, 48, peaks)
+    geometries = {}
+    for B, Hq, Kvq, Hdq, Pg, pages in ((16, 14, 2, 64, 16, 20), (16, 32, 2, 128, 16, 20),
+                                       (16, H, Kv, Hd, 32, 24), (16, 14, 2, 64, 8, 40)):
+        r = paged_case(g, B, Hq, Kvq, Hdq, Pg, pages, peaks, timed=False)
+        geometries[r.pop("shapes")] = r
     results.append(dict(
         name="paged_attention", route="cuda", source="rlinf_tpu_torch/csrc/paged_attention.cu",
-        replaces="rlinf_tpu/ops/pallas/paged_attention.py:152",
-        shapes=f"q[{B},{H},{Hd}] pages[{num_pages},{Kv},{Pg},{Hd}] bf16 table[{B},{max_pages}], "
-               f"{tokens} valid tokens, one row of length 0",
-        max_abs_err=err, tolerance=1e-2, empty_row_max_abs=empty_row,
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        replaces="rlinf_tpu/ops/pallas/paged_attention.py:152", **main, tolerance=1e-2,
         library="scaled_dot_product_attention on pages gathered beforehand",
-        bound_ms=b_ms, bound_by=b_by))
-    if not err < 1e-2 or empty_row != 0.0:
-        raise AssertionError(f"K10 disagrees with its plain version: {err}, empty row {empty_row}")
-    del rot, kp, vp, kd, vd
+        timing="ms, library_ms: device time of one call, replayed from a CUDA graph (the split "
+               "kernel and the merge); eager_ms, library_eager_ms: CUDA events around calls "
+               "made one after another, the host's dispatch included",
+        at_batch_8=b8, geometries=geometries))
 
     # --- K9, small shape first ----------------------------------------------
     small = LLMConfig(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
@@ -553,8 +698,9 @@ def check_new_kernels(cfg, qparams, peaks, seed):
 
 def check_training_kernels(cfg, attention_mask, peaks, seed):
     """K5/K6 at one row chunk of the training path (4096 rows, the tied
-    [V, D] embedding) and K7/K8 at one microbatch (the training batch's
-    first 16 rows, right-padded, T=768)."""
+    [V, D] embedding) and K1, K7/K8 at one microbatch (the training batch's
+    first 16 rows, right-padded, T=768) -> (K5-K8's results, K1's figures
+    at the microbatch)."""
     from rlinf_tpu_torch.ops.cuda import flash_attention as FA
     from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
 
@@ -645,6 +791,10 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
     valid = torch.as_tensor(attention_mask, device=dev)
     B, T = valid.shape
     pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
+    # K1 at the microbatch: the forward of the train step
+    k1_train = k1_figures(Rotation(lambda: (randn(B, T, H, Hd), randn(B, T, Kv, Hd),
+                                            randn(B, T, Kv, Hd)), 2), pos, valid, peaks)
+    k1_train["shapes"] = f"train microbatch: q[{B},{T},{H},{Hd}] k/v[{B},{T},{Kv},{Hd}], right-padded"
     args = flash_bwd_inputs(randn, pos, valid, H, Kv, Hd)
     q, k, v, _, _, valid_u8, o, lse, do, scale = args
     (dq, dk, dv), errs, abs_errs = flash_bwd_errors(args)
@@ -705,7 +855,7 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
                             ms=ms_k, bound_ms=b_ms, bound_by=b_by, **common_fields, **extra))
     if not (max(errs.values()) < 2e-2 and delta_err < 1e-4):
         raise AssertionError(f"K7/K8 disagree with their plain version: {errs}, delta {delta_err}")
-    return results
+    return results, k1_train
 
 
 def flash_bwd_inputs(randn, pos, valid, H, Kv, Hd):
@@ -734,19 +884,53 @@ def flash_bwd_errors(args):
             {nm: (a.float() - b.float()).abs().max().item() for nm, a, b in zip(names, got, want)})
 
 
-def flash_bwd_ragged(randn) -> dict:
-    """K7 + K8 against their plain version where the tiles leave ragged
-    edges, at the main check's bar (relative error < 2e-2 on dq, dk, dv):
-    T=700 left-padded at Hd=64 with H=14, Kv=2 (Qwen2-0.5B's heads), and
-    Sq=Sk=100 right-padded at Hd=128; in each, row 1 has no valid key, and
-    its gradients must be exactly zero."""
+# (B, T, H, Kv, Hd, left-padded) where the attention tiles leave ragged
+# edges: T=700 left-padded at Hd=64 with Qwen2-0.5B's heads, and Sq=Sk=100
+# right-padded at Hd=128; row 1 of each has no valid key.
+RAGGED_ATTENTION = ((4, 700, 14, 2, 64, True), (3, 100, 12, 2, 128, False))
+
+
+def ragged_rows(B, T, left):
+    """(valid [B, T] bool, positions [B, T] int32) of one ragged case."""
+    lens = torch.linspace(T // 3, T, B, device="cuda").round().long().flip(0)
+    ar = torch.arange(T, device="cuda")[None]
+    valid = ar >= (T - lens)[:, None] if left else ar < lens[:, None]
+    pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
+    valid[1] = False
+    return valid, pos
+
+
+def flash_fwd_ragged(randn) -> dict:
+    """K1 against its plain version at RAGGED_ATTENTION, at the main
+    check's bar (o and lse max-abs error < 2e-2); the row with no valid key
+    must give exactly 0."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+
     out = {}
-    for B, T, H, Kv, Hd, left in ((4, 700, 14, 2, 64, True), (3, 100, 12, 2, 128, False)):
-        lens = torch.linspace(T // 3, T, B, device="cuda").round().long().flip(0)
-        ar = torch.arange(T, device="cuda")[None]
-        valid = ar >= (T - lens)[:, None] if left else ar < lens[:, None]
-        pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
-        valid[1] = False
+    for B, T, H, Kv, Hd, left in RAGGED_ATTENTION:
+        valid, pos = ragged_rows(B, T, left)
+        vu8 = valid.to(torch.uint8)
+        q, k, v = randn(B, T, H, Hd), randn(B, T, Kv, Hd), randn(B, T, Kv, Hd)
+        o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, vu8, Hd**-0.5)
+        o_r, lse_r = FA.flash_attention_fwd_plain(q, k, v, pos, pos, vu8, Hd**-0.5)
+        torch.cuda.synchronize()
+        key = f"{'left' if left else 'right'}-padded B={B} T={T} H={H} Kv={Kv} Hd={Hd}"
+        out[key] = {"max_abs_err": (o.float() - o_r.float()).abs().max().item(),
+                    "lse_max_abs_err": (lse - lse_r).abs().max().item(),
+                    "masked_row_zero": bool((o[1] == 0).all().item())}
+        r = out[key]
+        if not (r["max_abs_err"] < 2e-2 and r["lse_max_abs_err"] < 2e-2 and r["masked_row_zero"]):
+            raise AssertionError(f"K1 at {key}: {r}")
+    return out
+
+
+def flash_bwd_ragged(randn) -> dict:
+    """K7 + K8 against their plain version at RAGGED_ATTENTION, at the main
+    check's bar (relative error < 2e-2 on dq, dk, dv); the gradients of the
+    row with no valid key must be exactly zero."""
+    out = {}
+    for B, T, H, Kv, Hd, left in RAGGED_ATTENTION:
+        valid, pos = ragged_rows(B, T, left)
         args = flash_bwd_inputs(randn, pos, valid, H, Kv, Hd)
         got, errs, _ = flash_bwd_errors(args)
         key = f"{'left' if left else 'right'}-padded B={B} T={T} H={H} Kv={Kv} Hd={Hd}"
@@ -760,18 +944,20 @@ def flash_bwd_ragged(randn) -> dict:
 def attn_impl_crossover(cfg, seed) -> dict:
     """causal_attention forward + backward through the kernels
     (impl="pallas": K1, K7, K8) and through the plain path (impl="xla") on
-    one Qwen2-1.5B layer's q, k, v at a fixed 12,288 tokens, for T = 512,
-    768, 1024 and 2048 (B = 12,288 / T, no padding). Each time is the mean
-    of 50 calls after 10 warm-up calls. It records the plain path's time
-    over the kernels' at each T and the pairs of neighbouring T between
-    which the faster path changes (none where one path wins throughout);
-    resolve_attn_impl's threshold (1024 tokens) is not changed by it."""
+    one Qwen2-1.5B layer's q, k, v at a fixed 12,288 tokens, for T = 128,
+    256, 512, 768, 1024 and 2048 (B = 12,288 / T, no padding). Each time is
+    the mean of 50 calls after 10 warm-up calls. It records the plain
+    path's time over the kernels' at each T, the pairs of neighbouring T
+    between which the faster path changes (none where one path wins
+    throughout), and the least T from which the kernels win at every
+    longer T: what resolve_attn_impl's threshold (config.py) is set from."""
+    from rlinf_tpu_torch.config import ATTN_KERNELS_FROM_T
     from rlinf_tpu_torch.ops.attention import causal_attention
 
     g = torch.Generator(device="cuda").manual_seed(seed + 30)
     H, Kv, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     out = {}
-    for T in (512, 768, 1024, 2048):
+    for T in (128, 256, 512, 768, 1024, 2048):
         B = 12288 // T
         q, k, v, do = (torch.randn(shape, generator=g, device="cuda").bfloat16()
                        for shape in ((B, T, H, Hd), (B, T, Kv, Hd), (B, T, Kv, Hd), (B, T, H, Hd)))
@@ -789,6 +975,10 @@ def attn_impl_crossover(cfg, seed) -> dict:
     out["kernels_win_at_T"] = [T for T, won in wins if won]
     out["crossover_between_T"] = [[t0, t1] for (t0, w0), (t1, w1) in zip(wins, wins[1:])
                                   if w0 != w1]
+    losing = [T for T, won in wins if not won]
+    later = [T for T, _ in wins if not losing or T > max(losing)]
+    out["kernels_win_from_T"] = later[0] if later else None
+    out["resolve_attn_impl_threshold"] = ATTN_KERNELS_FROM_T
     return out
 
 
@@ -955,6 +1145,31 @@ def profile_window(fn, top: int = 10) -> dict:
     return {"wall_ms": wall_ms,
             "device_busy_ms": sum(e.device_time_total for e in events) / 1e3,
             "by_kernel_ms": {e.key[:60]: e.device_time_total / 1e3 for e in events[:top]}}
+
+
+def idle_between(fn, name: str) -> dict:
+    """The device's busy time and idle share over the span of a
+    torch.profiler trace of one call of ``fn`` from the start of the first
+    kernel whose name holds ``name`` to the end of the last: the kernels of
+    that span (one stream) summed, against the span's length. A record lost
+    at the start of the session falls before the span."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [(e.time_range.start, e.time_range.end, name in e.name) for e in prof.events()
+               if e.device_type == DeviceType.CUDA and e.name != "Command Buffer Full"]
+    marks = [(t0, t1) for t0, t1, hit in kernels if hit]
+    if not marks:
+        return {"launches_traced": 0, "idle_share": "not measured: no launch of " + name}
+    lo, hi = min(t0 for t0, _ in marks), max(t1 for _, t1 in marks)
+    busy = sum(min(t1, hi) - max(t0, lo) for t0, t1, _ in kernels if t1 > lo and t0 < hi)
+    return {"launches_traced": len(marks), "span_ms": (hi - lo) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / (hi - lo)}
 
 
 def device_ms_by_kernel(fn, calls: int):
@@ -1148,6 +1363,7 @@ def engine_phases(cfg, params, kerns, gpu, seed):
     per-layer kernels, (b) with use_mega="auto" and the fused sampler, and
     the paged engine, all on one long-tail mix at full width and depth."""
     from rlinf_tpu_torch.config import RolloutConfig
+    from rlinf_tpu_torch.data.io_struct import RolloutRequest
     from rlinf_tpu_torch.models.llm.sampler import SamplingParams
     from rlinf_tpu_torch.rollout import build_rollout_engine
     from rlinf_tpu_torch.rollout import continuous_engine as CE
@@ -1264,6 +1480,11 @@ def engine_phases(cfg, params, kerns, gpu, seed):
     if counts != want or pool.free_pages != pool.num_pages - 1:
         raise AssertionError(f"paged engine: launches {counts}, expected {want}; "
                              f"{pool.free_pages} of {pool.num_pages - 1} pages free at the end")
+    # the device's idle share while it decodes: the first 64 requests with
+    # budgets of 33 tokens (the prefill's and two rounds of 16 steps), traced
+    short = RolloutRequest(prompt_ids=request.prompt_ids[:64], max_new_tokens=[33] * 64)
+    out["paged"]["decode_trace"] = idle_between(
+        lambda: eng.rollout(params, short, torch.Generator()), "paged_split_kernel")
     emit(out)
     return total
 
@@ -1683,6 +1904,7 @@ def main() -> int:
 
     # 1. build
     emit({"phase": "build", "seconds": build()})
+    emit({"phase": "kernel_reports", **kernel_reports()})
 
     cfg = LLMConfig.qwen2_1_5b()
     B, N, bucket = 64, 256, 64
@@ -1892,8 +2114,11 @@ def main() -> int:
 
     train_mask = build_train_batch(res, np.zeros(res.response_ids.shape, np.float32),
                                    pad_id=0).attention_mask[:16]
-    results += check_training_kernels(cfg, train_mask, peaks, args.seed)
-    emit({"phase": "training_kernels", "gpu": gpu, "results": results[4:]})
+    train_results, k1_train = check_training_kernels(cfg, train_mask, peaks, args.seed)
+    results[0]["train_microbatch"] = k1_train
+    results += train_results
+    emit({"phase": "training_kernels", "gpu": gpu, "k1_train_microbatch": k1_train,
+          "results": train_results})
     torch.cuda.empty_cache()
 
     # 5b. K4 and K6 against their plain versions at ragged shapes

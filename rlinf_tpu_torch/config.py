@@ -212,10 +212,17 @@ _ADV_TYPES = ("grpo", "gae", "reinpp", "raw", "opd", "grpo_dynamic")
 _DTYPES = ("bfloat16", "float32", "float16")
 
 
+#: ``attn_impl="auto"`` takes the kernels (K1, K7, K8) from this trained
+#: sequence length up: chip_smoke.py's attn_impl_threshold phase (forward
+#: and backward of one Qwen2-1.5B layer on an H100) finds them faster than
+#: the plain path at every T it times, the least of which is 128
+ATTN_KERNELS_FROM_T = 128
+
+
 def resolve_attn_impl(cfg: TrainerConfig, device="cuda") -> str:
     """Resolve ``attn_impl='auto'`` for the TRAINED sequence length (prompt
     + response, not the model's capacity): the kernels on a CUDA device
-    from 1024 tokens, the plain path otherwise."""
+    from ATTN_KERNELS_FROM_T tokens, the plain path otherwise."""
     import torch
 
     if cfg.attn_impl != "auto":
@@ -223,7 +230,13 @@ def resolve_attn_impl(cfg: TrainerConfig, device="cuda") -> str:
     if torch.device(device).type != "cuda":
         return "xla"
     t = min(cfg.model.max_seq_len, cfg.data.max_prompt_len + cfg.sampling.max_new_tokens)
-    return "pallas" if t >= 1024 else "xla"
+    if t < ATTN_KERNELS_FROM_T:
+        return "xla"
+    # the kernels, for a model they take: raise here rather than at the first batch
+    from rlinf_tpu_torch.ops.cuda.geometry import check_kernel_geometry
+
+    check_kernel_geometry(cfg.model, "flash")
+    return "pallas"
 
 
 def validate_config(cfg: TrainerConfig):

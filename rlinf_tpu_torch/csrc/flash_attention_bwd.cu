@@ -83,7 +83,7 @@
 namespace {
 
 constexpr int STEP = 64;         // K7: keys of a stage; K8: query rows of a stage
-constexpr int BOX = 64 * 128;    // bytes of a 64-row x 64-column bf16 box
+constexpr int BOX = GMMA_BOX;    // bytes of a 64-row x 64-column bf16 box
 constexpr float LOG2E = 1.4426950408889634f;
 // K7: one consumer warpgroup of 64 query rows and a lone producer warp, two
 // CTAs an SM, a ring of two stages.
@@ -117,63 +117,6 @@ struct DkvMeta {
   int flag[DKV_RING];          // 1, or -1 to end the stream
   int wmin[8];                 // least key position of each consumer warp
 };
-
-__device__ __forceinline__ int warp_max(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(RLINF_FULL_MASK, x, o));
-  return x;
-}
-
-__device__ __forceinline__ int warp_min(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(RLINF_FULL_MASK, x, o));
-  return x;
-}
-
-__device__ __forceinline__ void wg_sync(int c) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Position of key s of batch row b for the mask: INT_MAX where the key is
-// invalid or past Sk, so that no query sees it.
-__device__ __forceinline__ int key_pos(const int* __restrict__ pos_kv,
-                                       const uint8_t* __restrict__ valid, int b, int s, int Sk) {
-  if (s >= Sk) return INT_MAX;
-  const size_t at = (size_t)b * Sk + s;
-  return valid[at] ? pos_kv[at] : INT_MAX;
-}
-
-__device__ __forceinline__ int query_pos(const int* __restrict__ pos_q, int b, int s, int Sq) {
-  return s < Sq ? pos_q[(size_t)b * Sq + s] : INT_MIN;
-}
-
-// wgmma descriptors: one base per tile plus an immediate step (the start
-// address is the descriptor's low field, in 16-byte units).
-//
-// K-major base descriptor of 64 rows from `row0` of a tile stored as boxes
-// of 64 columns, and the step to its 16-deep slice kk when the boxes have
-// `rows` rows.
-__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0) {
-  return gmma_desc(tile + row0 * 128, 16, 1024);
-}
-
-__device__ __forceinline__ uint64_t kstep(int rows, int kk) {
-  return static_cast<uint64_t>(((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4);
-}
-
-// MN-major base descriptor of a tile of 64 rows stored as boxes of 64 x 64
-// (the depth of the product runs along the rows); rows 16 u.. are u * 2048
-// bytes on.
-__device__ __forceinline__ uint64_t mnmajor(uint32_t tile) {
-  return gmma_desc(tile, BOX, 1024);
-}
-
-__device__ __forceinline__ uint64_t mnstep(int u) { return static_cast<uint64_t>(u * 2048 >> 4); }
 
 // The elements of a 64 x 64 accumulator that a thread holds: d[4 j + 2 r +
 // e] is row 16 warp + g + 8 r, column 8 j + 2 t + e (g = lane / 4, t =
@@ -603,17 +546,6 @@ __global__ void __launch_bounds__(DKV_THREADS, 1) flash_bwd_dkv_kernel(
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-
-// x [B, S, heads, HD] bf16 as a 3-D tensor (head columns, S, B), read in
-// boxes of 64 columns x `rows` rows of one batch row.
-bool head_map(CUtensorMap* m, const void* x, int B, int S, int heads, int HD, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * HD, static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(heads) * HD * 2,
-                                 static_cast<cuuint64_t>(S) * heads * HD * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  return make_map_nd(m, x, 3, dims, strides, box);
-}
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 

@@ -4,272 +4,368 @@
 // Replaces the Pallas TPU kernel _fwd_kernel of
 // rlinf_tpu/ops/pallas/flash_attention.py (pallas_call in _fwd_call), the
 // forward of flash_attention(). Same function: out = softmax(q k^T * scale)
-// v under the mask (pos_kv <= pos_q) AND kv_valid, online softmax in fp32,
+// v under the mask (pos_kv <= pos_q) AND kv_valid, online softmax in f32,
 // and the log-sum-exp of every query row (the backward, K7/K8, reads it).
+// Masked keys get probability 0 explicitly, so a query row with no valid
+// key gives 0 (the Pallas kernel averages the blocks it visited); rows
+// with a valid key agree. Positions are arbitrary [B, S] int32: left-padded
+// prompts give pad slots position 0.
 //
-// What bounds it on an H100: operations. At the prefill shapes (B=64,
-// S=512, H=12, Kv=2, Hd=128) the two products are ~50 GFLOP after causal
-// skipping against ~0.2 GB of bf16 operands, far right of the ridge point.
-// The products run on the tensor cores as warp-level mma.sync m16n8k16
-// bf16 tiles with f32 accumulation. The probabilities stay in registers
-// between the two products (the C fragment of q k^T is the A fragment of
-// P.V); unlike flash-attention 2 they enter P.V as two bf16 parts, high and
-// low, so the forward keeps the accuracy of an fp32 P (measured on an
-// H100: rounding P to bf16 alone doubled the error against the plain
-// version and moved a small whole train step's update by 9% of its norm).
-// wgmma and TMA are later work.
+// What bounds it on an H100: bytes. At the prefill shapes (B=64, S=512,
+// H=12, Kv=2, Hd=128) and the training microbatch (B=16, T=768) q and o
+// dominate the traffic (k and v are 1/6 of q under GQA), and the products
+// of the unmasked pairs, 4 Hd operations a pair and head, take less time at
+// the tensor cores' peak than those bytes at the memory's. So the design
+// keeps the memory busy from the first cycle: nothing is loaded by a
+// thread, every tile comes in by TMA while the products of the previous
+// one run, and the softmax of one warpgroup runs under the other's
+// products.
 //
-// Design. The TPU kernel walks a sequential grid with 512-row tiles in
-// VMEM; here one CTA of 4 warps owns one (batch row, query head, 64-row
-// query tile), each warp 16 query rows, so a row's running max and sum
-// live in the 4 lanes of one warp and need no shared memory. The CTA loops
-// over 64-key tiles staged in shared memory; the kv head is h / (H / Kv):
-// GQA shares k/v tiles through the cache, no replication. A key tile whose
-// least valid position exceeds the tile's greatest query position is
-// skipped (the _block_bounds rule, evaluated per tile). Unlike the Pallas
-// kernel, masked keys get probability 0 explicitly, so a query row with no
-// valid key gives 0; rows with a valid key agree. Positions are arbitrary
-// [B, S] int32: left-padded prompts give pad slots position 0.
+// Design, in the way of flash-attention 3's forward (and of K7/K8 in
+// flash_attention_bwd.cu, whose tile layouts and descriptors it shares):
+//  * One CTA per (batch row, query head, 128-row query tile): two consumer
+//    warpgroups of 64 query rows and a producer warpgroup (384 threads,
+//    setmaxnreg 40 / 232, one CTA an SM). The grid launches the late query
+//    tiles, which see the most keys, first.
+//  * The producer loads the Q tile once (3-D tensor maps over (head
+//    columns, sequence, batch row), boxes of 64 columns in the 128-byte
+//    swizzle: a ragged tile reads zeros, never the next batch row) and
+//    streams the (K, V) tiles of 64 keys of the kv head (h / (H / Kv): GQA
+//    shares k/v through the cache) through a ring of four stages under
+//    mbarriers. A CTA's first microseconds are a chain of waits, so the
+//    producer issues Q's copy first, loads the query positions and the
+//    first tile's key positions (position and validity) all at once, and
+//    reads each next tile's while it waits for a free stage; the tensor
+//    maps are prefetched. A key tile whose least valid position exceeds the
+//    query tile's greatest position is never loaded (the _block_bounds rule
+//    of the Pallas kernel). Both warpgroups compute every stage: each
+//    step's wgmma sequence is then the same straight line (the first step
+//    issues no P V, the last no S), which ptxas keeps asynchronous.
+//  * A consumer runs S = Q K^T as SS wgmma m64n64k16 (both K-major in
+//    shared memory), the masked online softmax in its registers (exp2, the
+//    row max over the four lanes of a row, the row sum kept per lane until
+//    the end), and O += P V as RS wgmma m64nHDk16: P is the register A
+//    operand (the accumulator fragment of S is wgmma's A fragment) and V
+//    the ring's tile read MN-major with the transpose bit.
+//  * Intra- and inter-warpgroup overlap: each step issues S of key tile j
+//    and P V of tile j - 1 together, and forms p of tile j while P V still
+//    runs. Two named barriers order the two warpgroups' issues (ping-pong):
+//    one warpgroup's softmax runs while the other's products use the
+//    tensor cores.
+//  * Accuracy: P enters P V as two bf16 parts, hi = bf16(p) and lo =
+//    bf16(p - hi), two RS products a step, so the forward keeps the
+//    accuracy of an f32 P (on an H100, rounding P to bf16 alone doubled the
+//    error against the plain version and moved a small whole train step's
+//    update by 9% of its norm). The second product runs under the memory
+//    time at the path's shapes.
+//  * The epilogue reduces each row's sum over its four lanes, scales by 1/l
+//    and writes o in bf16 and lse = m ln 2 + ln l in f32.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per CTA
-constexpr int BK = 64;   // keys per shared-memory tile
-constexpr int NT = 128;  // 4 warps, 16 query rows each
+constexpr int BQ = 128;       // query rows of a CTA: two consumer warpgroups of 64
+constexpr int BK = 64;        // keys of a stage
+constexpr int RING = 4;       // stages of (K, V)
+constexpr int THREADS = 384;  // a producer warpgroup and two consumer warpgroups
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
+// Bytes of dynamic shared memory: the Q tile (boxes of 64 columns x BQ
+// rows), then the ring, each stage a K and a V tile of BK rows; and room to
+// align to 1024 bytes (the swizzle atom).
 template <int HD>
-struct Smem {
-  static constexpr int LD = HD + 8;  // bf16 per row: fragment loads hit distinct banks
-  __nv_bfloat16 q[BQ * LD];
-  __nv_bfloat16 k[BK * LD];
-  __nv_bfloat16 v[BK * LD];
-  int pos_q[BQ];
-  int pos_kv[BK];
-  int valid[BK];
-  int qmax, kmin;
+constexpr int smem_bytes() {
+  return 1024 + (HD / 64) * (BQ / 64) * GMMA_BOX + RING * 2 * (HD / 64) * GMMA_BOX;
+}
+
+struct Meta {
+  uint64_t full[RING], empty[RING], resident;
+  int kpos[RING][BK];  // key position, INT_MAX where invalid or past Sk
+  int tile[RING];      // key tile of the stage; -1 ends the stream
 };
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// Scheduler barriers of the ping-pong: warpgroup c waits on 3 + c until the
+// other has issued its products, and lets the other go with an arrival on
+// 3 + (1 - c). 256 threads: the waiting warpgroup and the arriving one.
+__device__ __forceinline__ void sched_wait(int c) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c) : "memory");
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void sched_pass(int c) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + (1 - c)) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+// p = x as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), in wgmma's A
+// fragment order (k16 step u takes accumulator groups j = 2 u, 2 u + 1).
+__device__ __forceinline__ void split_frag(const float (&x)[32], uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float a = x[8 * u + 2 * q], b = x[8 * u + 2 * q + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 hf = __bfloat1622float2(h);
+      hi[u][q] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[u][q] = pack_bf16(a - hf.x, b - hf.y);
+    }
 }
 
-// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi).
-__device__ __forceinline__ void split_f2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16(x0), h1 = __float2bfloat16(x1);
-  hi = pack2(h0, h1);
-  lo = pack2(__float2bfloat16(x0 - __bfloat162float(h0)),
-             __float2bfloat16(x1 - __bfloat162float(h1)));
-}
-
-// 64 rows of x [B, S, NH, HD] at head hh into a [64][LD] tile; rows past S are 0.
-template <int HD>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ x,
-                                          int b, int s0, int S, int NH, int hh) {
-  constexpr int LD = Smem<HD>::LD, CH = HD / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < 64 * CH; i += NT) {
-    const int r = i / CH, c = i % CH, s = s0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (s < S) val = *reinterpret_cast<const uint4*>(x + ((size_t)(b * S + s) * NH + hh) * HD + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
+// The masked online softmax of one key tile, in place: s (the 64 x 64
+// accumulator, d[4 j + 2 r + e] = row 16 warp + g + 8 r, key 8 j + 2 t + e)
+// -> p = exp2(s scale2 - m) where the key is visible to the row, else 0; m
+// and the lane's part of l move on, alpha = exp2(m_old - m_new) is what O
+// must be scaled by.
+__device__ __forceinline__ void online_softmax(float (&s)[32], const int* kp, const int (&rpos)[2],
+                                               float (&m)[2], float (&l)[2], float scale2, int t,
+                                               float (&alpha)[2]) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int2 cp = *reinterpret_cast<const int2*>(kp + 8 * j + 2 * t);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        s[i] = (e ? cp.y : cp.x) <= rpos[r] ? s[i] * scale2 : RLINF_NEG_INF;
+        mx[r] = fmaxf(mx[r], s[i]);
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(RLINF_FULL_MASK, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(RLINF_FULL_MASK, mx[r], 2));
+    alpha[r] = exp2f(m[r] - mx[r]);
+    m[r] = mx[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int2 cp = *reinterpret_cast<const int2*>(kp + 8 * j + 2 * t);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * r + e;
+        s[i] = (e ? cp.y : cp.x) <= rpos[r] ? exp2f(s[i] - m[r]) : 0.f;
+        l[r] += s[i];
+      }
   }
 }
 
+struct Args {
+  const __nv_bfloat16 *q, *k, *v;
+  const int *pos_q, *pos_kv;
+  const uint8_t* valid;
+  __nv_bfloat16* out;
+  float* lse;
+  int B, Sq, Sk, H, KV;
+  float scale;
+};
+
 template <int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q,   // [B, Sq, H, HD]
-    const __nv_bfloat16* __restrict__ k,   // [B, Sk, KV, HD]
-    const __nv_bfloat16* __restrict__ v,   // [B, Sk, KV, HD]
-    const int* __restrict__ pos_q,         // [B, Sq]
-    const int* __restrict__ pos_kv,        // [B, Sk]
-    const uint8_t* __restrict__ valid,     // [B, Sk]
-    __nv_bfloat16* __restrict__ out,       // [B, Sq, H, HD]
-    float* __restrict__ lse,               // [B, H, Sq]
-    int Sq, int Sk, int H, int KV, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<HD>& sm = *reinterpret_cast<Smem<HD>*>(smem_raw);
-  constexpr int LD = Smem<HD>::LD;
-  constexpr int NO = HD / 8;  // 8-column output fragments per warp
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  constexpr int NB = HD / 64;                  // 64-column boxes of a row
+  constexpr int QTILE = NB * (BQ / 64) * GMMA_BOX;
+  constexpr int TILE = NB * GMMA_BOX;          // bytes of a 64-row K or V tile
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ Meta meta;
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base, ring = base + QTILE;
+  const int n_qt = (a.Sq + BQ - 1) / BQ, n_kt = (a.Sk + BK - 1) / BK;
+  const int rest = a.H * a.B;
+  const int qt = n_qt - 1 - blockIdx.x / rest;  // heavy (late) query tiles first
+  const int h = blockIdx.x % rest % a.H, b = blockIdx.x % rest / a.H;
+  const int kvh = h / (a.H / a.KV), q0 = qt * BQ;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;  // this warp's first query row in the tile
-
-  if (tid == 0) sm.qmax = INT_MIN;
+  if (threadIdx.x == 0) {
+    for (const CUtensorMap* m : {&tm_q, &tm_k, &tm_v})
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(m)) : "memory");
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(smem_u32(&meta.full[s]), 1);
+      mbar_init(smem_u32(&meta.empty[s]), 8);  // one arrival per consumer warp
+    }
+    mbar_init(smem_u32(&meta.resident), 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  load_rows<HD>(sm.q, q, b, q0, Sq, H, h);
-  if (tid < BQ) {
-    const int s = q0 + tid;
-    const int pq = s < Sq ? pos_q[(size_t)b * Sq + s] : INT_MIN;
-    sm.pos_q[tid] = pq;
-    if (s < Sq) atomicMax(&sm.qmax, pq);
+
+  if (wg == 0) {  // the producer warpgroup; its first warp streams
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (warp != 0) return;
+    if (lane == 0) {  // Q first: it waits on nothing
+      const uint32_t bar = smem_u32(&meta.resident);
+      mbar_expect_tx(bar, QTILE);
+      for (int j = 0; j < NB; ++j) tma_load_3d(q_s + j * BQ * 128, &tm_q, bar, h * HD + 64 * j, q0, b);
+    }
+    // a key's position with both loads in flight at once (INT_MAX where
+    // invalid or past Sk); the query and first key positions load together
+    auto key_at = [&](int s) {
+      if (s >= a.Sk) return INT_MAX;
+      const size_t at = (size_t)b * a.Sk + s;
+      const int p = a.pos_kv[at];
+      return a.valid[at] ? p : INT_MAX;
+    };
+    int e0 = key_at(lane), e1 = key_at(lane + 32);
+    int qmax = INT_MIN;
+    for (int r = lane; r < BQ; r += 32) qmax = max(qmax, query_pos(a.pos_q, b, q0 + r, a.Sq));
+    qmax = warp_max(qmax);
+    int it = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int c0 = e0, c1 = e1;
+      if (kt + 1 < n_kt) {  // the next tile's positions, read while this one waits
+        e0 = key_at((kt + 1) * BK + lane);
+        e1 = key_at((kt + 1) * BK + lane + 32);
+      }
+      const int kmin = warp_min(min(c0, c1));
+      if (kmin > qmax) continue;
+      const int st = it % RING;
+      mbar_wait(smem_u32(&meta.empty[st]), ((it / RING) & 1) ^ 1);
+      meta.kpos[st][lane] = c0;
+      meta.kpos[st][lane + 32] = c1;
+      if (lane == 0) meta.tile[st] = kt;
+      __syncwarp();
+      if (lane == 0) {
+        const uint32_t bar = smem_u32(&meta.full[st]), k_s = ring + st * 2 * TILE;
+        mbar_expect_tx(bar, 2 * TILE);
+        for (int j = 0; j < NB; ++j) {
+          tma_load_3d(k_s + j * GMMA_BOX, &tm_k, bar, kvh * HD + 64 * j, kt * BK, b);
+          tma_load_3d(k_s + TILE + j * GMMA_BOX, &tm_v, bar, kvh * HD + 64 * j, kt * BK, b);
+        }
+      }
+      ++it;
+    }
+    const int st = it % RING;
+    mbar_wait(smem_u32(&meta.empty[st]), ((it / RING) & 1) ^ 1);
+    if (lane == 0) {
+      meta.tile[st] = -1;
+      mbar_arrive(smem_u32(&meta.full[st]));
+    }
+    return;
   }
 
-  // rows r0 + g (index 0) and r0 + g + 8 (index 1) of this lane
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, g = lane / 4, t = lane % 4;
+  const float scale2 = a.scale * LOG2E;
+  int rpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rpos[r] = query_pos(a.pos_q, b, q0 + 64 * c + 16 * warp + g + 8 * r, a.Sq);
+  mbar_wait(smem_u32(&meta.resident), 0);
+
+  // rows 16 warp + g (index 0) and + 8 (index 1) of the warpgroup's 64
   float m[2] = {RLINF_NEG_INF, RLINF_NEG_INF}, l[2] = {0.f, 0.f};
-  float o[NO][4];
+  float o[HD / 2];
 #pragma unroll
-  for (int j = 0; j < NO; ++j)
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  uint32_t ph[4][4], pl[4][4];  // p of the held stage, hi and lo parts
+  float s[32];
+  const uint64_t desc_q = kmajor(q_s, 64 * c);
+  auto issue_s = [&](int st) {  // S = Q K^T of stage st
+    const uint64_t desc_k = kmajor(ring + st * 2 * TILE, 0);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_ss<64, 0>(s, desc_q + kstep(BQ, kk), desc_k + kstep(BK, kk), kk > 0);
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int st) {  // O += P V of stage st, p in two parts
+    const uint64_t desc_v = mnmajor(ring + st * 2 * TILE + TILE);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      wgmma_rs<HD, 1>(o, ph[u], desc_v + mnstep(u), 1);
+      wgmma_rs<HD, 1>(o, pl[u], desc_v + mnstep(u), 1);
+    }
+    wgmma_commit();
+  };
+  auto pv_done = [&](int st) {  // after the wait: O is in, stage st is free
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    if (lane == 0) mbar_arrive(smem_u32(&meta.empty[st]));
+  };
 
-  const int n_kt = (Sk + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's k and v are consumed
-    if (tid == 0) sm.kmin = INT_MAX;
-    __syncthreads();
-    if (tid < BK) {
-      const int s = k0 + tid;
-      const int ok = s < Sk && valid[(size_t)b * Sk + s] != 0;
-      const int pk = s < Sk ? pos_kv[(size_t)b * Sk + s] : 0;
-      sm.pos_kv[tid] = pk;
-      sm.valid[tid] = ok;
-      if (ok) atomicMin(&sm.kmin, pk);
+  mbar_wait(smem_u32(&meta.full[0]), 0);
+  if (meta.tile[0] >= 0) {  // else no key tile: o stays 0
+    if (c == 1) sched_pass(c);  // warpgroup 0 issues first
+    sched_wait(c);
+    wgmma_fence();
+    issue_s(0);
+    sched_pass(c);
+    wgmma_wait<0>();
+    fence_regs(s);
+    float alpha[2];  // o is still 0
+    online_softmax(s, meta.kpos[0], rpos, m, l, scale2, t, alpha);
+    split_frag(s, ph, pl);
+    int pend = 0;  // the stage whose V the held p multiplies
+    for (int it = 1;; ++it) {
+      const int st = it % RING;
+      mbar_wait(smem_u32(&meta.full[st]), (it / RING) & 1);
+      if (meta.tile[st] < 0) break;
+      sched_wait(c);
+      wgmma_fence();
+      issue_s(st);
+      issue_pv(pend);
+      sched_pass(c);
+      wgmma_wait<1>();  // S is in; P V may still run while p is formed
+      fence_regs(s);
+      online_softmax(s, meta.kpos[st], rpos, m, l, scale2, t, alpha);
+      wgmma_wait<0>();
+      pv_done(pend);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          o[4 * j + 2 * r] *= alpha[r];
+          o[4 * j + 2 * r + 1] *= alpha[r];
+        }
+      split_frag(s, ph, pl);
+      pend = st;
     }
-    __syncthreads();
-    if (sm.kmin > sm.qmax) continue;  // no (query, key) pair of the tiles is unmasked
-    load_rows<HD>(sm.k, k, b, k0, Sk, KV, kvh);
-    load_rows<HD>(sm.v, v, b, k0, Sk, KV, kvh);
-    __syncthreads();
-
-    // s = q k^T for 16 rows x 64 keys: 8 fragments of 8 keys
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD; kk += 16) {
-      uint32_t a[4];
-      const __nv_bfloat16* pa = sm.q + (r0 + g) * LD + kk + 2 * t;
-      a[0] = ld32(pa);
-      a[1] = ld32(pa + 8 * LD);
-      a[2] = ld32(pa + 8);
-      a[3] = ld32(pa + 8 * LD + 8);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bb[2];
-        const __nv_bfloat16* pb = sm.k + (j * 8 + g) * LD + kk + 2 * t;
-        bb[0] = ld32(pb);
-        bb[1] = ld32(pb + 8);
-        mma_bf16(s[j], a, bb);
-      }
-    }
-
-    // mask, online softmax over the 4 lanes that share a row
-    const int pq[2] = {sm.pos_q[r0 + g], sm.pos_q[r0 + g + 8]};
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1), i = e >> 1;
-        const bool ok = sm.valid[c] && sm.pos_kv[c] <= pq[i];
-        s[j][e] = ok ? s[j][e] * scale : RLINF_NEG_INF;
-        mx[i] = fmaxf(mx[i], s[j][e]);
-      }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(RLINF_FULL_MASK, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(RLINF_FULL_MASK, mx[i], 2));
-      alpha[i] = expf(m[i] - mx[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * t + (e & 1), i = e >> 1;
-        const bool ok = sm.valid[c] && sm.pos_kv[c] <= pq[i];
-        const float p = ok ? expf(s[j][e] - m[i]) : 0.f;
-        s[j][e] = p;
-        sum[i] += p;
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(RLINF_FULL_MASK, sum[i], 1);
-      sum[i] += __shfl_xor_sync(RLINF_FULL_MASK, sum[i], 2);
-      l[i] = l[i] * alpha[i] + sum[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // o += P V: the C fragments of s are the A fragments of P, split into
-    // a bf16 high part and a bf16 low part (p - hi), so P keeps ~16
-    // mantissa bits and the product stays as close to the fp32 version as
-    // the scalar kernel was
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t hi[4], lo[4];
-      split_f2(s[2 * kc][0], s[2 * kc][1], hi[0], lo[0]);
-      split_f2(s[2 * kc][2], s[2 * kc][3], hi[1], lo[1]);
-      split_f2(s[2 * kc + 1][0], s[2 * kc + 1][1], hi[2], lo[2]);
-      split_f2(s[2 * kc + 1][2], s[2 * kc + 1][3], hi[3], lo[3]);
-#pragma unroll
-      for (int j = 0; j < NO; ++j) {
-        // B(k = key, n = d) from v [key][d]: two 16-bit loads per register
-        const __nv_bfloat16* pb = sm.v + (kc * 16 + 2 * t) * LD + j * 8 + g;
-        uint32_t bb[2];
-        bb[0] = pack2(pb[0], pb[LD]);
-        bb[1] = pack2(pb[8 * LD], pb[9 * LD]);
-        mma_bf16(o[j], hi, bb);
-        mma_bf16(o[j], lo, bb);
-      }
-    }
+    sched_wait(c);
+    wgmma_fence();
+    issue_pv(pend);
+    if (c == 0) sched_pass(c);  // warpgroup 1's last arrival would have no waiter
+    wgmma_wait<0>();
+    pv_done(pend);
   }
 
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = q0 + r0 + g + 8 * i;
-    if (s >= Sq) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(RLINF_FULL_MASK, sum, 1);
+    sum += __shfl_xor_sync(RLINF_FULL_MASK, sum, 2);
+    const int sq = q0 + 64 * c + 16 * warp + g + 8 * r;
+    if (sq >= a.Sq) continue;
+    const float ls = fmaxf(sum, 1e-30f), inv = 1.f / ls;
+    __nv_bfloat16* orow = a.out + (((size_t)b * a.Sq + sq) * a.H + h) * HD + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(&out[((size_t)(b * Sq + s) * H + h) * HD + j * 8 + 2 * t]) =
-          __floats2bfloat162_rn(o[j][2 * i] / ls, o[j][2 * i + 1] / ls);
-    if (t == 0) lse[((size_t)b * H + h) * Sq + s] = m[i] + logf(ls);
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    // a row that saw no valid key keeps m = NEG_INF, as the plain version's max
+    if (t == 0)
+      a.lse[((size_t)b * a.H + h) * a.Sq + sq] =
+          (m[r] == RLINF_NEG_INF ? RLINF_NEG_INF : m[r] * LN2) + logf(ls);
   }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* pos_q,
-           const void* pos_kv, const void* valid, void* out, void* lse, int B,
-           int Sq, int Sk, int H, int KV, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(Smem<HD>);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch(const Args& a, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  if (!head_map(&tq, a.q, a.B, a.Sq, a.H, HD, BQ) || !head_map(&tk, a.k, a.B, a.Sk, a.KV, HD, BK) ||
+      !head_map(&tv, a.v, a.B, a.Sk, a.KV, HD, BK))
+    return cudaErrorInvalidValue;
+  constexpr int smem = smem_bytes<HD>();
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<HD><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos_q),
-      static_cast<const int*>(pos_kv), static_cast<const uint8_t*>(valid),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), Sq, Sk, H, KV, scale);
+  const int tiles = (a.Sq + BQ - 1) / BQ * a.H;
+  flash_fwd_kernel<HD><<<tiles * a.B, THREADS, smem, st>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -277,7 +373,9 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// q [B, Sq, H, HD], k/v [B, Sk, KV, HD] bf16 (16-byte aligned); HD 64 or 128.
+// q [B, Sq, H, HD], k/v [B, Sk, KV, HD] bf16 (16-byte aligned); pos_q
+// [B, Sq], pos_kv [B, Sk] int32; valid [B, Sk] uint8. Writes out
+// [B, Sq, H, HD] bf16 and lse [B, H, Sq] f32. HD is 64 or 128.
 extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
                                    const void* v, const void* pos_q,
                                    const void* pos_kv, const void* valid,
@@ -286,11 +384,16 @@ extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (KV <= 0 || H % KV != 0 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
-      !aligned16(out))
+  if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || !aligned16(q) || !aligned16(k) ||
+      !aligned16(v) || !aligned16(out))
     return cudaErrorInvalidValue;
+  const Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+               static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos_q),
+               static_cast<const int*>(pos_kv), static_cast<const uint8_t*>(valid),
+               static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), B, Sq, Sk, H, KV,
+               scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (HD == 128) return launch<128>(q, k, v, pos_q, pos_kv, valid, out, lse, B, Sq, Sk, H, KV, scale, st);
-  if (HD == 64) return launch<64>(q, k, v, pos_q, pos_kv, valid, out, lse, B, Sq, Sk, H, KV, scale, st);
+  if (HD == 128) return launch<128>(a, st);
+  if (HD == 64) return launch<64>(a, st);
   return cudaErrorInvalidValue;
 }

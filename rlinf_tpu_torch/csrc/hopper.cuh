@@ -1,7 +1,8 @@
-// Hopper (sm_90a) primitives shared by the kernels that run on wgmma and
-// TMA: K4 (sampler.cu), K6 (linear_ce.cu), K7 and K8
-// (flash_attention_bwd.cu). Each source is its own library, so each gets
-// its own copy of these inline functions; none defines them again.
+// Hopper (sm_90a) primitives shared by the kernels that run on wgmma, TMA
+// or bulk copies: K1 (flash_attention_fwd.cu), K4 (sampler.cu), K6
+// (linear_ce.cu), K7 and K8 (flash_attention_bwd.cu), K10
+// (paged_attention.cu). Each source is its own library, so each gets its
+// own copy of these inline functions; none defines them again.
 //
 //  * mbarriers: init, arrive, arrive with an expected byte count, and a
 //    wait on the phase parity (the wait passes once the phase of parity
@@ -9,20 +10,66 @@
 //  * TMA: 2-D and 3-D tiled loads from a CUtensorMap into shared memory,
 //    their bytes counted on an mbarrier; tensor maps in bf16 with the
 //    128-byte swizzle, encoded through the driver entry point that the
-//    runtime hands out (no -lcuda).
+//    runtime hands out (no -lcuda), among them the 3-D map of a
+//    [B, S, heads, HD] attention operand; and the 1-D bulk copy of a
+//    contiguous run of bytes, counted on an mbarrier the same way.
+//  * the attention operands' masks (a key's or a query's position, INT_MAX
+//    or INT_MIN where it takes no part) and warp reductions of positions;
+//    a named barrier of one warpgroup.
 //  * wgmma: the shared-memory descriptor of a tile in the 128-byte swizzle,
 //    m64nNk16 bf16 products with f32 sums, both operands in shared memory
 //    (SS) or A from registers (RS), with the transpose bit of B as a
 //    template argument (TB = 1: B is N-contiguous), and the fences that
-//    keep the compiler from moving register work across them.
+//    keep the compiler from moving register work across them; the
+//    descriptors of tiles stored as TMA boxes of 64 columns (K-major and
+//    MN-major) with their steps.
 #pragma once
 
 #include "common.cuh"
 
 #include <cuda.h>
 
+// Bytes of a 64-row x 64-column bf16 TMA box (128-byte rows).
+constexpr int GMMA_BOX = 64 * 128;
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ int warp_max(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(RLINF_FULL_MASK, x, o));
+  return x;
+}
+
+__device__ __forceinline__ int warp_min(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(RLINF_FULL_MASK, x, o));
+  return x;
+}
+
+// Named barrier 1 + c over the 128 threads of consumer warpgroup c.
+__device__ __forceinline__ void wg_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Position of key s of batch row b for the attention mask: INT_MAX where
+// the key is invalid or past Sk, so that no query sees it.
+__device__ __forceinline__ int key_pos(const int* __restrict__ pos_kv,
+                                       const uint8_t* __restrict__ valid, int b, int s, int Sk) {
+  if (s >= Sk) return INT_MAX;
+  const size_t at = (size_t)b * Sk + s;
+  return valid[at] ? pos_kv[at] : INT_MAX;
+}
+
+// Position of query s of batch row b: INT_MIN past Sq, so that it sees no key.
+__device__ __forceinline__ int query_pos(const int* __restrict__ pos_q, int b, int s, int Sq) {
+  return s < Sq ? pos_q[(size_t)b * Sq + s] : INT_MIN;
 }
 
 // ---------------------------------------------------------------------------
@@ -87,6 +134,17 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// One 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) from device memory into shared memory; the
+// bytes are counted on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -133,6 +191,18 @@ inline bool make_map(CUtensorMap* m, const void* ptr, int inner, int outer, int 
   return make_map_nd(m, ptr, 2, dims, strides, box);
 }
 
+// x [B, S, heads, HD] bf16 as a 3-D tensor (head columns, S, B), read in
+// boxes of 64 columns x `rows` rows of one batch row: a ragged last box
+// reads zeros, never the next batch row.
+inline bool head_map(CUtensorMap* m, const void* x, int B, int S, int heads, int HD, int rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * HD, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(heads) * HD * 2,
+                                 static_cast<cuuint64_t>(S) * heads * HD * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
+  return make_map_nd(m, x, 3, dims, strides, box);
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -146,6 +216,30 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint3
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
+
+// Descriptors of tiles stored as TMA boxes of 64 columns: one base per tile
+// plus an immediate step (the start address is the descriptor's low field,
+// in 16-byte units).
+//
+// K-major base descriptor of 64 rows from `row0` of a tile stored as boxes
+// of 64 columns, and the step to its 16-deep slice kk when the boxes have
+// `rows` rows.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int row0) {
+  return gmma_desc(tile + row0 * 128, 16, 1024);
+}
+
+__device__ __forceinline__ uint64_t kstep(int rows, int kk) {
+  return static_cast<uint64_t>(((kk / 4) * rows * 128 + (kk % 4) * 32) >> 4);
+}
+
+// MN-major base descriptor of a tile of 64 rows stored as boxes of 64 x 64
+// (the depth of the product runs along the rows); rows 16 u.. are u * 2048
+// bytes on.
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile) {
+  return gmma_desc(tile, GMMA_BOX, 1024);
+}
+
+__device__ __forceinline__ uint64_t mnstep(int u) { return static_cast<uint64_t>(u * 2048 >> 4); }
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");

@@ -22,7 +22,8 @@ import torch
 from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import QTensor
-from rlinf_tpu_torch.ops.cuda.decode_megakernel import decode_step_mega
+from rlinf_tpu_torch.ops.cuda.decode_megakernel import _check_geometry, decode_step_mega
+from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
 from rlinf_tpu_torch.ops.cuda.sampler_kernel import (
     fused_lmhead_sample_packed, gumbel_noise, pack_lm_head,
 )
@@ -174,6 +175,13 @@ def generate(
     runs as ONE kernel launch over all layers (requires kv_quant="int8").
     """
     device = resolve_device(device)
+    use_mega = mega is not None and kv_quant == "int8"
+    # on the card, refuse a model that a kernel of these paths does not take,
+    # before the prompts are touched
+    check_on_card(cfg, device, attn_impl=attn_impl, decode_attn_impl=None if use_mega else (
+        decode_attn_impl or M.default_decode_attn_impl(device)))
+    if use_mega and device.type == "cuda":
+        _check_geometry(mega[0])
     if params["embed"].device.type != device.type:
         raise ValueError(
             f"params live on {params['embed'].device}, generate runs on {device}")
@@ -182,7 +190,6 @@ def generate(
     B, P = prompt_ids.shape
     N = sp.max_new_tokens
     S_max = P + N
-    use_mega = mega is not None and kv_quant == "int8"
     if use_mega:
         # the JAX package's cache length for this path (a multiple of 128);
         # the dead tail slots are never read: the kernel masks on [starts, wp)

@@ -7,7 +7,8 @@ a hash of the source, the shared headers and the flags, so an edit rebuilds
 and an unchanged source is loaded as it is. The library is bound with
 ``ctypes``: every entry point takes device pointers, sizes and the CUDA
 stream, launches on that stream, allocates nothing, and returns
-``cudaGetLastError()``.
+``cudaGetLastError()``. ``ptxas -v``'s report of each kernel (registers,
+spills, shared memory) is kept beside its library (``build_log``).
 
 Nothing here runs at import: the CPU tests import every module on a machine
 without ``nvcc``.
@@ -32,7 +33,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = (
     "flash_attention_fwd.cu", "decode_attention.cu", "sampler.cu",
@@ -95,10 +96,17 @@ def build(sources: Sequence[str] = SOURCES) -> float:
         if p.returncode != 0:
             failed.append(f"--- nvcc {src} (exit {p.returncode}) ---\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def build_log(source: str) -> str:
+    """The compiler's output for the built library of ``source``: ``ptxas
+    -v``'s registers, spills and shared memory of each kernel."""
+    return _library_path(source).with_suffix(".log").read_text()
 
 
 def load_library(source: str) -> ctypes.CDLL:

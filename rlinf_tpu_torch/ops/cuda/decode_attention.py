@@ -16,9 +16,9 @@ import torch
 from rlinf_tpu_torch.ops.cuda._build import (
     F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
 )
+from rlinf_tpu_torch.ops.cuda.geometry import check_heads
 
 NEG_INF = -2.0**30
-MAX_GROUP = 8  # query heads per kv head the kernel serves
 
 KERNEL_BF16 = CudaKernel(
     "decode_attention.cu", "decode_attention_bf16",
@@ -80,9 +80,7 @@ def decode_attention_packed_q8_xla(
 def _check_common(q, k_cache, v_cache, starts, lengths, num_kv, cache_dtype):
     B, H, Hd = q.shape
     S = k_cache.shape[1]
-    if Hd not in (64, 128) or num_kv <= 0 or H % num_kv or H // num_kv > MAX_GROUP:
-        raise ValueError(
-            f"decode attention: unsupported H={H} num_kv={num_kv} Hd={Hd}")
+    check_heads("decode_attention", H, num_kv, Hd)
     check_cuda_tensor("q", q, torch.bfloat16, (B, H, Hd))
     check_cuda_tensor("k_cache", k_cache, cache_dtype, (B, S, num_kv * Hd))
     check_cuda_tensor("v_cache", v_cache, cache_dtype, (B, S, num_kv * Hd))

@@ -31,7 +31,8 @@ import torch
 from rlinf_tpu_torch.ops.cuda._build import (
     F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
 )
-from rlinf_tpu_torch.ops.cuda.decode_attention import MAX_GROUP, NEG_INF
+from rlinf_tpu_torch.ops.cuda.decode_attention import NEG_INF
+from rlinf_tpu_torch.ops.cuda.geometry import LIMITS, check_heads
 
 if TYPE_CHECKING:  # models/llm imports this module (sampler.generate(mega=))
     from rlinf_tpu_torch.models.llm.config import LLMConfig
@@ -46,6 +47,7 @@ K_BLOCK = 64   # depth of one packed weight tile
 ITEM_COLS = 16  # output columns of one work item of the kernel
 MAX_SLICES = 16  # most K-slices of a product (KS_MAX of the CUDA source)
 MAX_STAGED_DEPTH = 1536  # deepest slice of 64 activation rows that fits beside the reduce buffer
+MAX_GROUP = LIMITS["decode_megakernel"][1]  # query heads per kv head (MAXG of the CUDA source)
 #: the kernel's phases within a layer, in order, a grid-wide barrier after each
 PHASES = ("norm1", "qkv", "attention", "o_proj", "norm2", "gate_up", "down")
 
@@ -170,11 +172,17 @@ def _unpack_matrix(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
 
 def pack_decode_weights(qparams: dict, cfg: LLMConfig,
                         chunk_width: int = 2048) -> Tuple[MegaPlan, MegaWeights]:
-    """Fused int8 decode params (quantize_params(fuse=True)) -> packed stream."""
+    """Fused int8 decode params (quantize_params(fuse=True)) -> packed stream.
+
+    Weights on the card are packed only for a model the kernel takes
+    (``_check_geometry`` raises before anything is packed); on the CPU the
+    plain version runs any geometry."""
     plan = make_plan(cfg, chunk_width)
     b = qparams["blocks"]
     assert "wqkv" in b and "wgu" in b, (
         "megakernel needs fused decode weights (quantize_params fuse=True)")
+    if b["wqkv"].q.device.type == "cuda":
+        _check_geometry(plan)
     for name, k, n in plan.matrices:
         if k % K_BLOCK or n % ITEM_COLS:
             raise ValueError(
@@ -198,12 +206,13 @@ def pack_decode_weights(qparams: dict, cfg: LLMConfig,
 
 
 def _check_geometry(plan: MegaPlan) -> None:
-    """Raise for a model the kernel does not take: it stages a K-slice of
-    the activations of 64 rows in shared memory, whole for the products out
-    of the hidden state (gate/up apply SiLU to the finished sum)."""
-    if plan.Hd not in (64, 128) or plan.H % plan.Kv or plan.H // plan.Kv > MAX_GROUP:
-        raise ValueError(
-            f"decode megakernel: unsupported H={plan.H} Kv={plan.Kv} Hd={plan.Hd}")
+    """Raise for a model the kernel does not take: its heads (the limits of
+    ``geometry.LIMITS``), and the activations it stages: a K-slice of 64
+    rows in shared memory, whole for the products out of the hidden state
+    (gate/up apply SiLU to the finished sum). Called where the kernel's
+    path is built on the card (``pack_decode_weights``, the continuous
+    engine with ``use_mega``) and again at each launch."""
+    check_heads("decode_megakernel", plan.H, plan.Kv, plan.Hd)
     blocks_f = plan.F // K_BLOCK
     fits = any(blocks_f % ks == 0 and blocks_f // ks * K_BLOCK <= MAX_STAGED_DEPTH
                for ks in range(1, MAX_SLICES + 1))

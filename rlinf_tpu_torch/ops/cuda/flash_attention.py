@@ -27,6 +27,7 @@ import torch
 from rlinf_tpu_torch.ops.cuda._build import (
     F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
 )
+from rlinf_tpu_torch.ops.cuda.geometry import check_heads
 
 NEG_INF = -2.0**30
 
@@ -89,8 +90,7 @@ def flash_attention_fwd(
         return flash_attention_fwd_plain(q, k, v, pos_q, pos_kv, valid, scale)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if D not in (64, 128) or K == 0 or H % K:
-        raise ValueError(f"flash_attention_fwd: unsupported H={H} K={K} D={D}")
+    check_heads("flash_attention", H, K, D)
     check_cuda_tensor("q", q, torch.bfloat16, (B, Sq, H, D))
     check_cuda_tensor("k", k, torch.bfloat16, (B, Sk, K, D))
     check_cuda_tensor("v", v, torch.bfloat16, (B, Sk, K, D))
@@ -148,8 +148,7 @@ def flash_attention_bwd(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
         return flash_attention_bwd_plain(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
-    if D not in (64, 128) or K == 0 or H % K:
-        raise ValueError(f"flash_attention_bwd: unsupported H={H} K={K} D={D}")
+    check_heads("flash_attention", H, K, D)
     for name, t, shape in (("q", q, (B, Sq, H, D)), ("o", o, (B, Sq, H, D)),
                            ("do", do, (B, Sq, H, D)), ("k", k, (B, Sk, K, D)),
                            ("v", v, (B, Sk, K, D))):

@@ -5,24 +5,44 @@ global pool of pages ``[num_pages, Kv, P, Hd]``; row ``b`` owns the pages
 ``page_table[b]`` and attends over the first ``lengths[b]`` token positions
 of that chain. A row with ``lengths[b] == 0`` (an unoccupied slot) gives 0
 in the kernel and in the plain version alike. The CUDA source is
-``csrc/paged_attention.cu``.
+``csrc/paged_attention.cu``: split-KV, each split a run of whole pages
+(``split_plan``), then a merge of the splits, both in one call.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
+    F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
 )
-from rlinf_tpu_torch.ops.cuda.decode_attention import MAX_GROUP, _plain
+from rlinf_tpu_torch.ops.cuda.decode_attention import _plain
+from rlinf_tpu_torch.ops.cuda.geometry import check_heads, check_page_size
 
 KERNEL = CudaKernel(
     "paged_attention.cu", "paged_attention_bf16",
-    [I, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
 )
+
+#: CTAs the split grid aims at, per SM
+CTAS_PER_SM = 4
+#: fewest pages a split: one for each warp of the CTA
+MIN_SPLIT_PAGES = 4
+
+
+def split_plan(rows: int, max_pages: int, sms: int) -> Tuple[int, int]:
+    """-> (pages per split, number of splits) for ``rows`` (row, kv head)
+    pairs whose chains hold up to ``max_pages`` pages: enough splits that
+    the grid (rows x splits CTAs) covers ``sms`` SMs CTAS_PER_SM times, but
+    no fewer than MIN_SPLIT_PAGES pages a split (one for each warp of a
+    CTA), so that a few long rows are not cut into many tiny splits. Split
+    ``s`` of a row of n pages covers its pages ``[s * pps, min((s + 1) *
+    pps, n))``; the kernel's splits past the last page return at once."""
+    want = -(-CTAS_PER_SM * sms // max(rows, 1))
+    pps = min(max_pages, max(MIN_SPLIT_PAGES, max_pages // want))
+    return pps, -(-max_pages // pps)
 
 
 def paged_attention_xla(
@@ -57,24 +77,28 @@ def paged_attention(
     lengths: torch.Tensor,     # [B] int32
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """K10 -> [B, H, Hd] in q.dtype. CPU tensors run the plain version."""
+    """K10 -> [B, H, Hd] in q.dtype: the split kernel and the merge, one
+    launch in the count. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return paged_attention_xla(q, k_pages, v_pages, page_table, lengths, scale=scale)
     B, H, Hd = q.shape
     num_pages, Kv, Pg, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    if Hd not in (64, 128) or H % Kv or H // Kv > MAX_GROUP:
-        raise ValueError(f"paged attention: unsupported H={H} Kv={Kv} Hd={Hd}")
+    check_heads("paged_attention", H, Kv, Hd)
+    check_page_size(Pg, Hd)
     check_cuda_tensor("q", q, torch.bfloat16, (B, H, Hd))
     check_cuda_tensor("k_pages", k_pages, torch.bfloat16, (num_pages, Kv, Pg, Hd))
     check_cuda_tensor("v_pages", v_pages, torch.bfloat16, (num_pages, Kv, Pg, Hd))
     check_cuda_tensor("page_table", page_table, torch.int32, (B, max_pages))
     check_cuda_tensor("lengths", lengths, torch.int32, (B,))
+    pps, splits = split_plan(B * Kv, max_pages, sm_count(q.device.index))
+    part_ml = torch.empty((B * Kv, splits, H // Kv, 2), dtype=torch.float32, device=q.device)
+    part_o = torch.empty((B * Kv, splits, H // Kv, Hd), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     KERNEL(
         q.device.index, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, Kv, Pg, max_pages, Hd, float(Hd**-0.5 if scale is None else scale),
-        stream_handle(),
+        page_table.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(), part_o.data_ptr(),
+        out.data_ptr(), B, H, Kv, Pg, max_pages, Hd, pps, splits,
+        float(Hd**-0.5 if scale is None else scale), stream_handle(),
     )
     return out

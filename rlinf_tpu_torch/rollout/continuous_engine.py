@@ -45,8 +45,9 @@ from rlinf_tpu_torch.models.llm.sampler import (
     SamplingParams, _sample_hidden, sample_from_logits, with_packed_lm_head,
 )
 from rlinf_tpu_torch.ops.cuda.decode_megakernel import (
-    decode_step_mega, make_plan, pack_decode_weights,
+    _check_geometry, decode_step_mega, make_plan, pack_decode_weights,
 )
+from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import rope_frequencies
 from rlinf_tpu_torch.utils.device import resolve_device
@@ -153,6 +154,26 @@ class ContinuousBatchingEngine:
         #: packed megakernel weights of the current decode params, made at the
         #: first decode round on a stacked cache
         self._mega_mw = None
+        self._check_kernel_paths()
+
+    def _check_kernel_paths(self):
+        """On the card, refuse here, before any prompt is taken, a model that
+        a kernel of this engine's paths does not take. ``use_mega="auto"``
+        refuses it too rather than decode on the per-layer kernels alone,
+        which would hide the megakernel."""
+        if self.device.type != "cuda":
+            return
+        per_layer = self.use_mega is not True
+        check_on_card(self.cfg, self.device, attn_impl=self.attn_impl,
+                      decode_attn_impl=(self.decode_attn_impl or "pallas") if per_layer else None)
+        if self.use_mega:
+            try:
+                _check_geometry(self._plan)
+            except ValueError as err:
+                raise ValueError(
+                    f"{err}. use_mega={self.use_mega!r} runs the decode megakernel; build the "
+                    "engine with use_mega=False to decode this model on the per-layer "
+                    "kernels") from err
 
     # -- device internals --------------------------------------------------
     def _refill_impl(self, params, pool: _Pool, slot_ids, prompt_ids, prompt_mask, generator):

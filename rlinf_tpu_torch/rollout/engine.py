@@ -15,6 +15,7 @@ from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import quantize_params
 from rlinf_tpu_torch.models.llm.sampler import SamplingParams, generate
+from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
 from rlinf_tpu_torch.utils.device import resolve_device
 
 
@@ -43,6 +44,9 @@ class RolloutEngine:
         self.decode_attn_impl = decode_attn_impl
         self.weight_quant = weight_quant
         self.device = resolve_device(device)
+        # on the card, refuse a model that the kernels of these paths do not take
+        check_on_card(cfg, self.device, attn_impl=attn_impl,
+                      decode_attn_impl=decode_attn_impl or M.default_decode_attn_impl(self.device))
 
     @torch.inference_mode()
     def rollout(

@@ -28,6 +28,7 @@ from rlinf_tpu_torch.data.io_struct import RolloutRequest, RolloutResult
 from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.sampler import SamplingParams, sample_from_logits
+from rlinf_tpu_torch.ops.cuda.geometry import check_kernel_geometry
 from rlinf_tpu_torch.ops.cuda.paged_attention import paged_attention, paged_attention_xla
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
@@ -63,6 +64,14 @@ class PagedContinuousEngine(ContinuousBatchingEngine):
         self.num_pages = num_pages or (1 + num_slots * self.max_pages_per_slot)
         #: the DECODE attention: "pallas" = kernel K10, "xla" = its plain version
         self.attn_impl = attn_impl
+        self._check_kernel_paths()
+
+    def _check_kernel_paths(self):
+        """On the card, refuse a model or page size that K10 does not take
+        (the prefill runs plain attention). The base constructor's call
+        comes before the decode attention is set and checks nothing."""
+        if self.device.type == "cuda" and self.attn_impl == "pallas":
+            check_kernel_geometry(self.cfg, "paged", page_size=self.page_size)
 
     # -- state ---------------------------------------------------------------
     def _init_pools(self):

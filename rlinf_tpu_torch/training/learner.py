@@ -28,6 +28,7 @@ from rlinf_tpu_torch.algorithms.losses import (
 from rlinf_tpu_torch.algorithms.utils import kl_penalty
 from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
+from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
 from rlinf_tpu_torch.ops.logprobs import linear_logprobs_and_entropy
 from rlinf_tpu_torch.training.train_state import (
     Optimizer, TrainState, apply_updates, tree_leaves, tree_map,
@@ -175,6 +176,7 @@ def make_policy_train_step(
     if mesh is not None:
         raise NotImplementedError("make_policy_train_step(mesh=...) comes with the parallel slice")
     dev = resolve_device(device)
+    check_on_card(cfg, dev, attn_impl=attn_impl)
     acc_dt = grad_acc_dtype or torch.float32
 
     def loss_of(mb, global_valid):
@@ -230,6 +232,7 @@ def make_policy_grad_and_apply(
     accumulator, ``apply_step`` performs one optimizer update, with
     gradients identical to the one-big-batch form."""
     dev = resolve_device(device)
+    check_on_card(cfg, dev, attn_impl=attn_impl)
 
     def grad_step(params, acc_grads, mb, global_valid_tokens):
         mb = _to_device(mb, dev)
@@ -264,6 +267,7 @@ def make_logprob_fn(
     logprobs. Unlike the train step's loss, it passes ``temperature`` to
     the lm-head (as the JAX package does; the two agree at 1.0)."""
     dev = resolve_device(device)
+    check_on_card(cfg, dev, attn_impl=attn_impl)
 
     @torch.no_grad()
     def logprob_fn(params, batch):

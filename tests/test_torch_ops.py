@@ -143,6 +143,25 @@ def test_flash_plain_matches_pallas_left_padding(H, K, S):
     np.testing.assert_allclose(_np(xla), _np(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("B,S,H,K,D,block", [(2, 100, 14, 2, 64, 64), (2, 70, 12, 2, 128, 32)])
+def test_flash_plain_matches_pallas_at_kernel_head_dims(B, S, H, K, D, block):
+    """At the head dims the kernels take: Hd=64 with G=7 (Qwen2-0.5B's
+    heads) and Hd=128 with G=6, with S not a multiple of the Pallas blocks
+    (the JAX wrapper pads the tail, K1 masks its ragged tile), left-padded
+    rows. fp32 on both sides: 1e-5."""
+    r = np.random.default_rng(9)
+    q = r.normal(size=(B, S, H, D)).astype(np.float32)
+    k = r.normal(size=(B, S, K, D)).astype(np.float32)
+    v = r.normal(size=(B, S, K, D)).astype(np.float32)
+    pos, valid = _left_padded(r, B, S)
+    got = tflash.flash_attention(_t(q), _t(k), _t(v), positions_q=_t(pos), positions_kv=_t(pos),
+                                 kv_valid_mask=_t(valid))
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), positions_q=jnp.asarray(pos),
+                   positions_kv=jnp.asarray(pos), kv_valid_mask=jnp.asarray(valid),
+                   block_q=block, block_k=block)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+
 def test_flash_plain_lse_and_bf16():
     """lse equals logsumexp of the masked scores; in bf16 the output agrees
     with the fp32 plain version within 2e-2 (one bf16 rounding of q, k, v

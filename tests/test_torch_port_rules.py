@@ -118,6 +118,42 @@ def test_chip_smoke_reads_k7_and_k8_by_the_source_names():
         cs.flash_bwd_step(trace[:1])
 
 
+def test_chip_smoke_reports_k1_and_k10_by_the_source_names():
+    """chip_smoke.py prints ptxas's registers and spills and the SASS
+    instruction counts of K1 and K10 by kernel name: each name is a
+    __global__ kernel of its source, and the reports read the compiler's
+    and cuobjdump's output by those names (template argument kept)."""
+    cs = _chip_smoke()
+    assert set(cs.REPORTED_KERNELS) == {"flash_attention_fwd.cu", "paged_attention.cu"}
+    for src, names in cs.REPORTED_KERNELS.items():
+        cu = (PORT / "csrc" / src).read_text()
+        for name in names:
+            assert re.search(rf"__global__ void (?:__launch_bounds__\([^)]*\) )?{name}\(", cu), name
+    fwd = "_ZN55_GLOBAL__N__c3_22_flash_attention_fwd_cu_44c3199416flash_fwd_kernelILi128EEEv14CUtensorMap_st"
+    merge = "_ZN51_GLOBAL__N__26_18_paged_attention_cu_44c3199418paged_merge_kernelENS_4ArgsEi"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd}",
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are "
+        "serialized",
+        "ptxas info    : Used 168 registers, used 16 barriers, 1120 bytes smem",
+        f"ptxas info    : Compiling entry function '{merge}' for 'sm_90a'",
+        "ptxas info    : Used 32 registers, used 0 barriers"])
+    names = cs.REPORTED_KERNELS["flash_attention_fwd.cu"] + cs.REPORTED_KERNELS["paged_attention.cu"]
+    got = cs.ptxas_report(log, names)
+    assert got["flash_fwd_kernel<128>"]["registers"] == 168
+    assert got["flash_fwd_kernel<128>"]["spill_stores"] == 8
+    assert len(got["flash_fwd_kernel<128>"]["notes"]) == 1
+    assert got["paged_merge_kernel"] == {"notes": [], "registers": 32}
+    sass = (f"\n\tFunction : {fwd}\n HGMMA.64x64x16 ;\n HGMMA.64x128x16 ;\n WARPGROUP.DEPBAR.LE gsb0 ;"
+            f"\n\tFunction : {merge}\n FFMA ;")
+    counts = cs.sass_counts(sass, names)
+    assert counts["flash_fwd_kernel<128>"]["HGMMA"] == 2
+    assert counts["flash_fwd_kernel<128>"]["WARPGROUP.DEPBAR"] == 1
+    assert counts["paged_merge_kernel"]["HMMA"] == 0
+
+
 def _header_functions(text):
     """Names of the functions a header defines."""
     return set(re.findall(
@@ -125,14 +161,18 @@ def _header_functions(text):
         text, re.M))
 
 
-@pytest.mark.parametrize("source", ["linear_ce.cu", "flash_attention_bwd.cu", "sampler.cu"])
+@pytest.mark.parametrize("source", ["linear_ce.cu", "flash_attention_bwd.cu", "sampler.cu",
+                                    "flash_attention_fwd.cu", "paged_attention.cu"])
 def test_hopper_primitives_live_in_one_header(source):
-    """csrc/hopper.cuh holds the TMA, mbarrier and wgmma primitives; the
-    sources that run on wgmma include it and define none of them again."""
+    """csrc/hopper.cuh holds the TMA, bulk-copy, mbarrier and wgmma
+    primitives (and the attention operands' tensor map, masks and tile
+    descriptors that K1, K7 and K8 share); the sources that run on them
+    include it and define none of them again."""
     header = (_build.CSRC / "hopper.cuh").read_text()
     shared = _header_functions(header)
     assert {"smem_u32", "mbar_wait", "tma_load", "tma_load_3d", "gmma_desc", "wgmma_ss",
-            "wgmma_rs", "fence_regs", "encode_tiled", "make_map"} <= shared
+            "wgmma_rs", "fence_regs", "encode_tiled", "make_map", "bulk_load", "head_map",
+            "key_pos", "query_pos", "kmajor", "kstep", "mnmajor", "mnstep"} <= shared
     text = (_build.CSRC / source).read_text()
     assert '#include "hopper.cuh"' in text
     code = "\n".join(line.split("//")[0] for line in text.splitlines())

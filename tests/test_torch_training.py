@@ -294,10 +294,19 @@ def test_yaml_config_loads_equal_on_both_sides():
     assert jd == td
     assert tconfig.resolve_attn_impl(t, device="cpu") == "xla"
     assert tconfig.resolve_attn_impl(dataclasses.replace(t, attn_impl="pallas"), "cpu") == "pallas"
+    # on the card "auto" takes the kernels from ATTN_KERNELS_FROM_T (128) trained
+    # tokens, for a head dim they take (the YAML model's is 16: refused there,
+    # tests/test_torch_geometry.py)
+    assert tconfig.ATTN_KERNELS_FROM_T == 128
+    kernel_heads = dataclasses.replace(t.model, max_seq_len=4096, head_dim=64)
     long = dataclasses.replace(t, data=dataclasses.replace(t.data, max_prompt_len=2048),
-                               model=dataclasses.replace(t.model, max_seq_len=4096))
+                               model=kernel_heads)
     assert tconfig.resolve_attn_impl(long, device="cuda") == "pallas"
-    assert tconfig.resolve_attn_impl(t, device="cuda") == "xla"
+    at = dataclasses.replace(t, data=dataclasses.replace(t.data, max_prompt_len=112),
+                             model=kernel_heads)
+    assert tconfig.resolve_attn_impl(at, device="cuda") == "pallas"          # 112 + 16 tokens
+    short = dataclasses.replace(at, data=dataclasses.replace(t.data, max_prompt_len=111))
+    assert tconfig.resolve_attn_impl(short, device="cuda") == "xla"
 
 
 @pytest.mark.parametrize("override", [
