@@ -8,14 +8,19 @@ engines) and the GRPO training path.
 Phases, each printing one JSON line:
 
 1. build: compile every kernel of ``rlinf_tpu_torch/csrc`` with nvcc
-   (sm_90a), all sources at once, and report the seconds.
+   (sm_90a), all sources at once, and report the seconds; then ptxas's
+   registers and spills and the SASS tensor-core counts of K1, K3, K5 and
+   K10, held to their designs (no spill; K5 on wgmma, K3 on mma.sync).
 2. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at the shapes of the main path (Qwen2-1.5B, 64 prompts of up
    to 512 tokens, 256 new tokens): error against a stated tolerance, the
-   kernel's, the plain version's and one library call's time (CUDA events),
+   kernel's, the plain version's and one library call's time (CUDA events;
+   K3's and its library call's also from a CUDA-graph replay, its ``ms``),
    and the least time the card could take (bytes or operations at the
-   card's published peak). K4 runs on the head packed once, at B=64 and
-   at B=8, sampled and greedy (the difference is what the draws cost).
+   card's published peak). K3 also at ragged intervals (empty rows, rows
+   over split boundaries, Hd=64 with G=7, G=8 at an odd cache length). K4
+   runs on the head packed once, at B=64 and at B=8, sampled and greedy
+   (the difference is what the draws cost).
 3. main path: ``build_rollout_engine`` (static engine, int8 weights,
    hand-written kernels, bf16 packed KV cache) rolls out 64 prompts of
    128-512 tokens to 256 new tokens at the full width and depth of
@@ -32,16 +37,17 @@ Phases, each printing one JSON line:
    few decode steps.
 
 5. training kernels: K5/K6 (fused linear cross-entropy) at one row chunk
-   of the training path (4096 rows, tied [V, D] embedding, non-zero
-   entropy gradient; K6 also with the untied [D, V] weight, its two
-   passes read apart from a profiler trace) and K7/K8 (flash-attention
-   backward) at one microbatch of the training batch (16 right-padded
-   rows, T=768; K7 forms delta itself), each against its plain version
+   of the training path (4096 rows, tied [V, D] embedding and the untied
+   [D, V] weight, non-zero entropy gradient; K6's two passes read apart
+   from a profiler trace; K5 also at a ragged shape: 100 rows, D=100,
+   V=1001, T=1.3) and K7/K8 (flash-attention backward) at one microbatch
+   of the training batch (16 right-padded rows, T=768; K7 forms delta
+   itself), each against its plain version
    with a stated tolerance and timed beside its bound, its plain version
    and a library call; the whole flash_attention_bwd call beside the
    library call; K7/K8 also at ragged shapes (T=700 left-padded at Hd=64,
    Sq=100, a row with no valid key). Then K4 and K6 against their plain
-   versions at ragged shapes (K6 also at D=100, V=1001), and
+   versions at ragged shapes (K6 also at n=100, D=100, V=1001), and
    causal_attention forward + backward through the kernels and the plain
    path at T = 512-2048 (12,288 tokens each).
 6. training path: GRPO on phase 3's rollout (64 rows as 8 groups of 8,
@@ -51,11 +57,11 @@ Phases, each printing one JSON line:
    microbatches, adamw with master weights, entropy bonus 1e-3): the step
    time is the median of steps 2-4, and each step's seconds stand beside
    the allocator's device allocations and the garbage collector's pauses
-   in it. Gates: every
-   training kernel launched, finite loss and grad norm, step-1
+   in it. Gates: K1 and K5 launched by the recompute, every training
+   kernel launched by the steps, finite loss and grad norm, step-1
    |approx_kl| < 1e-3, params moved. One more step runs under the
-   profiler: device time by kernel, with K6's passes and K7's and K8's
-   time a step read from the whole trace.
+   profiler: device time by kernel, with K5's, K6's passes' and K7's and
+   K8's time a step read from the whole trace.
 7. whole-step check: one train step at check_q8_generate's configuration,
    kernels against the plain path from the same params.
 
@@ -190,18 +196,25 @@ def nbytes(*ts) -> int:
 
 
 # The kernels whose compiler report the build phase prints, by source: the
-# __global__ names of csrc/flash_attention_fwd.cu (K1) and
-# csrc/paged_attention.cu (K10: the split kernel and the merge).
+# __global__ names of csrc/flash_attention_fwd.cu (K1),
+# csrc/paged_attention.cu (K10: the split kernel and the merge),
+# csrc/linear_ce.cu (K5 and K6's product kernel, PASS 2 being K5's, and
+# K5's combine) and csrc/decode_attention.cu (K3: the split kernel and the
+# merge).
 REPORTED_KERNELS = {"flash_attention_fwd.cu": ("flash_fwd_kernel",),
-                    "paged_attention.cu": ("paged_split_kernel", "paged_merge_kernel")}
+                    "paged_attention.cu": ("paged_split_kernel", "paged_merge_kernel"),
+                    "linear_ce.cu": ("ce_gemm_kernel", "ce_fwd_combine_kernel"),
+                    "decode_attention.cu": ("decode_q8_split_kernel", "decode_q8_merge_kernel")}
 
 
 def _kernel_key(mangled: str, names) -> str:
-    """'name<HD>' (or 'name') of the reported kernel a mangled symbol is, else ''."""
+    """'name<args>' (or 'name') of the reported kernel a mangled symbol is,
+    its int and bool template arguments kept, else ''."""
     for name in names:
-        m = re.search(rf"\d+{name}(?:ILi(\d+)E)?", mangled)
+        m = re.search(rf"\d+{name}(I(?:L[ib]\d+E)+E)?", mangled)
         if m:
-            return f"{name}<{m.group(1)}>" if m.group(1) else name
+            args = re.findall(r"L[ib](\d+)E", m.group(1) or "")
+            return f"{name}<{', '.join(args)}>" if args else name
     return ""
 
 
@@ -245,7 +258,8 @@ def sass_counts(sass: str, names) -> dict:
 
 def kernel_reports() -> dict:
     """ptxas's registers and spills and the SASS instruction counts of the
-    REPORTED_KERNELS, from the libraries just built."""
+    REPORTED_KERNELS, from the libraries just built (check_reports holds
+    them to their designs)."""
     import shutil
 
     from rlinf_tpu_torch.ops.cuda import _build
@@ -258,6 +272,23 @@ def kernel_reports() -> dict:
         out[src] = {"ptxas": ptxas_report(_build.build_log(src), names),
                     "sass": sass_counts(sass, names)}
     return out
+
+
+def check_reports(reports: dict) -> None:
+    """Raise unless no reported kernel spills, K5's product kernel (PASS 2
+    of ce_gemm_kernel) runs on wgmma (HGMMA, no HMMA) with fewer wgmma waits
+    than products, and K3's split kernel runs on mma.sync (HMMA)."""
+    bad = [k for rep in reports.values() for k, r in rep["ptxas"].items()
+           if r.get("spill_stores") or r.get("spill_loads")]
+    k5 = {k: v for k, v in reports["linear_ce.cu"]["sass"].items()
+          if k.startswith("ce_gemm_kernel<2")}
+    k3 = {k: v for k, v in reports["decode_attention.cu"]["sass"].items()
+          if k.startswith("decode_q8_split_kernel")}
+    bad += [k for k, v in k5.items()
+            if not (v["HGMMA"] > 0 and v["HMMA"] == 0 and v["WARPGROUP.DEPBAR"] < v["HGMMA"])]
+    bad += [k for k, v in k3.items() if not v["HMMA"] > 0]
+    if bad or len(k5) != 2 or len(k3) != 2:
+        raise AssertionError(f"kernel reports: {bad} (K5 {sorted(k5)}, K3 {sorted(k3)})")
 
 
 class Rotation:
@@ -393,12 +424,19 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     ref = DA.decode_attention_packed_q8_xla(qd, kq, vq, ks, vs, starts, lengths, num_kv=Kv)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
-    ms = cuda_ms(lambda: DA.decode_attention_packed_q8(*rot.next(), starts, lengths, num_kv=Kv), 50)
+    k3_rel = head_rel_err(out, ref)
+    if not (err < 2e-2 and k3_rel < K3_TOL_REL):
+        raise AssertionError(f"K3 disagrees with its plain version: {err}, relative {k3_rel}")
+    call = lambda: DA.decode_attention_packed_q8(*rot.next(), starts, lengths, num_kv=Kv)
+    ms = graph_ms(call)
+    eager_ms = cuda_ms(call, 50, warmup=5)
     plain_ms = cuda_ms(lambda: DA.decode_attention_packed_q8_xla(
         qd, kq, vq, ks, vs, starts, lengths, num_kv=Kv), 10)
     kdq = (kq.float() * ks[..., None]).bfloat16()
     vdq = (vq.float() * vs[..., None]).bfloat16()
-    lib_ms = cuda_ms(sdpa_decode(qd, kdq, vdq), 20)
+    library = sdpa_decode(qd, kdq, vdq)
+    lib_ms = graph_ms(library)
+    lib_eager_ms = cuda_ms(library, 20)
     b_ms, b_by = bound(nbytes(qd, starts, lengths, out) + 2 * slots * (KD + 4),
                        4.0 * Hd * H * slots, peaks)
     results.append(dict(
@@ -406,10 +444,15 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
         source="rlinf_tpu_torch/csrc/decode_attention.cu",
         replaces="rlinf_tpu/ops/pallas/decode_attention.py:418",
         shapes=f"q[{B},{H},{Hd}] cache[{B},{S_max},{KD}] int8 + scales, {slots} valid slots",
-        max_abs_err=err, tolerance=2e-2, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library="scaled_dot_product_attention on dequantized bf16", bound_ms=b_ms, bound_by=b_by))
-    if not err < 2e-2:
-        raise AssertionError(f"K3 disagrees with its plain version: {err}")
+        max_abs_err=err, tolerance=2e-2, rel_err=k3_rel, tolerance_rel=K3_TOL_REL, ms=ms,
+        eager_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms, library_eager_ms=lib_eager_ms,
+        library="scaled_dot_product_attention on dequantized bf16",
+        timing="ms, library_ms: device time of one call, replayed from a CUDA graph (the split "
+               "kernel and the merge); eager_ms, library_eager_ms: CUDA events around calls "
+               "made one after another, the host's dispatch included",
+        split_plan=DA.split_plan(B * Kv, -(-S_max // DA.KEY_BLOCK),
+                                 torch.cuda.get_device_properties(0).multi_processor_count),
+        bound_ms=b_ms, bound_by=b_by, ragged=q8_ragged(randn)))
     del rot, kdq, vdq
 
     # --- K4: fused int8 lm-head sampler at [B, D] x [D, V], on the head
@@ -460,10 +503,69 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     return results
 
 
+# (B, S, H, Kv, Hd, starts, lengths) of K3's ragged cases: Qwen2-1.5B's
+# heads with an empty row (start == length), a row whose start > length, a
+# row of one slot and a row with start > 0 that runs over split boundaries
+# (runs of 4 blocks here); Qwen2-0.5B's (Hd=64, G=7) with empty rows and
+# rows ending past S; G=8 at an odd S, a partial last block past it, and
+# an empty row.
+RAGGED_Q8 = (
+    (8, 300, 12, 2, 128, [0, 5, 37, 17, 299, 120, 64, 250], [300, 5, 250, 3, 300, 121, 300, 251]),
+    (8, 300, 14, 2, 64, [0, 3, 200, 16, 31, 0, 250, 7], [300, 290, 201, 16, 400, 0, 299, 170]),
+    (5, 77, 16, 2, 128, [0, 1, 60, 2, 30], [77, 76, 77, 3, 30]))
+
+# K3's bar beside the max-abs 2e-2, per (row, query head): max-abs error
+# over max |plain| of that head's output < 1e-2 (``head_rel_err``). The
+# output is bf16, whose step is at most 2^-8 (3.9e-3) of the head's largest
+# output, and two correct results differ by about one step; one stale slot
+# in a row of ~450 moves its outputs by ~1e-3 absolute, ~1e-2 of their
+# largest at the main shape. Per head, so that a short row's large outputs
+# do not set the bar of a long row.
+K3_TOL_REL = 1e-2
+
+
+def q8_ragged(randn) -> dict:
+    """K3 against its plain version at RAGGED_Q8, at the main check's bars
+    (max-abs error < 2e-2, relative error < K3_TOL_REL); a row with an
+    empty interval must give exactly 0."""
+    from rlinf_tpu_torch.ops.cuda import decode_attention as DA
+
+    out = {}
+    for B, S, H, Kv, Hd, st, ln in RAGGED_Q8:
+        starts = torch.as_tensor(st, dtype=torch.int32, device="cuda")
+        lengths = torch.as_tensor(ln, dtype=torch.int32, device="cuda")
+        kq, ks = DA.quantize_kv_token(randn(B, S, Kv * Hd, scale=0.5))
+        vq, vs = DA.quantize_kv_token(randn(B, S, Kv * Hd, scale=0.5))
+        q = randn(B, H, Hd)
+        got = DA.decode_attention_packed_q8(q, kq, vq, ks, vs, starts, lengths, num_kv=Kv)
+        ref = DA.decode_attention_packed_q8_xla(q, kq, vq, ks, vs, starts, lengths, num_kv=Kv)
+        torch.cuda.synchronize()
+        empty = [b for b in range(B) if min(ln[b], S) <= max(st[b], 0)]
+        key = f"B={B} S={S} H={H} Kv={Kv} Hd={Hd}"
+        out[key] = {"max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                    "rel_err": head_rel_err(got, ref), "empty_rows": empty,
+                    "empty_rows_zero": all(bool((got[b] == 0).all().item()) for b in empty)}
+        if not (out[key]["max_abs_err"] < 2e-2 and out[key]["rel_err"] < K3_TOL_REL
+                and empty and out[key]["empty_rows_zero"]):
+            raise AssertionError(f"K3 at {key}: {out[key]}")
+    return out
+
+
 def rel_err(a, b) -> float:
     """max |a - b| over max |b|."""
     a, b = a.float(), b.float()
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def head_rel_err(got, ref) -> float:
+    """Decode attention [B, H, Hd]: the largest, over (row, head), of the
+    max-abs error over max |ref| of that head's output; heads whose ref is
+    all 0 (empty rows, held to exactly 0 apart) are left out."""
+    got, ref = got.float(), ref.float()
+    scale = ref.abs().amax(-1)
+    keep = scale > 0
+    err = (got - ref).abs().amax(-1)
+    return (err[keep] / scale[keep]).max().item() if bool(keep.any()) else 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -713,16 +815,27 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
 
-    # --- K5: fused linear-CE forward ----------------------------------------
+    # --- K5: fused linear-CE forward, the tied [V, D] layout of the training
+    # path and the untied [D, V] one ------------------------------------------
     n = 4096
     h, w = randn(n, D), randn(V, D, scale=0.02)
     tgt = torch.randint(0, V, (n,), generator=g, device=dev, dtype=torch.int32)
-    lp, ent, lse = LCE.ce_forward(h, w, tgt, 1.0, "vd")
-    ref = LCE.ce_forward_plain(h, w, tgt, 1.0, "vd")
-    torch.cuda.synchronize()
-    errs = [(a - b).abs().max().item() for a, b in zip((lp, ent, lse), ref)]
-    del ref
-    ms = cuda_ms(lambda: LCE.ce_forward(h, w, tgt, 1.0, "vd"), 3, warmup=1)
+    k5 = {}
+    for layout in ("vd", "dv"):
+        wl_ = w if layout == "vd" else w.t().contiguous()
+        got = LCE.ce_forward(h, wl_, tgt, 1.0, layout)
+        ref = LCE.ce_forward_plain(h, wl_, tgt, 1.0, layout)
+        torch.cuda.synchronize()
+        errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+        del ref
+        k5[layout] = dict(max_abs_err=max(errs), lp_ent_lse_err=errs,
+                          ms=cuda_ms(lambda: LCE.ce_forward(h, wl_, tgt, 1.0, layout), 3, warmup=1))
+        if not max(errs) < 2e-3:
+            raise AssertionError(f"K5 ({layout}) disagrees with its plain version: {errs}")
+        if layout == "vd":
+            lp, ent, lse = got
+        del wl_, got
+        torch.cuda.empty_cache()
     plain_ms = cuda_ms(lambda: LCE.ce_forward_plain(h, w, tgt, 1.0, "vd"), 2, warmup=1)
     hl, wl = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
 
@@ -737,11 +850,9 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
         name="linear_ce_fwd", route="cuda", source="rlinf_tpu_torch/csrc/linear_ce.cu",
         replaces="rlinf_tpu/ops/pallas/linear_ce.py:234",
         shapes=f"h[{n},{D}] bf16 w[{V},{D}] bf16 (vd) targets int32",
-        max_abs_err=max(errs), lp_ent_lse_err=errs, tolerance=2e-3,
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library="matmul(bf16) + log_softmax + gather/entropy", bound_ms=b_ms, bound_by=b_by))
-    if not max(errs) < 2e-3:
-        raise AssertionError(f"K5 disagrees with its plain version: {errs}")
+        **k5["vd"], tolerance=2e-3, plain_ms=plain_ms, library_ms=lib_ms,
+        library="matmul(bf16) + log_softmax + gather/entropy", bound_ms=b_ms, bound_by=b_by,
+        untied_dv=k5["dv"], ragged=k5_ragged(g)))
 
     # --- K6: fused linear-CE backward (non-zero entropy gradient), the tied
     # [V, D] layout of the training path and the untied [D, V] one; the
@@ -1010,8 +1121,34 @@ def ragged_shapes(seed) -> dict:
         out[f"K4 B={B} D={D} V={V}"] = r
         if r["greedy_agree"] != 1.0 or not r["lp_err"] < 5e-3:
             raise AssertionError(f"K4 at B={B}, D={D}, V={V}: {r}")
-    for n, D, V in ((320, 200, 1000), (320, 100, 1001)):
+    for n, D, V in ((320, 200, 1000), (100, 100, 1001)):
         out.update(k6_ragged(g, n, D, V))
+    return out
+
+
+def k5_ragged(g, n=100, D=100, V=1001, T=1.3) -> dict:
+    """K5 against its plain version where every tile is ragged: n rows (a
+    partial 128-row tile, as fused_linear_ce passes them), depth D
+    (zero-padded to a multiple of 8 by the wrapper), V columns (a partial
+    last tile, where the last row's target lies), at temperature T, both
+    layouts; max-abs error < 2e-3 on lp, ent and lse."""
+    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
+
+    h = torch.randn((n, D), generator=g, device="cuda").bfloat16()
+    tgt = torch.randint(0, V, (n,), generator=g, device="cuda", dtype=torch.int32)
+    tgt[n - 1] = V - 1
+    w_vd = (torch.randn((V, D), generator=g, device="cuda") * 0.1).bfloat16()
+    out = {}
+    for layout in ("vd", "dv"):
+        w = w_vd if layout == "vd" else w_vd.t().contiguous()
+        got = LCE.ce_forward(h, w, tgt, 1.0 / T, layout)
+        ref = LCE.ce_forward_plain(h, w, tgt, 1.0 / T, layout)
+        torch.cuda.synchronize()
+        errs = [(a - b).abs().max().item() for a, b in zip(got, ref)]
+        key = f"K5 {layout} n={n} D={D} V={V} T={T}"
+        out[key] = {"lp_ent_lse_err": errs}
+        if not max(errs) < 2e-3:
+            raise AssertionError(f"K5 at {key}: {errs}")
     return out
 
 
@@ -1216,9 +1353,12 @@ def flash_bwd_step(events) -> dict:
 # K6 calls in the trace that reads its passes apart (launches_traced tells
 # how many of each pass's K6_TRACED_CALLS launches the trace kept)
 K6_TRACED_CALLS = 8
-# K6's kernels by the names the trace gives them (csrc/linear_ce.cu)
-K6_PASSES = (("pass_a", "ce_bwd_gemm_kernel<0"), ("pass_b", "ce_bwd_gemm_kernel<1"),
+# K6's kernels by the names the trace gives them (csrc/linear_ce.cu; K5 is
+# the same template's PASS 2)
+K6_PASSES = (("pass_a", "ce_gemm_kernel<0"), ("pass_b", "ce_gemm_kernel<1"),
              ("merge", "dh_merge_kernel"))
+# K5's kernels by the names the trace gives them
+K5_KERNELS = ("ce_gemm_kernel<2", "ce_fwd_combine_kernel")
 
 
 def k6_passes(by_kernel: dict, flop: float = 0.0) -> dict:
@@ -1629,6 +1769,8 @@ def _training_sites():
             (LCE, "ce_backward", "linear_ce_bwd", LCE.ce_backward_plain)]
 
 
+# the kernels the logprob recompute (a forward pass) launches
+RECOMPUTE_KERNELS = ("flash_attention_fwd", "linear_ce_fwd")
 TRAIN_KERNELS = ("flash_attention_fwd", "linear_ce_fwd", "linear_ce_bwd",
                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
@@ -1726,6 +1868,7 @@ def training_path(cfg, params, rollout, kerns, gpu, seed):
         lp, _ = logprob_fn(params, batch.to_dict())
         torch.cuda.synchronize()
         times["recompute_s"] = time.perf_counter() - t0
+        times["recompute_launches"] = {name: kern.launches for name, kern in kerns.items()}
         lp = lp.cpu().numpy()
         times["recompute_vs_rollout_lp"] = {
             "max_abs": float(np.abs(lp - batch.old_logprobs)[batch.loss_mask].max()),
@@ -1755,7 +1898,9 @@ def training_path(cfg, params, rollout, kerns, gpu, seed):
            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
            "metrics": metrics, "launches": counts}
     emit(out)
-    missing = [k for k in TRAIN_KERNELS if not counts[k]]
+    recompute = times["recompute_launches"]
+    missing = [k for k in TRAIN_KERNELS if not counts[k] - recompute[k]]
+    missing += [f"recompute: {k}" for k in RECOMPUTE_KERNELS if not recompute[k]]
     bad = [k for m in metrics for k in ("actor/loss", "actor/grad_norm")
            if not np.isfinite(m[k])]
     if missing:
@@ -1790,12 +1935,15 @@ def profile_train_step(state, batch, step_fn, top: int = 12) -> dict:
     k6 = k6_passes({e.key: e.device_time_total / 1e3 / e.count for e in events})
     k6["launches_traced"] = {p: sum(e.count for e in events if name in e.key)
                              for p, name in K6_PASSES}
+    k5 = [e for e in events if any(name in e.key for name in K5_KERNELS)]
+    k5_step = {"ms": sum(e.device_time_total for e in k5) / 1e3,
+               "launches_traced": {e.key[:60]: e.count for e in k5}}
     return {"phase": "train_profile", "wall_ms_under_profiler": wall_ms, "device_busy_ms": busy,
             "by_kernel_ms": {e.key[:60]: e.device_time_total / 1e3 for e in events[:top]},
             "by_kernel_calls": {e.key[:60]: e.count for e in events[:top]},
             "port_kernels_ms": {e.key[:60]: e.device_time_total / 1e3 for e in port},
             "port_kernels_calls": {e.key[:60]: e.count for e in port},
-            "k6_step_ms": k6, "k7_k8_step": flash_bwd_step(events)}
+            "k5_step": k5_step, "k6_step_ms": k6, "k7_k8_step": flash_bwd_step(events)}
 
 
 def whole_step_check(kerns, seed) -> dict:
@@ -1904,7 +2052,9 @@ def main() -> int:
 
     # 1. build
     emit({"phase": "build", "seconds": build()})
-    emit({"phase": "kernel_reports", **kernel_reports()})
+    reports = kernel_reports()
+    emit({"phase": "kernel_reports", **reports})
+    check_reports(reports)
 
     cfg = LLMConfig.qwen2_1_5b()
     B, N, bucket = 64, 256, 64

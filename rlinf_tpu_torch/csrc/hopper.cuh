@@ -1,6 +1,7 @@
-// Hopper (sm_90a) primitives shared by the kernels that run on wgmma, TMA
-// or bulk copies: K1 (flash_attention_fwd.cu), K4 (sampler.cu), K6
-// (linear_ce.cu), K7 and K8 (flash_attention_bwd.cu), K10
+// Hopper (sm_90a) primitives shared by the kernels that run on wgmma, TMA,
+// bulk copies or warp-level tensor-core products: K1
+// (flash_attention_fwd.cu), K3 (decode_attention.cu), K4 (sampler.cu), K5
+// and K6 (linear_ce.cu), K7 and K8 (flash_attention_bwd.cu), K10
 // (paged_attention.cu). Each source is its own library, so each gets its
 // own copy of these inline functions; none defines them again.
 //
@@ -16,6 +17,8 @@
 //  * the attention operands' masks (a key's or a query's position, INT_MAX
 //    or INT_MIN where it takes no part) and warp reductions of positions;
 //    a named barrier of one warpgroup.
+//  * mma.sync m16n8k16 bf16 with f32 sums, and movmatrix.trans (the B
+//    fragments of P V from rows of V).
 //  * wgmma: the shared-memory descriptor of a tile in the 128-byte swizzle,
 //    m64nNk16 bf16 products with f32 sums, both operands in shared memory
 //    (SS) or A from registers (RS), with the transpose bit of B as a
@@ -201,6 +204,29 @@ inline bool head_map(CUtensorMap* m, const void* x, int B, int S, int heads, int
                                  static_cast<cuuint64_t>(S) * heads * HD * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
   return make_map_nd(m, x, 3, dims, strides, box);
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core products (K3, K10)
+// ---------------------------------------------------------------------------
+
+// c += A B for one mma.sync m16n8k16 bf16 tile with f32 sums: a the A
+// fragment (rows g and g + 8, g = lane / 4), b0 and b1 the B fragment.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 8 x 8 b16 matrix held one row pair a lane (row lane / 4, columns
+// 2 (lane % 4), + 1), transposed across the warp.
+__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------

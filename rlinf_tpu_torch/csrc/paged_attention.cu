@@ -47,23 +47,6 @@ constexpr int NW = 4;    // warps per CTA, each with its own pages
 constexpr int MAXG = 16;  // query heads per kv head: the 16 rows of the products
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The 8 x 8 b16 matrix held one row pair a lane (row lane / 4, columns
-// 2 (lane % 4), + 1), transposed across the warp.
-__device__ __forceinline__ uint32_t movmatrix_t(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
-
 // Dynamic shared memory: the warps' rings (two stages of a K and a V page
 // slice each), reused at the end for the merge of the warps' states.
 __host__ __device__ constexpr int ring_bytes(int P, int HD) { return NW * 2 * 2 * P * HD * 2; }

@@ -122,7 +122,12 @@ def load_library(source: str) -> ctypes.CDLL:
 
 
 def stream_handle() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current device's current CUDA stream, as the C entries take it:
+    the value of ``torch.cuda.current_stream().cuda_stream``, read without
+    building a Stream object: 0.5 against 4.5 us of host time, on an H100
+    machine with torch 2.11 (``scripts/torch_k3_ab.py``), paid by every
+    wrapper on every call."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 @functools.lru_cache(maxsize=None)

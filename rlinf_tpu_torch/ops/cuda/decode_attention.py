@@ -4,17 +4,20 @@ Port of ``rlinf_tpu/ops/pallas/decode_attention.py``. The cache is packed
 ``[B, S_max, Kv*Hd]`` per layer, bf16 (K2) or int8 with one f32 scale per
 (row, slot) (K3). Slot ``s`` of row ``b`` takes part iff
 ``start[b] <= s < length[b]``; an empty interval gives 0. The CUDA source
-is ``csrc/decode_attention.cu``, one kernel templated on the cache type.
+is ``csrc/decode_attention.cu``: K2 one CTA per (row, kv head); K3
+split-KV over 16-key blocks (``split_plan``) on the tensor cores, then a
+merge of the splits, both in one call.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
+    F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
 )
 from rlinf_tpu_torch.ops.cuda.geometry import check_heads
 
@@ -26,8 +29,31 @@ KERNEL_BF16 = CudaKernel(
 )
 KERNEL_Q8 = CudaKernel(
     "decode_attention.cu", "decode_attention_q8",
-    [I, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 )
+
+#: keys of one block of K3 (csrc KEYS): its splits are runs of whole blocks
+KEY_BLOCK = 16
+#: CTAs the split grids of K3 and K10 aim at, per SM
+CTAS_PER_SM = 4
+#: fewest units a split (K3's 16-key blocks, K10's pages): one for each warp of a CTA
+MIN_SPLIT_UNITS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(rows: int, max_units: int, sms: int) -> Tuple[int, int]:
+    """-> (units per split, number of splits) for ``rows`` (row, kv head)
+    pairs whose valid keys span up to ``max_units`` units (K3: 16-key blocks,
+    K10: pages): enough splits that the grid (rows x splits CTAs) covers
+    ``sms`` SMs CTAS_PER_SM times, but no fewer than MIN_SPLIT_UNITS units a
+    split (one for each warp of a CTA), so that a few long rows are not cut
+    into many tiny splits. Split ``s`` of a row of n units covers its units
+    ``[s * ups, min((s + 1) * ups, n))``; the kernels' splits past the last
+    unit return at once. Cached: a decode loop asks for one plan at every
+    call."""
+    want = -(-CTAS_PER_SM * sms // max(rows, 1))
+    ups = min(max_units, max(MIN_SPLIT_UNITS, max_units // want))
+    return ups, -(-max_units // ups)
 
 
 def _plain(q, k, v, k_scale, v_scale, starts, lengths, num_kv, scale):
@@ -127,7 +153,8 @@ def decode_attention_packed_q8(
     num_kv: int,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """K3 -> [B, H, Hd] in q.dtype. CPU tensors run the plain version."""
+    """K3 -> [B, H, Hd] in q.dtype: the split kernel and the merge, one
+    launch in the count. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return decode_attention_packed_q8_xla(
             q, k_cache, v_cache, k_scale, v_scale, starts, lengths,
@@ -136,13 +163,16 @@ def decode_attention_packed_q8(
         q, k_cache, v_cache, starts, lengths, num_kv, torch.int8)
     check_cuda_tensor("k_scale", k_scale, torch.float32, (B, S))
     check_cuda_tensor("v_scale", v_scale, torch.float32, (B, S))
+    dev = q.device.index
+    bps, splits = split_plan(B * num_kv, -(-S // KEY_BLOCK), sm_count(dev))
+    # the splits' o [B * Kv, splits, G, Hd], then their (m, l) [B * Kv, splits, G, 2]
+    part = torch.empty((B * H * splits * (Hd + 2),), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     KERNEL_Q8(
-        q.device.index, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), starts.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(),
-        B, H, num_kv, S, Hd, float(Hd**-0.5 if scale is None else scale),
-        stream_handle(),
+        dev, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), starts.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+        out.data_ptr(), B, H, num_kv, S, Hd, bps, splits,
+        float(Hd**-0.5 if scale is None else scale), stream_handle(),
     )
     return out
 

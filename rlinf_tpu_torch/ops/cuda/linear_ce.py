@@ -5,9 +5,12 @@ Port of ``rlinf_tpu/ops/pallas/linear_ce.py`` (``fused_linear_ce``). The
 CUDA source is ``csrc/linear_ce.cu``. Per row of ``hidden`` the target
 logprob and the entropy of ``softmax(hidden @ W / T)``, differentiable,
 without the [rows, V] logits in the forward. W is ``[D, V]`` ("dv") or the
-tied embedding ``[V, D]`` ("vd"). The backward writes ``dz`` (bf16
-``[rows, V_pad]``) and ``dh``; the weight gradient ``dz^T h`` is a plain
-matrix product, as in the JAX package.
+tied embedding ``[V, D]`` ("vd"). Both kernels run one mainloop (wgmma fed
+by TMA) over 128 x 128 logits tiles: the forward reduces each tile to its
+rows' softmax statistics and a combine merges them in a fixed order
+(``combine_segments``); the backward writes ``dz`` (bf16 ``[rows,
+V_pad]``) and ``dh``; the weight gradient ``dz^T h`` is a plain matrix
+product, as in the JAX package.
 
 The plain versions reproduce the Pallas kernels' roundings: ``dz`` is cast
 to bf16 before ``dh`` and ``dw`` are formed, and ``dh`` is cast to
@@ -25,17 +28,16 @@ from rlinf_tpu_torch.ops.cuda._build import (
     F as C_F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
 )
 
-ROW_BLOCK = 64      # rows per CTA of K5 (csrc BM); K6 masks its 128-row tiles
-VOCAB_TILE = 128    # vocab columns per tile (csrc BN, GN); dz is [rows, V_pad]
-TARGET_CTAS = 1056  # K5 splits the vocab until about this many CTAs run
-GEMM_TILE = 128     # K6 tile rows and columns (csrc GM, GN)
-VOCAB_BLOCK = 64    # K6 depth of a stage (csrc GK): pass B's slices are whole blocks
-CONSUMERS = 2       # K6 consumer warpgroups of a CTA (one CTA an SM)
+VOCAB_TILE = 128    # vocab columns per tile (csrc GN); dz is [rows, V_pad]
+GEMM_TILE = 128     # tile rows and columns (csrc GM, GN); rows past n are masked
+VOCAB_BLOCK = 64    # depth of a stage (csrc GK): pass B's slices are whole blocks
+CONSUMERS = 2       # consumer warpgroups of a CTA (one CTA an SM)
 MAX_SLICES = 32     # most vocab slices of K6 pass B
-ROW_ALIGN = 8       # K6's TMA row strides are multiples of 16 bytes: 8 bf16
+ROW_ALIGN = 8       # TMA row strides are multiples of 16 bytes: 8 bf16
+COMBINE_SEGMENTS = 8  # K5's combine: segments of a row's tiles (csrc COMBINE_SEGS)
 
 KERNEL_FWD = CudaKernel(
-    "linear_ce.cu", "linear_ce_fwd", [I, P, P, P, P, P, P, P, I, I, I, I, I, C_F, P])
+    "linear_ce.cu", "linear_ce_fwd", [I, P, P, P, P, P, P, P, I, I, I, I, I, I, C_F, P])
 KERNEL_BWD = CudaKernel(
     "linear_ce.cu", "linear_ce_bwd",
     [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, C_F, P])
@@ -47,6 +49,14 @@ def vocab_slices(v_pad: int, n_slices: int) -> List[Tuple[int, int]]:
     n_kb = -(-v_pad // VOCAB_BLOCK)
     edges = [s * n_kb // n_slices * VOCAB_BLOCK for s in range(n_slices + 1)]
     edges[-1] = v_pad
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def combine_segments(n_tiles: int) -> List[Tuple[int, int]]:
+    """K5's combine order: the runs of a row's vocabulary tiles that its
+    threads merge, each in tile order, before the runs are merged in order
+    (csrc ce_fwd_combine_kernel). Runs may be empty when n_tiles < 8."""
+    edges = [s * n_tiles // COMBINE_SEGMENTS for s in range(COMBINE_SEGMENTS + 1)]
     return list(zip(edges[:-1], edges[1:]))
 
 
@@ -104,7 +114,7 @@ def ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layou
 
 def pad_depth(h2, w, w_layout: str):
     """(h2, w) with the depth D zero-padded to a multiple of ``ROW_ALIGN``,
-    as K6's tensor maps need. Exact: a zero depth column adds nothing to
+    as the tensor maps need. Exact: a zero depth column adds nothing to
     any logit, and the pad columns of dh are sliced off."""
     pad = (-h2.shape[1]) % ROW_ALIGN
     if not pad:
@@ -119,50 +129,55 @@ def _check_inputs(h2, w, tgt, w_layout):
     check_cuda_tensor("hidden", h2, torch.bfloat16, (n, D))
     check_cuda_tensor("w", w, torch.bfloat16, (D, V) if w_layout == "dv" else (V, D))
     check_cuda_tensor("target_ids", tgt, torch.int32, (n,))
-    if n % ROW_BLOCK:
-        raise ValueError(f"linear_ce: rows {n} not a multiple of {ROW_BLOCK}")
     return n, D, V
 
 
+def _tma_operands(h2, w, w_layout: str, V: int):
+    """(h2, w) as the tensor maps take them. Any D and V: the depth is
+    zero-padded to a multiple of 8 (``pad_depth``), and an untied ``[D, V]``
+    weight with V % 8 != 0 is copied into rows of a multiple of 8 whose
+    stride the kernels take apart from V (they read V columns of each, so
+    the pad columns stay masked like those past V). Either padding copies
+    the whole weight (and the depth padding h2) on every call: a
+    configuration with D % 8 != 0, or an untied weight with V % 8 != 0,
+    pays one [V, D] copy per call; D = 1536, V = 151936 pay none."""
+    h2p, wp = pad_depth(h2, w, w_layout)
+    if w_layout == "dv" and V % ROW_ALIGN:
+        wp = F.pad(wp, (0, (-V) % ROW_ALIGN))
+    return h2p, wp
+
+
 def ce_forward(h2, w, tgt, inv_temp: float, w_layout: str):
-    """K5 -> (lp, ent, lse) f32 [n]. h2 [n, D] bf16 with n a multiple of 64,
-    tgt [n] int32. CPU tensors run the plain version."""
+    """K5 -> (lp, ent, lse) f32 [n]. h2 [n, D] bf16, tgt [n] int32; any n
+    (the kernels mask rows past n), D and V (``_tma_operands``). CPU tensors run the
+    plain version. The tiles' f32 statistics take 16 x n x ceil(V / 128)
+    bytes of scratch (78 MB at 4096 rows, V = 151936)."""
     if h2.device.type == "cpu":
         return ce_forward_plain(h2, w, tgt, inv_temp, w_layout)
-    n, D, V = _check_inputs(h2, w, tgt, w_layout)
-    n_vt = -(-V // VOCAB_TILE)
-    n_split = max(1, min(n_vt, -(-TARGET_CTAS // (n // ROW_BLOCK))))
+    n, _, V = _check_inputs(h2, w, tgt, w_layout)
+    h2p, wp = _tma_operands(h2, w, w_layout, V)
     dev = h2.device
-    part = torch.empty((4, n_split, n), dtype=torch.float32, device=dev)
+    part = torch.empty((4, -(-V // VOCAB_TILE), n), dtype=torch.float32, device=dev)
     lp, ent, lse = (torch.empty((n,), dtype=torch.float32, device=dev) for _ in range(3))
     KERNEL_FWD(
-        dev.index, h2.data_ptr(), w.data_ptr(), tgt.data_ptr(), part.data_ptr(),
-        lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), n, D, V, int(w_layout == "vd"),
-        n_split, float(inv_temp), stream_handle(),
+        dev.index, h2p.data_ptr(), wp.data_ptr(), tgt.data_ptr(), part.data_ptr(),
+        lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), n, h2p.shape[1], V, wp.shape[1],
+        int(w_layout == "vd"), sm_count(dev.index), float(inv_temp), stream_handle(),
     )
     return lp, ent, lse
 
 
 def ce_backward(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layout: str):
     """K6 -> (dz bf16 [n, V_pad], dh bf16 [n, D]). CPU tensors run the plain
-    version. Any D and V: the depth is zero-padded to a multiple of 8
-    (``pad_depth``), and an untied ``[D, V]`` weight with V % 8 != 0 is
-    copied into rows of a multiple of 8 whose stride the kernel takes apart
-    from V. Either padding copies the whole weight (and the depth padding
-    h2) on every call: a configuration with D % 8 != 0, or an untied weight
-    with V % 8 != 0, pays one [V, D] copy per train-step chunk; D = 1536,
-    V = 151936 pay none. Pass B's f32 partials take ``dh_slices`` x n x D x
-    4 bytes of scratch (277 MB at 4096 rows, D = 1536, 11 slices)."""
+    version. Any D and V, as K5 (``_tma_operands``). Pass B's f32 partials
+    take ``dh_slices`` x n x D x 4 bytes of scratch (277 MB at 4096 rows,
+    D = 1536, 11 slices)."""
     if h2.device.type == "cpu":
         return ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp, w_layout)
     n, D, V = _check_inputs(h2, w, tgt, w_layout)
     for name, t in (("lse", lse), ("mu", mu), ("g_lp", g_lp), ("g_ent", g_ent)):
         check_cuda_tensor(name, t, torch.float32, (n,))
-    h2p, wp = pad_depth(h2, w, w_layout)
-    if w_layout == "dv" and V % ROW_ALIGN:
-        # rows of a multiple of 8: the kernel reads V columns of each, so the
-        # pad columns stay masked like those past V
-        wp = F.pad(wp, (0, (-V) % ROW_ALIGN))
+    h2p, wp = _tma_operands(h2, w, w_layout, V)
     Dp = h2p.shape[1]
     vp = _v_pad(V)
     dev = h2.device
@@ -194,7 +209,7 @@ def weight_grad(h2, dz, w_layout: str, V: int, dtype) -> torch.Tensor:
 
 
 class LinearCE(torch.autograd.Function):
-    """(lp, ent) of one row block through K5, gradients through K6."""
+    """(lp, ent) of one chunk of rows through K5, gradients through K6."""
 
     @staticmethod
     def forward(ctx, h2, w, tgt, inv_temp, w_layout):
@@ -225,10 +240,9 @@ def fused_linear_ce(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logprob of target, entropy) per position, f32, differentiable.
 
-    Rows are padded to the kernels' row block of 64. Above ``row_chunk``
-    rows they run in chunks of ``row_chunk``, which bounds the backward's
-    ``dz`` (bf16 [rows, V], about 0.3 GB per 1k rows at a 152k vocab);
-    autograd sums the per-chunk ``dw``.
+    Above ``row_chunk`` rows they run in chunks of ``row_chunk``, which
+    bounds the backward's ``dz`` (bf16 [rows, V], about 0.3 GB per 1k rows
+    at a 152k vocab); autograd sums the per-chunk ``dw``.
     """
     if w_layout not in ("dv", "vd"):
         raise ValueError(f"w_layout must be dv or vd, got {w_layout!r}")
@@ -238,11 +252,8 @@ def fused_linear_ce(
     inv_temp = 1.0 / temperature
     lps, ents = [], []
     for hc, tc in zip(h2.split(row_chunk), tgt.split(row_chunk)):
-        n = hc.shape[0]
-        pad = (-n) % ROW_BLOCK
-        hc = F.pad(hc, (0, 0, 0, pad)).contiguous()
-        tc = F.pad(tc, (0, pad)).contiguous()
-        lp, ent = LinearCE.apply(hc, w.contiguous(), tc, inv_temp, w_layout)
-        lps.append(lp[:n])
-        ents.append(ent[:n])
+        lp, ent = LinearCE.apply(hc.contiguous(), w.contiguous(), tc.contiguous(), inv_temp,
+                                 w_layout)
+        lps.append(lp)
+        ents.append(ent)
     return torch.cat(lps).reshape(lead), torch.cat(ents).reshape(lead)

@@ -11,38 +11,20 @@ in the kernel and in the plain version alike. The CUDA source is
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from rlinf_tpu_torch.ops.cuda._build import (
     F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
 )
-from rlinf_tpu_torch.ops.cuda.decode_attention import _plain
+from rlinf_tpu_torch.ops.cuda.decode_attention import _plain, split_plan
 from rlinf_tpu_torch.ops.cuda.geometry import check_heads, check_page_size
 
 KERNEL = CudaKernel(
     "paged_attention.cu", "paged_attention_bf16",
     [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
 )
-
-#: CTAs the split grid aims at, per SM
-CTAS_PER_SM = 4
-#: fewest pages a split: one for each warp of the CTA
-MIN_SPLIT_PAGES = 4
-
-
-def split_plan(rows: int, max_pages: int, sms: int) -> Tuple[int, int]:
-    """-> (pages per split, number of splits) for ``rows`` (row, kv head)
-    pairs whose chains hold up to ``max_pages`` pages: enough splits that
-    the grid (rows x splits CTAs) covers ``sms`` SMs CTAS_PER_SM times, but
-    no fewer than MIN_SPLIT_PAGES pages a split (one for each warp of a
-    CTA), so that a few long rows are not cut into many tiny splits. Split
-    ``s`` of a row of n pages covers its pages ``[s * pps, min((s + 1) *
-    pps, n))``; the kernel's splits past the last page return at once."""
-    want = -(-CTAS_PER_SM * sms // max(rows, 1))
-    pps = min(max_pages, max(MIN_SPLIT_PAGES, max_pages // want))
-    return pps, -(-max_pages // pps)
 
 
 def paged_attention_xla(

@@ -20,6 +20,7 @@ import torch
 from rlinf_tpu_torch.config import load_config, resolve_attn_impl
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.sampler import SamplingParams, generate
+from rlinf_tpu_torch.ops.cuda import decode_attention as DA
 from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
 from rlinf_tpu_torch.ops.cuda import paged_attention as PA
 from rlinf_tpu_torch.ops.cuda.geometry import LIMITS, PATHS, check_kernel_geometry
@@ -185,10 +186,10 @@ def test_k10_split_plan_covers_every_valid_page_once(rows, max_pages, sms):
     """Every valid page of every row lies in exactly one split that works, a
     row of length 0 has none, the splits span the table, and the grid
     covers the SMs CTAS_PER_SM times unless that would cut splits below
-    MIN_SPLIT_PAGES pages."""
+    MIN_SPLIT_UNITS pages (split_plan is K3's too)."""
     pps, splits = PA.split_plan(rows, max_pages, sms)
     assert pps * splits >= max_pages > pps * (splits - 1)
-    assert rows * splits >= PA.CTAS_PER_SM * sms or pps == min(max_pages, PA.MIN_SPLIT_PAGES)
+    assert rows * splits >= DA.CTAS_PER_SM * sms or pps == min(max_pages, DA.MIN_SPLIT_UNITS)
     r = np.random.default_rng(rows + max_pages)
     for page_size in (8, 16, 32):
         full = max_pages * page_size                       # the kernel clamps lengths to it

@@ -87,8 +87,9 @@ def test_fused_linear_logprobs_and_entropy_with_grads(S, chunk):
 @pytest.mark.parametrize("w_layout", ["dv", "vd"])
 @pytest.mark.parametrize("shape,temperature", [((2, 20, 32, 1500), 0.7), ((1, 40, 64, 1000), 1.0)])
 def test_linear_ce_function_matches_pallas(w_layout, shape, temperature):
-    """40 rows pad to the port's row block of 64 (and to the Pallas row
-    block of 8); V = 1000 and 1500 are not multiples of either vocab tile."""
+    """40 rows fill part of the port's 128-row tile (and pad to the Pallas
+    row block of 8); V = 1000 and 1500 are not multiples of either vocab
+    tile."""
     B, S, D, V = shape
     r = np.random.default_rng(2)
     h = r.normal(size=(B, S, D)).astype(np.float32)
@@ -216,6 +217,10 @@ def test_slice_partials_in_order_give_the_plain_dh(w_layout):
 
 
 def test_k6_wrapper_and_source_agree_on_their_constants():
+    """K5 and K6 share the tiles of one mainloop: the wrapper's tile, depth
+    block and combine segments are the source's, K5's partials are one per
+    vocabulary tile, and no row block of the source remains (the kernels
+    mask rows past n in their 128-row tiles)."""
     import re
 
     from rlinf_tpu_torch.ops.cuda import _build
@@ -223,8 +228,26 @@ def test_k6_wrapper_and_source_agree_on_their_constants():
     text = (_build.CSRC / "linear_ce.cu").read_text()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
     assert const("GM") == const("GN") == tce.GEMM_TILE == tce.VOCAB_TILE
-    assert const("GK") == tce.VOCAB_BLOCK and const("BM") == tce.ROW_BLOCK
+    assert const("GK") == tce.VOCAB_BLOCK
+    assert const("COMBINE_SEGS") == tce.COMBINE_SEGMENTS
+    assert "constexpr int BM" not in text and "mma.sync" not in text
+    assert "(V + GN - 1) / GN" in text        # K5: one partial per vocabulary tile
     assert "n_slices > Vp / GK" in text       # the source refuses empty slices too
+
+
+def test_forward_wrapper_goes_to_its_kernel_for_tensors_off_the_cpu(monkeypatch):
+    def never(*a, **kw):
+        raise AssertionError("the plain version was called for a tensor off the CPU")
+
+    monkeypatch.setattr(tce, "ce_forward_plain", never)
+    n, D, V = 64, 16, 40
+    meta = dict(device="meta")
+    h, tgt = torch.zeros((n, D), dtype=torch.bfloat16, **meta), torch.zeros((n,), dtype=torch.int32, **meta)
+    for w_layout, shape in (("vd", (V, D)), ("dv", (D, V))):
+        w = torch.zeros(shape, dtype=torch.bfloat16, **meta)
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            tce.ce_forward(h, w, tgt, 1.0, w_layout)
+    assert tce.KERNEL_FWD.launches == 0
 
 
 def test_backward_wrapper_goes_to_its_kernel_for_tensors_off_the_cpu(monkeypatch):
@@ -264,3 +287,100 @@ def test_depth_padding_gives_the_unpadded_backward(w_layout):
     np.testing.assert_array_equal(_np(dzp), _np(dz))
     _rel_close(dhp[:, :D], dh, 1e-6)
     assert tce.pad_depth(hp, wp, w_layout)[0] is hp      # a multiple of 8 is left as it is
+
+
+# ---------------------------------------------------------------------------
+# K5's scheme: per-tile statistics, merged in the combine's order
+# ---------------------------------------------------------------------------
+
+def _merge(a, b):
+    """csrc merge(): two (m, s1, s2, tl) row statistics as one."""
+    m = torch.maximum(a[0], b[0])
+    ea, eb = torch.exp(a[0] - m), torch.exp(b[0] - m)
+    return m, a[1] * ea + b[1] * eb, a[2] * ea + b[2] * eb, a[3] + b[3]
+
+
+def _k5_emulated(h, w, tgt, inv_temp, w_layout):
+    """K5 on the CPU by its scheme: each 128-column tile's statistics of
+    every row (pad columns past V left out), merged in the combine's order
+    (``combine_segments``: each segment's tiles in order from the identity,
+    then the segments in order) -> (lp, ent, lse)."""
+    x = tce._logits_plain(h, w, w_layout, inv_temp)
+    n, V = x.shape
+    tiles = []
+    for c0 in range(0, V, tce.VOCAB_TILE):
+        xt = x[:, c0:c0 + tce.VOCAB_TILE]
+        m = xt.max(-1).values
+        e = torch.exp(xt - m[:, None])
+        hit = (tgt.long()[:, None] == torch.arange(c0, c0 + xt.shape[1])[None, :])
+        tiles.append((m, e.sum(-1), (e * xt).sum(-1), (xt * hit).sum(-1)))
+    ident = (torch.full((n,), -2.0**30), torch.zeros(n), torch.zeros(n), torch.zeros(n))
+    segs = []
+    for a, b in tce.combine_segments(len(tiles)):
+        st = ident
+        for t in tiles[a:b]:
+            st = _merge(st, t)
+        segs.append(st)
+    st = segs[0]
+    for seg in segs[1:]:
+        st = _merge(st, seg)
+    m, s1, s2, tl = st
+    lse = m + torch.log(s1.clamp_min(1e-30))
+    return tl - lse, lse - s2 / s1.clamp_min(1e-30), lse
+
+
+@pytest.mark.parametrize("n_tiles", [1, 3, 8, 9, 1187])
+def test_combine_segments_cover_the_tiles_in_order(n_tiles):
+    segs = tce.combine_segments(n_tiles)
+    assert len(segs) == tce.COMBINE_SEGMENTS and segs[0][0] == 0 and segs[-1][1] == n_tiles
+    assert all(a <= b for a, b in segs)
+    assert all(b == c for (_, b), (c, _) in zip(segs, segs[1:]))
+
+
+@pytest.mark.parametrize("temperature", [1.0, 1.3])
+@pytest.mark.parametrize("w_layout", ["vd", "dv"])
+def test_forward_tile_partials_merged_in_order_give_the_plain_and_pallas_forward(
+        w_layout, temperature):
+    """K5's tile statistics merged as its combine merges them equal the
+    plain forward (1e-5 relative) and the JAX package's fused_linear_ce in
+    interpret mode (lp and entropy, 1e-5), at n = 128, D = 24, V = 1000 (8
+    tiles, the last one partial)."""
+    r = np.random.default_rng(8)
+    n, D, V = 128, 24, 1000
+    h = r.normal(size=(n, D)).astype(np.float32)
+    w_dv = (r.normal(size=(D, V)) * 0.3).astype(np.float32)
+    w = w_dv if w_layout == "dv" else np.ascontiguousarray(w_dv.T)
+    tgt = r.integers(0, V, n).astype(np.int32)
+    tgt[-1] = V - 1                                     # a target in the partial last tile
+    got = _k5_emulated(_t(h), _t(w), _t(tgt), 1.0 / temperature, w_layout)
+    plain = tce.ce_forward_plain(_t(h), _t(w), _t(tgt), 1.0 / temperature, w_layout)
+    for g_, p_ in zip(got, plain):
+        _rel_close(g_, p_, 1e-5)
+    ja, jb = j_fused_ce(jnp.asarray(h), jnp.asarray(w), jnp.asarray(tgt), temperature=temperature,
+                        w_layout=w_layout, interpret=True)
+    np.testing.assert_allclose(_np(got[0]), _np(ja), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(_np(got[1]), _np(jb), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("w_layout", ["vd", "dv"])
+def test_depth_padding_gives_the_unpadded_forward(w_layout):
+    """K5's wrapper pads the depth to a multiple of 8 and copies an untied
+    weight with V % 8 != 0 into rows of a multiple of 8 (``_tma_operands``),
+    as K6's does. Through the plain forward at D = 100, V = 301: the padded
+    operands give the unpadded forward (a zero depth column adds an exact 0
+    to every logit: bit-identical), and the untied weight's pad columns lie
+    past the V columns the kernel reads."""
+    r = np.random.default_rng(9)
+    n, D, V = 64, 100, 301
+    h = _t(r.normal(size=(n, D)).astype(np.float32))
+    w = _t((r.normal(size=(V, D) if w_layout == "vd" else (D, V)) * 0.2).astype(np.float32))
+    tgt = _t(r.integers(0, V, n).astype(np.int32))
+    hp, wp = tce._tma_operands(h, w, w_layout, V)
+    assert hp.shape == (n, 104)
+    assert wp.shape == ((V, 104) if w_layout == "vd" else (104, 304))
+    want = tce.ce_forward_plain(h, w, tgt, 1.0, w_layout)
+    got = tce.ce_forward_plain(hp, wp if w_layout == "vd" else wp[:, :V], tgt, 1.0, w_layout)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    if w_layout == "dv":
+        assert torch.all(wp[:, V:] == 0) and torch.all(wp[D:] == 0)

@@ -29,7 +29,9 @@ from rlinf_tpu_torch.ops.cuda import _build
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "rlinf_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the port, its smoke run and its measurement scripts
+FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted(ROOT.glob("scripts/torch_*.py")))
 
 
 def _imported_modules(path):
@@ -75,25 +77,28 @@ def _chip_smoke():
 
 
 def test_chip_smoke_reads_k6_passes_by_the_source_names():
-    """chip_smoke.py reads K6's pass A, pass B and merge from a profiler
-    trace by kernel name: each name it looks for is a kernel of
-    csrc/linear_ce.cu (pass A and pass B the template's PASS 0 and 1)."""
+    """chip_smoke.py reads K6's pass A, pass B and merge (and K5's product
+    and combine) from a profiler trace by kernel name: each name it looks
+    for is a kernel of csrc/linear_ce.cu (pass A, pass B and K5 the
+    template's PASS 0, 1 and 2), and K5's kernels match no K6 pass."""
     cs = _chip_smoke()
     cu = (PORT / "csrc" / "linear_ce.cu").read_text()
-    assert re.search(r"template <int PASS, bool B_MN>\s*__global__ .*ce_bwd_gemm_kernel\(", cu)
+    assert re.search(r"template <int PASS, bool B_MN>\s*__global__ .*ce_gemm_kernel\(", cu)
     assert re.search(r"__global__ .*dh_merge_kernel\(", cu)
+    assert re.search(r"__global__ .*ce_fwd_combine_kernel\(", cu)
     names = dict(cs.K6_PASSES)
-    assert names == {"pass_a": "ce_bwd_gemm_kernel<0", "pass_b": "ce_bwd_gemm_kernel<1",
+    assert names == {"pass_a": "ce_gemm_kernel<0", "pass_b": "ce_gemm_kernel<1",
                      "merge": "dh_merge_kernel"}
-    trace = {"void (anonymous namespace)::ce_bwd_gemm_kernel<0, false>(CUtensorMap, ...)": 3.0,
-             "void (anonymous namespace)::ce_bwd_gemm_kernel<1, true>(CUtensorMap, ...)": 4.0,
+    assert cs.K5_KERNELS == ("ce_gemm_kernel<2", "ce_fwd_combine_kernel")
+    trace = {"void (anonymous namespace)::ce_gemm_kernel<0, false>(CUtensorMap, ...)": 3.0,
+             "void (anonymous namespace)::ce_gemm_kernel<1, true>(CUtensorMap, ...)": 4.0,
              "void (anonymous namespace)::dh_merge_kernel(float const*, ...)": 0.5,
-             "void (anonymous namespace)::ce_fwd_kernel<true>(...)": 9.0}
+             "void (anonymous namespace)::ce_gemm_kernel<2, false>(CUtensorMap, ...)": 9.0}
     got = cs.k6_passes(trace, 6e12)
     assert (got["pass_a_ms"], got["pass_b_ms"], got["merge_ms"]) == (3.0, 4.0, 0.5)
     assert got["pass_a_tflops"] == pytest.approx(2000.0)
     with pytest.raises(AssertionError, match="no time for K6"):
-        cs.k6_passes({"void (anonymous namespace)::ce_fwd_kernel<true>(...)": 9.0})
+        cs.k6_passes({"void (anonymous namespace)::ce_gemm_kernel<2, false>(...)": 9.0})
 
 
 def test_chip_smoke_reads_k7_and_k8_by_the_source_names():
@@ -118,17 +123,41 @@ def test_chip_smoke_reads_k7_and_k8_by_the_source_names():
         cs.flash_bwd_step(trace[:1])
 
 
-def test_chip_smoke_reports_k1_and_k10_by_the_source_names():
+def test_chip_smoke_reports_k1_k3_k5_and_k10_by_the_source_names():
     """chip_smoke.py prints ptxas's registers and spills and the SASS
-    instruction counts of K1 and K10 by kernel name: each name is a
+    instruction counts of K1, K3, K5 and K10 by kernel name: each name is a
     __global__ kernel of its source, and the reports read the compiler's
-    and cuobjdump's output by those names (template argument kept)."""
+    and cuobjdump's output by those names (template arguments kept, so K5's
+    two layouts and K6's passes stay apart). check_reports holds K5 to
+    wgmma and K3 to mma.sync, with no spill."""
     cs = _chip_smoke()
-    assert set(cs.REPORTED_KERNELS) == {"flash_attention_fwd.cu", "paged_attention.cu"}
+    assert set(cs.REPORTED_KERNELS) == {"flash_attention_fwd.cu", "paged_attention.cu",
+                                        "linear_ce.cu", "decode_attention.cu"}
     for src, names in cs.REPORTED_KERNELS.items():
         cu = (PORT / "csrc" / src).read_text()
         for name in names:
             assert re.search(rf"__global__ void (?:__launch_bounds__\([^)]*\) )?{name}\(", cu), name
+    gemm = "_ZN45_GLOBAL__N__8b09aa19_12_linear_ce_cu_44c3199414ce_gemm_kernelILi2ELb1EEEv14CUtensorMap_stS1_NS_8GemmArgsE"
+    k3 = "_ZN52_GLOBAL__N__f7dde9ef_19_decode_attention_cu_44c3199422decode_q8_split_kernelILi128EEEvNS_6Q8ArgsE"
+    names = cs.REPORTED_KERNELS["linear_ce.cu"] + cs.REPORTED_KERNELS["decode_attention.cu"]
+    assert cs._kernel_key(gemm, names) == "ce_gemm_kernel<2, 1>"
+    assert cs._kernel_key(gemm.replace("Li2ELb1E", "Li0ELb0E"), names) == "ce_gemm_kernel<0, 0>"
+    assert cs._kernel_key(k3, names) == "decode_q8_split_kernel<128>"
+
+    def reports(k5_hmma=0, k3_hmma=48, spill=0):
+        sass = lambda hg, hm: {"HGMMA": hg, "WARPGROUP.DEPBAR": 2, "HMMA": hm, "MOVM": 0}
+        return {"linear_ce.cu": {
+                    "ptxas": {"ce_gemm_kernel<2, 0>": {"registers": 168, "spill_stores": spill}},
+                    "sass": {"ce_gemm_kernel<2, 0>": sass(8, k5_hmma),
+                             "ce_gemm_kernel<2, 1>": sass(8, k5_hmma)}},
+                "decode_attention.cu": {
+                    "ptxas": {}, "sass": {"decode_q8_split_kernel<64>": sass(0, k3_hmma),
+                                          "decode_q8_split_kernel<128>": sass(0, k3_hmma)}}}
+
+    cs.check_reports(reports())
+    for bad in (dict(k5_hmma=4), dict(k3_hmma=0), dict(spill=8)):
+        with pytest.raises(AssertionError, match="kernel reports"):
+            cs.check_reports(reports(**bad))
     fwd = "_ZN55_GLOBAL__N__c3_22_flash_attention_fwd_cu_44c3199416flash_fwd_kernelILi128EEEv14CUtensorMap_st"
     merge = "_ZN51_GLOBAL__N__26_18_paged_attention_cu_44c3199418paged_merge_kernelENS_4ArgsEi"
     log = "\n".join([
@@ -162,17 +191,19 @@ def _header_functions(text):
 
 
 @pytest.mark.parametrize("source", ["linear_ce.cu", "flash_attention_bwd.cu", "sampler.cu",
-                                    "flash_attention_fwd.cu", "paged_attention.cu"])
+                                    "flash_attention_fwd.cu", "paged_attention.cu",
+                                    "decode_attention.cu"])
 def test_hopper_primitives_live_in_one_header(source):
-    """csrc/hopper.cuh holds the TMA, bulk-copy, mbarrier and wgmma
-    primitives (and the attention operands' tensor map, masks and tile
-    descriptors that K1, K7 and K8 share); the sources that run on them
-    include it and define none of them again."""
+    """csrc/hopper.cuh holds the TMA, bulk-copy, mbarrier, wgmma and
+    mma.sync primitives (and the attention operands' tensor map, masks and
+    tile descriptors that K1, K7 and K8 share); the sources that run on
+    them include it and define none of them again."""
     header = (_build.CSRC / "hopper.cuh").read_text()
     shared = _header_functions(header)
     assert {"smem_u32", "mbar_wait", "tma_load", "tma_load_3d", "gmma_desc", "wgmma_ss",
             "wgmma_rs", "fence_regs", "encode_tiled", "make_map", "bulk_load", "head_map",
-            "key_pos", "query_pos", "kmajor", "kstep", "mnmajor", "mnstep"} <= shared
+            "key_pos", "query_pos", "kmajor", "kstep", "mnmajor", "mnstep", "mma_bf16",
+            "movmatrix_t"} <= shared
     text = (_build.CSRC / source).read_text()
     assert '#include "hopper.cuh"' in text
     code = "\n".join(line.split("//")[0] for line in text.splitlines())
