@@ -4,9 +4,9 @@ Port of ``rlinf_tpu/ops/pallas/decode_attention.py``. The cache is packed
 ``[B, S_max, Kv*Hd]`` per layer, bf16 (K2) or int8 with one f32 scale per
 (row, slot) (K3). Slot ``s`` of row ``b`` takes part iff
 ``start[b] <= s < length[b]``; an empty interval gives 0. The CUDA source
-is ``csrc/decode_attention.cu``: K2 one CTA per (row, kv head); K3
-split-KV over 16-key blocks (``split_plan``) on the tensor cores, then a
-merge of the splits, both in one call.
+is ``csrc/decode_attention.cu``: both split-KV over 16-key blocks
+(``split_plan``) on the tensor cores, then a merge of the splits, in one
+call each. K2 takes up to 16 query heads per kv head, K3 up to 8.
 """
 
 from __future__ import annotations
@@ -25,16 +25,16 @@ NEG_INF = -2.0**30
 
 KERNEL_BF16 = CudaKernel(
     "decode_attention.cu", "decode_attention_bf16",
-    [I, P, P, P, P, P, P, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 )
 KERNEL_Q8 = CudaKernel(
     "decode_attention.cu", "decode_attention_q8",
     [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 )
 
-#: keys of one block of K3 (csrc KEYS): its splits are runs of whole blocks
+#: keys of one block of K2 and K3 (csrc KEYS): their splits are runs of whole blocks
 KEY_BLOCK = 16
-#: CTAs the split grids of K3 and K10 aim at, per SM
+#: CTAs the split grids of K2, K3 and K10 aim at, per SM
 CTAS_PER_SM = 4
 #: fewest units a split (K3's 16-key blocks, K10's pages): one for each warp of a CTA
 MIN_SPLIT_UNITS = 4
@@ -43,7 +43,7 @@ MIN_SPLIT_UNITS = 4
 @functools.lru_cache(maxsize=None)
 def split_plan(rows: int, max_units: int, sms: int) -> Tuple[int, int]:
     """-> (units per split, number of splits) for ``rows`` (row, kv head)
-    pairs whose valid keys span up to ``max_units`` units (K3: 16-key blocks,
+    pairs whose valid keys span up to ``max_units`` units (K2, K3: 16-key blocks,
     K10: pages): enough splits that the grid (rows x splits CTAs) covers
     ``sms`` SMs CTAS_PER_SM times, but no fewer than MIN_SPLIT_UNITS units a
     split (one for each warp of a CTA), so that a few long rows are not cut
@@ -103,10 +103,10 @@ def decode_attention_packed_q8_xla(
     return _plain(q, k_cache, v_cache, k_scale, v_scale, starts, lengths, num_kv, scale)
 
 
-def _check_common(q, k_cache, v_cache, starts, lengths, num_kv, cache_dtype):
+def _check_common(kernel, q, k_cache, v_cache, starts, lengths, num_kv, cache_dtype):
     B, H, Hd = q.shape
     S = k_cache.shape[1]
-    check_heads("decode_attention", H, num_kv, Hd)
+    check_heads(kernel, H, num_kv, Hd)
     check_cuda_tensor("q", q, torch.bfloat16, (B, H, Hd))
     check_cuda_tensor("k_cache", k_cache, cache_dtype, (B, S, num_kv * Hd))
     check_cuda_tensor("v_cache", v_cache, cache_dtype, (B, S, num_kv * Hd))
@@ -125,18 +125,22 @@ def decode_attention_packed(
     num_kv: int,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """K2 -> [B, H, Hd] in q.dtype. CPU tensors run the plain version."""
+    """K2 -> [B, H, Hd] in q.dtype: the split kernel and the merge, one
+    launch in the count. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return decode_attention_packed_xla(
             q, k_cache, v_cache, starts, lengths, num_kv=num_kv, scale=scale)
     B, H, Hd, S = _check_common(
-        q, k_cache, v_cache, starts, lengths, num_kv, torch.bfloat16)
+        "decode_attention_bf16", q, k_cache, v_cache, starts, lengths, num_kv, torch.bfloat16)
+    dev = q.device.index
+    bps, splits = split_plan(B * num_kv, -(-S // KEY_BLOCK), sm_count(dev))
+    # the splits' o [B * Kv, splits, G, Hd], then their (m, l) [B * Kv, splits, G, 2]
+    part = torch.empty((B * H * splits * (Hd + 2),), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     KERNEL_BF16(
-        q.device.index, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        starts.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        B, H, num_kv, S, Hd, float(Hd**-0.5 if scale is None else scale),
-        stream_handle(),
+        dev, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), starts.data_ptr(),
+        lengths.data_ptr(), part.data_ptr(), out.data_ptr(), B, H, num_kv, S, Hd, bps, splits,
+        float(Hd**-0.5 if scale is None else scale), stream_handle(),
     )
     return out
 
@@ -160,7 +164,7 @@ def decode_attention_packed_q8(
             q, k_cache, v_cache, k_scale, v_scale, starts, lengths,
             num_kv=num_kv, scale=scale)
     B, H, Hd, S = _check_common(
-        q, k_cache, v_cache, starts, lengths, num_kv, torch.int8)
+        "decode_attention_q8", q, k_cache, v_cache, starts, lengths, num_kv, torch.int8)
     check_cuda_tensor("k_scale", k_scale, torch.float32, (B, S))
     check_cuda_tensor("v_scale", v_scale, torch.float32, (B, S))
     dev = q.device.index

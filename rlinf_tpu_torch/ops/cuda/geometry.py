@@ -24,7 +24,8 @@ HEAD_DIMS = (64, 128)
 #: kernel -> (head dims it takes, most query heads per kv head; None: any)
 LIMITS = {
     "flash_attention": (HEAD_DIMS, None),   # K1, K7, K8
-    "decode_attention": (HEAD_DIMS, 8),     # K2, K3
+    "decode_attention_bf16": (HEAD_DIMS, 16),  # K2
+    "decode_attention_q8": (HEAD_DIMS, 8),  # K3
     "decode_megakernel": (HEAD_DIMS, 8),    # K9
     "paged_attention": (HEAD_DIMS, 16),     # K10
 }
@@ -32,7 +33,7 @@ LIMITS = {
 #: path -> the attention kernels it runs
 PATHS = {
     "flash": ("flash_attention",),          # attn_impl="pallas": prefill, recompute, train step
-    "decode": ("decode_attention",),        # the per-layer decode step
+    "decode": ("decode_attention_bf16", "decode_attention_q8"),  # the per-layer decode step
     "mega": ("decode_megakernel",),         # generate(mega=), use_mega
     "paged": ("paged_attention",),          # the paged engine's decode
 }
@@ -64,7 +65,7 @@ def check_page_size(page_size: int, Hd: int) -> None:
 def check_kernel_geometry(cfg: "LLMConfig", path: str, *, page_size: Optional[int] = None) -> None:
     """Return if every kernel of ``path`` (a key of PATHS) takes the model
     ``cfg``, else raise ValueError naming the kernel and its limits. The
-    megakernel's path also checks its staged activations; the paged path
+    megakernel's path also checks its weight tiles' widths; the paged path
     the page size, where one is given."""
     if path not in PATHS:
         raise ValueError(f"unknown kernel path {path!r}; expected one of {sorted(PATHS)}")
@@ -83,7 +84,8 @@ def check_on_card(cfg: "LLMConfig", device, *, attn_impl: Optional[str] = None,
     """Where ``device`` is the card: ``check_kernel_geometry`` for the
     prefill/training attention when ``attn_impl`` selects the kernels
     ("pallas" or "flash": K1, K7, K8) and for the per-layer decode when
-    ``decode_attn_impl`` does ("pallas": K2, K3)."""
+    ``decode_attn_impl`` does ("pallas": K2 and K3, whichever cache the
+    path holds)."""
     if torch.device(device).type != "cuda":
         return
     if attn_impl in ("pallas", "flash"):

@@ -1,7 +1,7 @@
-"""K3's host side (int8-cache decode attention, split-KV) against the JAX
-package, on the CPU.
+"""The host side of K2 and K3 (bf16- and int8-cache decode attention,
+split-KV) against the JAX package, on the CPU.
 
-The kernel cuts each row's valid interval into 16-key blocks, the blocks
+Each kernel cuts each row's valid interval into 16-key blocks, the blocks
 into splits (``split_plan``), computes one partial state per split (max in
 log2 units, sum of probabilities, unnormalised output) and merges the used
 splits. Here that scheme runs in plain torch and is held against the
@@ -80,7 +80,8 @@ def _inputs(seed, B, S, H, Kv, Hd):
 def _k3_emulated(q, kq, vq, ks, vs, starts, lengths, num_kv, sms):
     """K3 on the CPU by its scheme: per (row, kv head, split) the partial
     state over the split's valid slots, then the used splits merged as
-    csrc decode_q8_merge_kernel merges them; an empty row gives 0."""
+    csrc decode_merge_kernel merges them; an empty row gives 0. K2's
+    scheme is the same without the scales (``ks``, ``vs`` None)."""
     B, H, Hd = q.shape
     S = kq.shape[1]
     G = H // num_kv
@@ -94,10 +95,13 @@ def _k3_emulated(q, kq, vq, ks, vs, starts, lengths, num_kv, sms):
             qg = q[b, kvh * G:(kvh + 1) * G].float()                      # [G, Hd]
             parts = []
             for lo, hi in _splits(int(starts[b]), int(lengths[b]), S, bps):
-                s = (qg @ kf[b, lo:hi, kvh].t()) * scale2 * ks[b, lo:hi][None, :]
+                s = (qg @ kf[b, lo:hi, kvh].t()) * scale2
+                if ks is not None:
+                    s = s * ks[b, lo:hi][None, :]
                 m = s.max(-1).values
                 p = torch.exp2(s - m[:, None])
-                o = (p * vs[b, lo:hi][None, :]) @ vf[b, lo:hi, kvh]
+                pv = p if vs is None else p * vs[b, lo:hi][None, :]
+                o = pv @ vf[b, lo:hi, kvh]
                 parts.append((m, p.sum(-1), o))
             if not parts:
                 continue
@@ -151,16 +155,73 @@ def test_q8_wrapper_goes_to_its_kernel_for_tensors_off_the_cpu(monkeypatch):
     assert tdec.KERNEL_Q8.launches == 0
 
 
+@pytest.mark.parametrize("G", [6, 7, 12, 16])
+@pytest.mark.parametrize("Hd", [64, 128])
+def test_split_partials_merged_give_the_plain_and_pallas_bf16_attention(Hd, G):
+    """K2's split-KV scheme (the bf16 cache, up to 16 query heads a kv head)
+    against the port's plain version, the JAX Pallas kernel in interpret
+    mode and its XLA oracle, 1e-5 on f32 inputs; the empty row exactly 0."""
+    Kv = 2
+    B, S, H = 4, 200, G * Kv
+    r = np.random.default_rng(20 + Hd + G)
+    q = torch.from_numpy(r.normal(size=(B, H, Hd)).astype(np.float32))
+    k = torch.from_numpy((r.normal(size=(B, S, Kv * Hd)) * 0.5).astype(np.float32))
+    v = torch.from_numpy((r.normal(size=(B, S, Kv * Hd)) * 0.5).astype(np.float32))
+    starts = np.array([0, 37, 150, 60], np.int32)
+    lengths = np.array([S, S - 10, 150, 61], np.int32)   # row 2 is empty
+    got = _k3_emulated(q, k, v, None, None, starts, lengths, Kv, sms=132)
+    plain = tdec.decode_attention_packed(q, k, v, torch.from_numpy(starts),
+                                         torch.from_numpy(lengths), num_kv=Kv)
+    jargs = (jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), jnp.asarray(v.numpy()),
+             jnp.asarray(starts), jnp.asarray(lengths))
+    want = jdec.decode_attention_packed(*jargs, num_kv=Kv, block_size=8, block_rows=2,
+                                        interpret=True)
+    oracle = jdec.decode_attention_packed_xla(*jargs, num_kv=Kv)
+    np.testing.assert_allclose(got.numpy(), plain.float().numpy(), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32), atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle, np.float32), atol=1e-5)
+    assert np.all(got.numpy()[2] == 0.0)
+
+
+def test_bf16_wrapper_goes_to_its_kernel_for_tensors_off_the_cpu(monkeypatch):
+    """K2's wrapper: tensors on the ``meta`` device never reach the plain
+    version; the wrapper goes to its kernel's argument checks, which raise
+    for want of a CUDA tensor, and nothing is launched. A group of 16
+    query heads passes the head check; 17 is refused by it."""
+    def never(*a, **kw):
+        raise AssertionError("the plain version was called for a tensor off the CPU")
+
+    monkeypatch.setattr(tdec, "decode_attention_packed_xla", never)
+    B, S, Kv, Hd = 2, 32, 2, 64
+    meta = dict(device="meta")
+    kc = torch.zeros((B, S, Kv * Hd), dtype=torch.bfloat16, **meta)
+    st = torch.zeros((B,), dtype=torch.int32, **meta)
+    q = torch.zeros((B, 32, Hd), dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        tdec.decode_attention_packed(q, kc, kc, st, st, num_kv=Kv)
+    q = torch.zeros((B, 34, Hd), dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="unsupported H=34 Kv=2"):
+        tdec.decode_attention_packed(q, kc, kc, st, st, num_kv=Kv)
+    assert tdec.KERNEL_BF16.launches == 0
+
+
 def test_q8_wrapper_and_source_agree_on_their_constants():
-    """The wrapper's key block and the C entry's argument list are the
-    source's; K2 keeps its one-CTA kernel and entry."""
+    """The wrappers' key block, the C entries' argument lists and the
+    kernels' group limits are the source's: K2 and K3 both take a split
+    plan (BPS, NS); K2 takes 16 query heads per kv head, K3 8."""
     import re
 
     from rlinf_tpu_torch.ops.cuda import _build
+    from rlinf_tpu_torch.ops.cuda.geometry import LIMITS
 
     text = (_build.CSRC / "decode_attention.cu").read_text()
-    assert int(re.search(r"constexpr int KEYS = (\d+);", text).group(1)) == tdec.KEY_BLOCK
-    assert int(re.search(r"constexpr int Q8_NW = (\d+);", text).group(1)) == tdec.MIN_SPLIT_UNITS
-    params = re.search(r'extern "C" int decode_attention_q8\(([^)]*)\)', text).group(1)
-    assert "int BPS, int NS" in params and len(params.split(",")) == len(tdec.KERNEL_Q8.argtypes)
-    assert "launch<__nv_bfloat16, false>" in text
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+    assert const("KEYS") == tdec.KEY_BLOCK
+    assert const("Q8_NW") == tdec.MIN_SPLIT_UNITS
+    assert const("MAXG") == LIMITS["decode_attention_q8"][1] == 8
+    assert const("MAXG_BF") == LIMITS["decode_attention_bf16"][1] == 16
+    for entry, kernel in (("decode_attention_q8", tdec.KERNEL_Q8),
+                          ("decode_attention_bf16", tdec.KERNEL_BF16)):
+        params = re.search(rf'extern "C" int {entry}\(([^)]*)\)', text).group(1)
+        assert "int BPS, int NS" in params and len(params.split(",")) == len(kernel.argtypes)
+    assert "decode_attn_kernel" not in text

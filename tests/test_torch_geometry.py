@@ -1,8 +1,8 @@
 """Model geometries the port's kernels refuse, refused where a path is built.
 
 The attention kernels take head dims 64 and 128 and a bounded number of
-query heads per kv head (G); the decode megakernel also bounds the hidden
-size it stages. ``ops/cuda/geometry.check_kernel_geometry`` holds those
+query heads per kv head (G); the decode megakernel also needs widths its
+64-column weight tiles cut (its hidden size has no bound of its own). ``ops/cuda/geometry.check_kernel_geometry`` holds those
 limits, and the engines, ``generate``, the train step and the recompute
 call it when they are built on the card, before any prompt or batch is
 touched. The card is simulated here (``torch.cuda.is_available`` patched to
@@ -39,6 +39,8 @@ def _cfg(heads=12, kv=2, head_dim=128, hidden=1536):
 
 HD96 = _cfg(heads=16, kv=2, head_dim=96)
 G16 = _cfg(heads=32, kv=2, head_dim=64, hidden=2048)
+#: heads every kernel takes, an intermediate size K9's 64-column tiles do not cut
+F1000 = dataclasses.replace(_cfg(), intermediate_size=1000)
 
 
 @pytest.fixture
@@ -56,7 +58,8 @@ def test_head_dim_96_is_refused_on_every_kernel_path(path):
 @pytest.mark.parametrize("path,takes", [("decode", False), ("mega", False), ("paged", True),
                                         ("flash", True)])
 def test_a_group_of_16_query_heads(path, takes):
-    """K2/K3 and K9 serve at most 8 query heads a kv head, K10 16, K1/K7/K8 any."""
+    """The decode path (K2 takes 16 query heads a kv head, K3 8) and K9
+    refuse 16; K10 takes 16, K1/K7/K8 any."""
     if takes:
         check_kernel_geometry(G16, path)
     else:
@@ -82,12 +85,19 @@ def test_the_limits_are_the_wrappers():
 
 
 def test_qwen2_7b_plan_is_refused_by_the_megakernel():
-    with pytest.raises(ValueError, match="staged activations"):
-        MK._check_geometry(MK.make_plan(LLMConfig.qwen2_7b(), 3584))
-    with pytest.raises(ValueError, match="staged activations"):
-        check_kernel_geometry(LLMConfig.qwen2_7b(), "mega")
+    """Qwen2-7B (D=3584) is taken on the megakernel's path now that K9
+    stages K-slices of its activations; a geometry K9 still refuses (more
+    than 8 query heads a kv head, widths its tiles do not cut) is refused
+    with the limit named."""
+    MK._check_geometry(MK.make_plan(LLMConfig.qwen2_7b(), 3584))
+    check_kernel_geometry(LLMConfig.qwen2_7b(), "mega")
     check_kernel_geometry(LLMConfig.qwen2_7b(), "decode")      # the per-layer kernels take it
     check_kernel_geometry(LLMConfig.qwen2_1_5b(), "mega")
+    with pytest.raises(ValueError, match="decode_megakernel: unsupported H=32 Kv=2"):
+        check_kernel_geometry(G16, "mega")
+    with pytest.raises(ValueError, match="intermediate 1000 not a multiple of its 64-column"):
+        check_kernel_geometry(F1000, "mega")
+    check_kernel_geometry(F1000, "decode")
 
 
 _MEGA = dict(num_slots=8, max_seq_len=256, weight_quant="int8", kv_quant="int8")
@@ -95,13 +105,18 @@ _MEGA = dict(num_slots=8, max_seq_len=256, weight_quant="int8", kv_quant="int8")
 
 @pytest.mark.parametrize("use_mega", [True, "auto"])
 def test_continuous_engine_refuses_the_megakernel_for_qwen2_7b(card, use_mega):
-    """In the constructor, before any prompt; "auto" does not quietly fall
-    back to the per-layer kernels, and the message names the way that runs."""
-    with pytest.raises(ValueError, match="use_mega=False"):
-        ContinuousBatchingEngine(LLMConfig.qwen2_7b(), SamplingParams(), use_mega=use_mega,
-                                 device="cuda", **_MEGA)
-    eng = ContinuousBatchingEngine(LLMConfig.qwen2_7b(), SamplingParams(), use_mega=False,
+    """Qwen2-7B now builds with the megakernel on the card. A geometry K9
+    refuses is refused in the constructor, before any prompt; "auto" does
+    not quietly fall back to the per-layer kernels, and the message names
+    the way that runs."""
+    eng = ContinuousBatchingEngine(LLMConfig.qwen2_7b(), SamplingParams(), use_mega=use_mega,
                                    device="cuda", **_MEGA)
+    assert eng.device.type == "cuda"
+    with pytest.raises(ValueError, match="use_mega=False"):
+        ContinuousBatchingEngine(F1000, SamplingParams(), use_mega=use_mega, device="cuda",
+                                 **_MEGA)
+    eng = ContinuousBatchingEngine(F1000, SamplingParams(), use_mega=False, device="cuda",
+                                   **_MEGA)
     assert eng.device.type == "cuda"
 
 
@@ -139,15 +154,18 @@ def test_generate_refuses_before_touching_its_prompts(card):
     with pytest.raises(ValueError, match="Hd=96"):
         generate(params, HD96, torch.Generator(), prompts, mask, sp, attn_impl="pallas",
                  decode_attn_impl="xla", device="cuda")
-    with pytest.raises(ValueError, match="decode_attention: unsupported"):
+    with pytest.raises(ValueError, match="decode_attention_bf16: unsupported"):
         generate(params, HD96, torch.Generator(), prompts, mask, sp, device="cuda")
-    plan = MK.make_plan(LLMConfig.qwen2_7b(), 3584)
-    with pytest.raises(ValueError, match="staged activations"):
-        generate(params, LLMConfig.qwen2_7b(), torch.Generator(), prompts, mask, sp,
-                 kv_quant="int8", mega=(plan, None), device="cuda")
+    with pytest.raises(ValueError, match="not a multiple of its 64-column"):
+        generate(params, F1000, torch.Generator(), prompts, mask, sp,
+                 kv_quant="int8", mega=(MK.make_plan(F1000), None), device="cuda")
     with pytest.raises(ValueError, match="params live on"):    # a geometry the kernels take
         generate(params, G16, torch.Generator(), prompts, mask, sp, attn_impl="pallas",
                  decode_attn_impl="xla", device="cuda")
+    with pytest.raises(ValueError, match="params live on"):    # Qwen2-7B on the megakernel
+        generate(params, LLMConfig.qwen2_7b(), torch.Generator(), prompts, mask, sp,
+                 kv_quant="int8", mega=(MK.make_plan(LLMConfig.qwen2_7b(), 3584), None),
+                 device="cuda")
 
 
 def test_paged_engine_takes_16_query_heads_and_refuses_odd_pages(card):

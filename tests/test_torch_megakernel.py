@@ -98,22 +98,95 @@ def test_make_plan_chunk_width_below_hidden():
 
 
 def test_pack_roundtrip_and_unfused_rejected(setup):
+    """The stream holds wqkv | wo | gate_up | down as 64 x 64 wgmma tiles,
+    gate and up interleaved by 64-column units (scales alike); unpacking
+    gives the quantized matrices back bit for bit."""
     _, tcfg, _, tp, _, tq = setup
     plan, mw = TMK.pack_decode_weights(tq, tcfg)
     assert mw.stream.shape == (plan.L, plan.layer_bytes) and mw.stream.dtype == torch.int8
     assert mw.scales.shape == (plan.L, plan.scale_width)
-    off = 0
+    assert [name for name, _, _ in plan.matrices] == ["wqkv", "wo", "gate_up", "down"]
     b = tq["blocks"]
-    want = {"wqkv": b["wqkv"].q, "wo": b["wo"].q, "gate": b["wgu"].q[..., :plan.F],
-            "up": b["wgu"].q[..., plan.F:], "down": b["down"].q}
+    F = plan.F
+    want = {"wqkv": (b["wqkv"].q, b["wqkv"].scale), "wo": (b["wo"].q, b["wo"].scale),
+            "down": (b["down"].q, b["down"].scale)}
+    off_w = off_s = 0
     for name, k, n in plan.matrices:
         for layer in range(plan.L):
-            got = TMK._unpack_matrix(mw.stream[layer, off:off + k * n], k, n)
-            assert torch.equal(got, want[name][layer]), name
-        off += k * n
+            got = TMK._unpack_matrix(mw.stream[layer, off_w:off_w + k * n], k, n)
+            sc = mw.scales[layer, off_s:off_s + n]
+            if name == "gate_up":
+                for part, (q, s_) in zip(TMK._split_units(got), (
+                        (b["wgu"].q[layer, :, :F], b["wgu"].scale[layer, ..., :F]),
+                        (b["wgu"].q[layer, :, F:], b["wgu"].scale[layer, ..., F:]))):
+                    assert torch.equal(part, q)
+                gate_s, up_s = TMK._split_units(sc)
+                assert torch.equal(gate_s, b["wgu"].scale[layer].reshape(-1)[:F].float())
+                assert torch.equal(up_s, b["wgu"].scale[layer].reshape(-1)[F:].float())
+                # unit 2j is gate columns 64j.., unit 2j + 1 the same up columns
+                assert torch.equal(got[:, 64:128], b["wgu"].q[layer, :, F:F + 64])
+            else:
+                assert torch.equal(got, want[name][0][layer]), name
+                assert torch.equal(sc, want[name][1][layer].reshape(-1).float()), name
+        off_w += k * n
+        off_s += n
     assert torch.equal(mw.bias, torch.cat([b["bq"], b["bk"], b["bv"]], -1).float())
     with pytest.raises(AssertionError):
         TMK.pack_decode_weights(quantize_params(tp, fuse=False), tcfg)
+
+
+def test_tile_layout_is_the_warpgroup_fragments():
+    """Byte 16 * thread + 4 * (2 (j % 2) + r) + 2 hi + e of a tile (plus 2048
+    for k16 steps j = 2, 3) holds depth 16 j + 8 hi + 2 t + e of column
+    16 w + g + 8 r, thread = 32 w + 4 g + t: the A fragments of the kernel's
+    wgmma, as csrc/decode_megakernel.cu reads them."""
+    K, N = 128, 192
+    q = torch.arange(K * N, dtype=torch.int64).reshape(1, K, N)
+    tiles = TMK._pack_matrix(q).reshape(N // 64, K // 64, 4096)
+    r = np.random.default_rng(0)
+    for _ in range(200):
+        m, kb = r.integers(0, N // 64), r.integers(0, K // 64)
+        w, g, t, j, rr, hi, e = (r.integers(0, n) for n in (4, 8, 4, 4, 2, 2, 2))
+        thread = 32 * w + 4 * g + t
+        byte = (j // 2) * 2048 + 16 * thread + 4 * (2 * (j % 2) + rr) + 2 * hi + e
+        depth, col = 64 * kb + 16 * j + 8 * hi + 2 * t + e, 64 * m + 16 * w + g + 8 * rr
+        assert tiles[m, kb, byte].item() == q[0, depth, col].item()
+
+
+@pytest.mark.parametrize("preset,B", [("qwen2_1_5b", 64), ("qwen2_1_5b", 8), ("qwen2_7b", 64),
+                                      ("qwen2_7b", 100)])
+def test_launch_schedule_covers_every_tile_once(preset, B):
+    """The launch's schedule at the geometry of Qwen2-1.5B and Qwen2-7B on
+    132 SMs: over all CTAs, every weight tile of every product (each row
+    block, unit and k-block) is multiplied exactly once; a CTA's tiles of a
+    product lie in one K-slice, whose staged activations fit the kernel's
+    shared memory (at most KBS_MAX k-blocks of 64 rows); every slice is
+    covered; the attention splits cover the longest row and, where a row
+    has several, fit one item a consumer warp."""
+    cfg = getattr(TConfig, preset)()
+    plan = TMK.make_plan(cfg, max(2048, cfg.hidden_size))
+    TMK._check_geometry(plan)
+    S, grid = 768, 132
+    sched = TMK.mega_schedule(plan, B, S, grid)
+    nrb = -(-B // TMK.ROWS)
+    seen = [dict() for _ in TMK.PRODUCTS]
+    for cta in range(grid):
+        tiles = TMK.cta_tiles(plan, sched, B, cta)
+        for p, (KB, units) in enumerate(TMK.product_shapes(plan)):
+            mine = [(rb, u, kb) for q, rb, u, kb in tiles if q == p]
+            _, _, _, kb0, kbs = TMK.cta_slice(KB, sched.ks[p], grid, cta)
+            assert kbs <= TMK.KBS_MAX
+            assert all(kb0 <= kb < kb0 + kbs for _, _, kb in mine)
+            for key in mine:
+                seen[p][key] = seen[p].get(key, 0) + 1
+    for p, (KB, units) in enumerate(TMK.product_shapes(plan)):
+        assert sched.ks[p] <= grid
+        assert len(seen[p]) == nrb * units * KB and set(seen[p].values()) == {1}, TMK.PRODUCTS[p]
+    assert sched.bps * sched.ns >= -(-S // TMK.KEY_BLOCK) > sched.bps * (sched.ns - 1)
+    # a row's splits wait for each other: with several, every item has a warp
+    assert sched.ns == 1 or B * plan.Kv * sched.ns <= grid * TMK.CONSUMER_WARPS
+    part, apart, sync = TMK.workspace_floats(plan, sched, B)
+    assert part >= nrb * max(ks * u for ks, (_, u) in zip(sched.ks, TMK.product_shapes(plan))) * 4096
 
 
 def _both_steps(setup, write_pos, positions, starts, seed):
@@ -208,11 +281,17 @@ def test_generate_mega_without_int8_kv_takes_the_per_layer_path(setup):
 
 
 def test_wrapper_geometry_check():
-    """The kernel stages activations in shared memory: Qwen2-1.5B and the
-    test geometry fit, a hidden size of 3584 is refused with a reason."""
+    """The kernel stages a K-slice of the activations at a time, so the
+    hidden size has no limit of its own: Qwen2-1.5B, Qwen2-7B (D=3584) and
+    the test geometry are taken; a head dim outside 64/128, more than 8
+    query heads a kv head and widths the 64-column tiles do not cut are
+    refused with a reason."""
     TMK._check_geometry(TMK.make_plan(TConfig.qwen2_1_5b()))
+    TMK._check_geometry(TMK.make_plan(TConfig.qwen2_7b(), 4096))
     TMK._check_geometry(TMK.make_plan(_cfgs()[1]))
-    with pytest.raises(ValueError, match="staged activations"):
-        TMK._check_geometry(TMK.make_plan(TConfig.qwen2_7b(), 4096))
     with pytest.raises(ValueError, match="unsupported H=4 Kv=2 Hd=16"):
         TMK._check_geometry(TMK.make_plan(TConfig.tiny()))
+    with pytest.raises(ValueError, match="at most 8 query heads"):
+        TMK._check_geometry(TMK.make_plan(_cfgs(num_heads=32, hidden_size=2048)[1]))
+    with pytest.raises(ValueError, match="intermediate 400 not a multiple"):
+        TMK._check_geometry(TMK.make_plan(_cfgs(intermediate_size=400)[1]))

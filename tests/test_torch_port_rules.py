@@ -125,14 +125,15 @@ def test_chip_smoke_reads_k7_and_k8_by_the_source_names():
 
 def test_chip_smoke_reports_k1_k3_k5_and_k10_by_the_source_names():
     """chip_smoke.py prints ptxas's registers and spills and the SASS
-    instruction counts of K1, K3, K5 and K10 by kernel name: each name is a
-    __global__ kernel of its source, and the reports read the compiler's
-    and cuobjdump's output by those names (template arguments kept, so K5's
-    two layouts and K6's passes stay apart). check_reports holds K5 to
-    wgmma and K3 to mma.sync, with no spill."""
+    instruction counts of K1, K2, K3, K5, K9 and K10 by kernel name: each
+    name is a __global__ kernel of its source, and the reports read the
+    compiler's and cuobjdump's output by those names (template arguments
+    kept, so K5's two layouts and K6's passes stay apart). check_reports
+    holds K5 and K9 to wgmma, K2 and K3 to mma.sync, with no spill."""
     cs = _chip_smoke()
     assert set(cs.REPORTED_KERNELS) == {"flash_attention_fwd.cu", "paged_attention.cu",
-                                        "linear_ce.cu", "decode_attention.cu"}
+                                        "linear_ce.cu", "decode_attention.cu",
+                                        "decode_megakernel.cu"}
     for src, names in cs.REPORTED_KERNELS.items():
         cu = (PORT / "csrc" / src).read_text()
         for name in names:
@@ -144,7 +145,7 @@ def test_chip_smoke_reports_k1_k3_k5_and_k10_by_the_source_names():
     assert cs._kernel_key(gemm.replace("Li2ELb1E", "Li0ELb0E"), names) == "ce_gemm_kernel<0, 0>"
     assert cs._kernel_key(k3, names) == "decode_q8_split_kernel<128>"
 
-    def reports(k5_hmma=0, k3_hmma=48, spill=0):
+    def reports(k5_hmma=0, k3_hmma=48, k2_hmma=96, k9_hgmma=32, k9_spill=0, spill=0):
         sass = lambda hg, hm: {"HGMMA": hg, "WARPGROUP.DEPBAR": 2, "HMMA": hm, "MOVM": 0}
         return {"linear_ce.cu": {
                     "ptxas": {"ce_gemm_kernel<2, 0>": {"registers": 168, "spill_stores": spill}},
@@ -152,10 +153,17 @@ def test_chip_smoke_reports_k1_k3_k5_and_k10_by_the_source_names():
                              "ce_gemm_kernel<2, 1>": sass(8, k5_hmma)}},
                 "decode_attention.cu": {
                     "ptxas": {}, "sass": {"decode_q8_split_kernel<64>": sass(0, k3_hmma),
-                                          "decode_q8_split_kernel<128>": sass(0, k3_hmma)}}}
+                                          "decode_q8_split_kernel<128>": sass(0, k3_hmma),
+                                          "decode_bf16_split_kernel<64>": sass(0, k2_hmma),
+                                          "decode_bf16_split_kernel<128>": sass(0, k2_hmma)}},
+                "decode_megakernel.cu": {
+                    "ptxas": {"mega_kernel<128>": {"registers": 168, "spill_loads": k9_spill}},
+                    "sass": {"mega_kernel<64>": sass(k9_hgmma, 48),
+                             "mega_kernel<128>": sass(k9_hgmma, 48)}}}
 
     cs.check_reports(reports())
-    for bad in (dict(k5_hmma=4), dict(k3_hmma=0), dict(spill=8)):
+    for bad in (dict(k5_hmma=4), dict(k3_hmma=0), dict(k2_hmma=0), dict(k9_hgmma=0),
+                dict(k9_spill=4), dict(spill=8)):
         with pytest.raises(AssertionError, match="kernel reports"):
             cs.check_reports(reports(**bad))
     fwd = "_ZN55_GLOBAL__N__c3_22_flash_attention_fwd_cu_44c3199416flash_fwd_kernelILi128EEEv14CUtensorMap_st"
@@ -192,7 +200,7 @@ def _header_functions(text):
 
 @pytest.mark.parametrize("source", ["linear_ce.cu", "flash_attention_bwd.cu", "sampler.cu",
                                     "flash_attention_fwd.cu", "paged_attention.cu",
-                                    "decode_attention.cu"])
+                                    "decode_attention.cu", "decode_megakernel.cu"])
 def test_hopper_primitives_live_in_one_header(source):
     """csrc/hopper.cuh holds the TMA, bulk-copy, mbarrier, wgmma and
     mma.sync primitives (and the attention operands' tensor map, masks and
@@ -385,18 +393,27 @@ def test_new_wrappers_take_the_plain_version_for_cpu_tensors_only(make, monkeypa
 
 
 def test_megakernel_wrapper_and_source_agree_on_their_constants():
-    """The wrapper sizes the K-slice workspace and refuses geometries by
-    constants the CUDA source holds too."""
+    """The wrapper plans the launch (tile shapes, the ring, the K-slices'
+    staging, attention's blocks) and binds the C entry by constants and an
+    argument list the CUDA source holds too; the kernel's shared memory
+    (barriers, ring, staged activations or attention) fits a CTA."""
     from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
 
     text = (_build.CSRC / "decode_megakernel.cu").read_text()
     const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
-    assert const("KS_MAX") == MK.MAX_SLICES
-    assert const("KBLK") == MK.K_BLOCK and const("NTILE") == MK.ITEM_COLS
+    assert const("UNIT") == MK.UNIT and const("KBLK") == MK.K_BLOCK and const("ROWS") == MK.ROWS
+    assert const("RING") == MK.RING_TILES and const("KBS_MAX") == MK.KBS_MAX
+    assert const("NCW") == MK.CONSUMER_WARPS and const("KEYS") == MK.KEY_BLOCK
     assert const("MAXG") == MK.MAX_GROUP
-    # 64 staged rows of MAX_STAGED_DEPTH (+ padding) and the reduce buffer fit a CTA
-    staged = const("MROWS") * (MK.MAX_STAGED_DEPTH + const("APAD")) * 2 + 4 * 2 * const("NW") * 16 * 32
-    assert staged <= const("SMEM_CAP") < staged + const("MROWS") * MK.K_BLOCK * 2
+    for hd in (64, 128):   # a warp's attention ring and its query fragments
+        att = const("NCW") * (const("ATT_RING") * (4 * (hd // 64) + 2) * 32 * 16
+                              + 32 * 4 * (hd // 64) * 16)
+        staged = const("KBS_MAX") * const("ROWS") * const("KBLK") * 2
+        total = (1024 + const("MISC_BYTES") + const("RING") * const("UNIT") * const("KBLK")
+                 + max(staged, att))
+        assert total <= const("SMEM_CAP"), hd
+    params = re.search(r'extern "C" int decode_megakernel\(([^)]*)\)', text).group(1)
+    assert len(params.split(",")) == len(MK.KERNEL.argtypes)
     assert text.count("stamp(a.clock") == len(MK.PHASES) + 2
 
 
