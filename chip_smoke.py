@@ -97,6 +97,26 @@ Between phases 4 and 5, the megakernel, continuous and paged paths:
    check_mega_engine, check_paged_kernel, paged against dense engine),
    kernels against plain paths from the same params, with their bars.
 
+Last, the reasoning runner:
+
+13. runner: three GRPO steps through ``rlinf_tpu_torch.main_grpo.main``
+   on examples/reasoning/config/grpo_math_qwen05b.yaml at full width and
+   depth (Qwen2.5-0.5B: Hd=64, G=7; random weights from --seed, the byte
+   tokenizer, main_grpo's 512 synthetic additions, the math verifier; the
+   continuous engine with int8 weights and a bf16 cache, the recompute,
+   token-budget microbatches of 16,384, 4 minibatches, adamw), the
+   traffic cut as ``RUNNER_REDUCED`` lists (64 rows, 256 new tokens).
+   Each step's metrics, the peak memory and which partitioner ran. Gates:
+   K1, K2 and K5-K8 launched in the run and no other kernel; step 1's
+   drift between the engine's behaviour logprobs and the recompute, with
+   the kernels and with their plain versions (``DRIFT_BAR``); a second
+   runner resumes from the run's checkpoint with its state bitwise equal
+   and the next batch the same, then takes step 4; a shadow step (one
+   ``_train_on_result`` from one state on step 1's rollout with rule
+   rewards, kernels against plain versions, ``SHADOW_BARS``); a two-step
+   ``run_pipelined`` beside ``run``'s step time. Then K1, K2 and K5-K8
+   against their plain versions at the runner's shapes.
+
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures, and ``{"ok": true, "device": ...}``.
 Any failure raises: the script exits non-zero and prints no result. It
@@ -355,6 +375,57 @@ def k1_figures(rot, pos, valid, peaks) -> dict:
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, unmasked_pairs=pairs)
 
 
+def sdpa_decode(qd, kd, vd, num_kv, smask):
+    """The library call for decode attention: scaled_dot_product_attention
+    of q [B, H, Hd] over a packed cache [B, S, Kv Hd] (each kv head repeated
+    over its group) under the slot mask [B, 1, 1, S] -> a call."""
+    B, S, KD = kd.shape
+    Hd, G = KD // num_kv, qd.shape[1] // num_kv
+    kk = kd.reshape(B, S, num_kv, Hd).repeat_interleave(G, 2).transpose(1, 2)
+    vv = vd.reshape(B, S, num_kv, Hd).repeat_interleave(G, 2).transpose(1, 2)
+    qq = qd[:, :, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, attn_mask=smask)
+
+
+def k2_figures(randn, B, S, H, Kv, Hd, starts, lengths, peaks) -> dict:
+    """K2 on a packed bf16 cache [B, S, Kv Hd] over the intervals [starts,
+    lengths) against its plain version (max-abs error < 2e-2 and per-head
+    relative error < K3_TOL_REL, else raise); its device time by CUDA-graph
+    replay (``ms``) and by events around eager calls, the plain version's
+    and scaled_dot_product_attention's, and its bound."""
+    from rlinf_tpu_torch.ops.cuda import decode_attention as DA
+
+    KD = Kv * Hd
+    slots = int((lengths - starts).clamp_min(0).sum().item())
+    pos_s = torch.arange(S, device=starts.device)
+    smask = ((pos_s[None, :] >= starts[:, None]) & (pos_s[None, :] < lengths[:, None]))[:, None, None, :]
+    rot = Rotation(lambda: (randn(B, H, Hd), randn(B, S, KD, scale=0.5),
+                            randn(B, S, KD, scale=0.5)), 4)
+    qd, kc, vc = rot.sets[0]
+    out = DA.decode_attention_packed(qd, kc, vc, starts, lengths, num_kv=Kv)
+    ref = DA.decode_attention_packed_xla(qd, kc, vc, starts, lengths, num_kv=Kv)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = head_rel_err(out, ref)
+    if not (err < 2e-2 and rel < K3_TOL_REL):
+        raise AssertionError(f"K2 disagrees with its plain version at q[{B},{H},{Hd}] "
+                             f"cache[{B},{S},{KD}]: {err}, relative {rel}")
+    call = lambda: DA.decode_attention_packed(*rot.next(), starts, lengths, num_kv=Kv)
+    library = sdpa_decode(qd, kc, vc, Kv, smask)
+    b_ms, b_by = bound(nbytes(qd, starts, lengths, out) + 2 * slots * KD * 2,
+                       4.0 * Hd * H * slots, peaks)
+    return dict(
+        shapes=f"q[{B},{H},{Hd}] cache[{B},{S},{KD}] bf16, {slots} valid slots",
+        max_abs_err=err, tolerance=2e-2, rel_err=rel, tolerance_rel=K3_TOL_REL,
+        ms=graph_ms(call), eager_ms=cuda_ms(call, 50, warmup=5),
+        plain_ms=cuda_ms(lambda: DA.decode_attention_packed_xla(
+            qd, kc, vc, starts, lengths, num_kv=Kv), 10),
+        library_ms=graph_ms(library), library_eager_ms=cuda_ms(library, 20),
+        split_plan=DA.split_plan(B * Kv, -(-S // DA.KEY_BLOCK),
+                                 torch.cuda.get_device_properties(0).multi_processor_count),
+        bound_ms=b_ms, bound_by=b_by)
+
+
 def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     from rlinf_tpu_torch.models.llm.quant import quantize_tensor
     from rlinf_tpu_torch.ops.cuda import decode_attention as DA
@@ -363,7 +434,6 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     H, Kv, Hd, D, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.hidden_size, cfg.vocab_size
-    G = H // Kv
     S_max = P + N
     plen = torch.as_tensor(prompt_lens, device=dev, dtype=torch.int32)
     results = []
@@ -394,47 +464,16 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
     valid_s = (pos_s[None, :] >= starts[:, None]) & (pos_s[None, :] < lengths[:, None])
     smask = valid_s[:, None, None, :]
 
-    def sdpa_decode(qd, kd, vd):
-        kk = kd.reshape(B, S_max, Kv, Hd).repeat_interleave(G, 2).transpose(1, 2)
-        vv = vd.reshape(B, S_max, Kv, Hd).repeat_interleave(G, 2).transpose(1, 2)
-        qq = qd[:, :, None, :]
-        return lambda: torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, attn_mask=smask)
-
-    rot = Rotation(lambda: (randn(B, H, Hd), randn(B, S_max, KD, scale=0.5),
-                            randn(B, S_max, KD, scale=0.5)), 4)
-    qd, kc, vc = rot.sets[0]
-    out = DA.decode_attention_packed(qd, kc, vc, starts, lengths, num_kv=Kv)
-    ref = DA.decode_attention_packed_xla(qd, kc, vc, starts, lengths, num_kv=Kv)
-    torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
-    k2_rel = head_rel_err(out, ref)
-    if not (err < 2e-2 and k2_rel < K3_TOL_REL):
-        raise AssertionError(f"K2 disagrees with its plain version: {err}, relative {k2_rel}")
-    call = lambda: DA.decode_attention_packed(*rot.next(), starts, lengths, num_kv=Kv)
-    ms = graph_ms(call)
-    eager_ms = cuda_ms(call, 50, warmup=5)
-    plain_ms = cuda_ms(lambda: DA.decode_attention_packed_xla(
-        qd, kc, vc, starts, lengths, num_kv=Kv), 10)
-    library = sdpa_decode(qd, kc, vc)
-    lib_ms = graph_ms(library)
-    lib_eager_ms = cuda_ms(library, 20)
-    b_ms, b_by = bound(nbytes(qd, starts, lengths, out) + 2 * slots * KD * 2,
-                       4.0 * Hd * H * slots, peaks)
+    k2 = k2_figures(randn, B, S_max, H, Kv, Hd, starts, lengths, peaks)
     results.append(dict(
         name="decode_attention_bf16", route="cuda",
         source="rlinf_tpu_torch/csrc/decode_attention.cu",
-        replaces="rlinf_tpu/ops/pallas/decode_attention.py:200",
-        shapes=f"q[{B},{H},{Hd}] cache[{B},{S_max},{KD}] bf16, {slots} valid slots",
-        max_abs_err=err, tolerance=2e-2, rel_err=k2_rel, tolerance_rel=K3_TOL_REL, ms=ms,
-        eager_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms, library_eager_ms=lib_eager_ms,
+        replaces="rlinf_tpu/ops/pallas/decode_attention.py:200", **k2,
         library="scaled_dot_product_attention",
         timing="ms, library_ms: device time of one call, replayed from a CUDA graph (the split "
                "kernel and the merge); eager_ms, library_eager_ms: CUDA events around calls "
                "made one after another, the host's dispatch included",
-        split_plan=DA.split_plan(B * Kv, -(-S_max // DA.KEY_BLOCK),
-                                 torch.cuda.get_device_properties(0).multi_processor_count),
-        bound_ms=b_ms, bound_by=b_by, ragged=decode_ragged(randn, RAGGED_BF16, q8=False)))
-    del rot
+        ragged=decode_ragged(randn, RAGGED_BF16, q8=False)))
 
     def q8_set():
         qq, kk, vv = randn(B, H, Hd), randn(B, S_max, KD, scale=0.5), randn(B, S_max, KD, scale=0.5)
@@ -458,7 +497,7 @@ def check_kernels(cfg, B, P, N, prompt_lens, peaks, seed):
         qd, kq, vq, ks, vs, starts, lengths, num_kv=Kv), 10)
     kdq = (kq.float() * ks[..., None]).bfloat16()
     vdq = (vq.float() * vs[..., None]).bfloat16()
-    library = sdpa_decode(qd, kdq, vdq)
+    library = sdpa_decode(qd, kdq, vdq, Kv, smask)
     lib_ms = graph_ms(library)
     lib_eager_ms = cuda_ms(library, 20)
     b_ms, b_by = bound(nbytes(qd, starts, lengths, out) + 2 * slots * (KD + 4),
@@ -984,8 +1023,16 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
         torch.cuda.empty_cache()
         ms = cuda_ms(lambda: LCE.ce_backward(*args), 3, warmup=1)
         plain_ms = cuda_ms(lambda: LCE.ce_backward_plain(*args), 2, warmup=1)
-        traced_ms, traced_n = device_ms_by_kernel(lambda: LCE.ce_backward(*args), K6_TRACED_CALLS)
+        # a profiler session after the first can lose its first tens of ms of
+        # records (device_ms_by_kernel), all of a pass's in a short trace:
+        # trace again over twice as many calls, at most K6_TRACES times
+        for traces in range(1, K6_TRACES + 1):
+            traced_ms, traced_n = device_ms_by_kernel(lambda: LCE.ce_backward(*args),
+                                                      K6_TRACED_CALLS << (traces - 1))
+            if all(any(name in key for key in traced_ms) for _, name in K6_PASSES):
+                break
         by_pass = k6_passes(traced_ms, 2.0 * n * D * V)
+        by_pass["traces"] = traces
         by_pass["launches_traced"] = {p: sum(c for key, c in traced_n.items() if name in key)
                                       for p, name in K6_PASSES}
         b_ms, b_by = bound(nbytes(h, wl_, tgt, lse, mu, g_lp, g_ent, dz, dh), 4.0 * n * D * V, peaks)
@@ -1456,8 +1503,10 @@ def flash_bwd_step(events) -> dict:
 
 
 # K6 calls in the trace that reads its passes apart (launches_traced tells
-# how many of each pass's K6_TRACED_CALLS launches the trace kept)
+# how many of each pass's launches the trace kept), and the traces taken at
+# most, each over twice the calls of the last, until every pass has records
 K6_TRACED_CALLS = 8
+K6_TRACES = 3
 # K6's kernels by the names the trace gives them (csrc/linear_ce.cu; K5 is
 # the same template's PASS 2)
 K6_PASSES = (("pass_a", "ce_gemm_kernel<0"), ("pass_b", "ce_gemm_kernel<1"),
@@ -1881,9 +1930,9 @@ TRAIN_KERNELS = ("flash_attention_fwd", "linear_ce_fwd", "linear_ce_bwd",
 
 
 def reward_rule(response_ids, response_mask):
-    """The rule rewards of this smoke run: 1.0 where more than half of a
-    response's tokens have an even id, else 0.0 (the math verifier and the
-    tokenizer come with the runner)."""
+    """The rule rewards of the training phases, which run without a
+    tokenizer: 1.0 where more than half of a response's tokens have an even
+    id, else 0.0 (the runner phase grades texts: ``text_rule``)."""
     even = ((response_ids % 2 == 0) & response_mask).sum(-1)
     return (even * 2 > response_mask.sum(-1)).astype(np.float32)
 
@@ -2111,6 +2160,466 @@ def whole_step_check(kerns, seed) -> dict:
             and par < 1e-2):
         raise AssertionError(f"whole-step check failed: {out}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the reasoning runner, whole GRPO steps through main_grpo
+# ---------------------------------------------------------------------------
+
+RUNNER_YAML = "examples/reasoning/config/grpo_math_qwen05b.yaml"
+# the yaml's traffic, cut to a short run: each override and why
+RUNNER_REDUCED = {
+    "runner.rollout_batch_size=8": "8 prompts x group_size 8 = 64 rows a step "
+                                   "(the yaml: 64 prompts, 512 rows)",
+    "sampling.max_new_tokens=256": "the yaml has 1024",
+    "rollout.num_slots=64": "one wave: a slot for every row",
+    "runner.max_steps=3": "the yaml has 400",
+    "runner.save_interval=3": "one checkpoint, at the last step (the yaml: every 50)",
+}
+# what a step of the runner launches at this config: K1 (prefill, the
+# recompute, the train forward), K2 (decode on the bf16 cache), K5 and K6
+# (the recompute's and the loss's lm head), K7 and K8 (the flash backward)
+RUNNER_KERNELS = ("flash_attention_fwd", "decode_attention_bf16", "linear_ce_fwd",
+                  "linear_ce_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+RUNNER_METRICS = ("time/rollout", "time/reward", "time/training", "time/step",
+                  "perf/gen_tokens_per_s", "perf/train_tokens_per_s", "perf/train_tflops_per_s",
+                  "perf/e2e_tokens_per_s", "actor/approx_kl", "actor/grad_norm", "actor/loss",
+                  "actor/num_dyn_microbatches", "rollout/reward_mean", "rollout/reward_std",
+                  "rollout/advantage_std", "rollout/response_len_mean",
+                  "rollout/response_len_max", "rollout/prompt_len_mean")
+# step 1's drift between the engine's behaviour logprobs (int8 weights, bf16
+# cache, K2) and the recompute on the training path (bf16 weights, K1, K5),
+# |delta| in nats over the response tokens, with the kernels and with their
+# plain versions on the same rollout
+DRIFT_BAR = {"mean_abs": 0.05, "max_abs": 1.0}
+# the shadow step: one _train_on_result from one state on one rollout, the
+# kernels against their plain versions. The loss bar is absolute: GRPO's
+# advantages sum to 0 over a group, so on rows of equal length the loss is a
+# near-zero sum. Adam's first moment (the gradients' direction) and the f32
+# updates the optimizer hands to the params, summed over the step's
+# minibatches: norm of the difference over the norm of the plain run's.
+# The params themselves move by under a bf16 step for most weights at the
+# yaml's lr (2e-6, reached after its 10 warmup updates, 4 a step), so they
+# are held through the f32 updates, and the step must change some of them
+# (zero-initialised biases and the smallest weights move).
+# The first-moment and update bars are 1.5x the largest of their readings
+# on an H100 (first moment 2.97%, 2.83% at seed 0 and 2.71% at seed 1;
+# updates 5.74%, 5.91%; PERF.md, Findings).
+SHADOW_BARS = {"logprob_max_abs": 0.1, "loss_abs": 1e-2, "grad_norm_rel": 2e-2,
+               "first_moment_rel": 4.5e-2, "update_rel": 9e-2}
+
+
+def text_rule(texts, answers):
+    """The shadow step's rewards: 1.0 where a response decodes to some text,
+    else 0.0. With random weights the byte tokenizer decodes ~0.17% of the
+    tokens (256 byte ids of 151,936), so about a third of the 256-token
+    responses have text and the groups' rewards are mixed; the math
+    verifier scores every one 0, which makes the update vacuous."""
+    return [float(len(t) > 0) for t in texts]
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(clone_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def state_differences(a, b) -> list:
+    """Paths at which two state trees differ: structure, dtype, shape or
+    any bit."""
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    fa, fb = flatten(a), flatten(b)
+    bad = sorted(set(fa) ^ set(fb))
+    for k in sorted(set(fa) & set(fb)):
+        x, y = fa[k], fb[k]
+        if isinstance(x, torch.Tensor):
+            same = (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y))
+        else:
+            same = type(x) is type(y) and x == y
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def norm_rel(a, b) -> float:
+    """|| a - b || / || b || over the tensors of two trees together."""
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    num = den = 0.0
+    for x, y in zip(flatten(a).values(), flatten(b).values()):
+        if isinstance(x, torch.Tensor):
+            num += (x.float() - y.float()).square().sum().item()
+            den += y.float().square().sum().item()
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def tree_norm(tree) -> float:
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    return sum(x.float().square().sum().item() for x in flatten(tree).values()) ** 0.5
+
+
+def behaviour_drift(runner, result, lp=None) -> dict:
+    """|behaviour - recompute| logprob over the response tokens of
+    ``result``: with ``lp`` (the runner's own recompute, [B, T]) or a
+    recompute on the runner's params."""
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+
+    tb = build_train_batch(result, np.zeros(result.response_ids.shape, np.float32),
+                           pad_id=runner.cfg.sampling.pad_token_id)
+    if lp is None:
+        lp, _ = runner.logprob_fn(runner.state.params, runner._put_batch(tb.to_dict()))
+    d = np.abs(lp.float().cpu().numpy() - tb.old_logprobs)[tb.loss_mask]
+    return {"mean_abs": float(d.mean()), "max_abs": float(d.max()), "tokens": int(d.size)}
+
+
+@contextlib.contextmanager
+def watching_runner(record: dict):
+    """For one main_grpo run: keep the runner and step 1's rollout, measure
+    step 1's drift with the plain versions (no launch) before the update,
+    and record each step's recompute (its seconds; step 1's logprobs)."""
+    import copy
+
+    from rlinf_tpu_torch.runners import reasoning_runner as RR
+
+    orig = RR.ReasoningRunner._train_on_result
+
+    def train_on_result(self, result):
+        if "runner" not in record:
+            record["runner"], record["result"] = self, copy.deepcopy(result)
+            with kernels_replaced(plain_only, _training_sites()):
+                record["drift_plain"] = behaviour_drift(self, result)
+            inner = self.logprob_fn
+
+            def logprob_fn(params, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(params, batch)
+                torch.cuda.synchronize()
+                record["recompute_s"].append(time.perf_counter() - t0)
+                if "lp" not in record:
+                    record["lp"] = out[0].float().cpu()
+                return out
+
+            record["recompute_s"] = []
+            self.logprob_fn = logprob_fn
+        return orig(self, result)
+
+    RR.ReasoningRunner._train_on_result = train_on_result
+    try:
+        yield
+    finally:
+        RR.ReasoningRunner._train_on_result = orig
+
+
+@contextlib.contextmanager
+def summing_updates(total: list):
+    """Sum, in f32, every update the optimizer hands to the params (one a
+    minibatch) into ``total`` (a list that holds the running tree)."""
+    from rlinf_tpu_torch.training import learner
+    from rlinf_tpu_torch.training.train_state import tree_map
+
+    orig = learner.apply_updates
+
+    def apply_updates(params, updates):
+        with torch.no_grad():
+            if total:
+                tree_map(lambda a, u: a.add_(u.float()), total[0], updates)
+            else:
+                total.append(tree_map(lambda u: u.float().clone(), updates))
+        orig(params, updates)
+
+    learner.apply_updates = apply_updates
+    try:
+        yield
+    finally:
+        learner.apply_updates = orig
+
+
+def moved_share(a, b) -> float:
+    """Share of the elements of tree ``a`` that differ from ``b``'s."""
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    n = moved = 0
+    for x, y in zip(flatten(a).values(), flatten(b).values()):
+        n += x.numel()
+        moved += int((x != y).sum().item())
+    return moved / max(n, 1)
+
+
+def shadow_step(runner, result, kerns) -> dict:
+    """One ``_train_on_result`` on ``result`` from the runner's state, run
+    twice: with every training kernel replaced by its plain version, then
+    with the kernels; the same permutation, the rule rewards of
+    ``text_rule``. The runner keeps the kernels' run's state and step (one
+    step on); its reward function, logger, checkpoints and recompute are
+    put back."""
+    import copy
+
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+    from rlinf_tpu_torch.utils.metrics import MetricLogger
+
+    start, perm_state, step0 = clone_tree(runner.state), runner._perm_gen.get_state(), runner.global_step
+    saved = {k: getattr(runner, k) for k in ("reward_fn", "logger", "ckpt", "logprob_fn")}
+    runner.reward_fn, runner.logger, runner.ckpt = text_rule, MetricLogger(None, print_every=0), None
+    runs = {}
+    try:
+        for mode in ("plain", "kernels"):
+            runner.state = clone_tree(start)
+            runner._perm_gen.set_state(perm_state)
+            runner.global_step = step0
+            seen, updates = {"lp": [], "adv": []}, []
+
+            def lp_fn(params, batch, seen=seen):
+                out = saved["logprob_fn"](params, batch)
+                seen["lp"].append(out[0].float().cpu())
+                return out
+
+            def adv_fn(res, rewards, seen=seen):
+                adv = type(runner)._compute_advantages(runner, res, rewards)
+                seen["adv"].append(adv)
+                return adv
+
+            runner.logprob_fn, runner._compute_advantages = lp_fn, adv_fn
+            res = copy.deepcopy(result)
+            with (kernels_replaced(plain_only, _training_sites()) if mode == "plain"
+                  else contextlib.nullcontext()), summing_updates(updates):
+                m, secs, counts = run_counted(kerns, lambda: runner._train_on_result(res))
+            runs[mode] = dict(m=m, rewards=res.rewards, adv=seen["adv"][0], lp=seen["lp"][0],
+                              state=runner.state, updates=updates[0], counts=counts, seconds=secs,
+                              moved=moved_share(runner.state.params, start.params))
+    finally:
+        for k, v in saved.items():
+            setattr(runner, k, v)
+        vars(runner).pop("_compute_advantages", None)
+    k, p = runs["kernels"], runs["plain"]
+    mask = build_train_batch(result, np.zeros(result.response_ids.shape, np.float32),
+                             pad_id=runner.cfg.sampling.pad_token_id).loss_mask
+    out = {
+        "rewards_equal": bool(np.array_equal(k["rewards"], p["rewards"])),
+        "reward_mean": float(k["rewards"].mean()),
+        "advantages_equal": bool(np.array_equal(k["adv"], p["adv"])),
+        "advantage_abs_max": float(np.abs(k["adv"]).max()),
+        "logprob_max_abs": float((k["lp"] - p["lp"]).abs().numpy()[mask].max()),
+        "logprob_mean_abs": float((k["lp"] - p["lp"]).abs().numpy()[mask].mean()),
+        "loss": [k["m"]["actor/loss"], p["m"]["actor/loss"]],
+        "loss_abs": abs(k["m"]["actor/loss"] - p["m"]["actor/loss"]),
+        "grad_norm": [k["m"]["actor/grad_norm"], p["m"]["actor/grad_norm"]],
+        "grad_norm_rel": abs(k["m"]["actor/grad_norm"] - p["m"]["actor/grad_norm"])
+                         / max(abs(p["m"]["actor/grad_norm"]), 1e-30),
+        "first_moment_rel": norm_rel(k["state"].opt_state["mu"], p["state"].opt_state["mu"]),
+        "update_rel": norm_rel(k["updates"], p["updates"]),
+        "update_norm": [tree_norm(k["updates"]), tree_norm(p["updates"])],
+        "params_moved_share": [k["moved"], p["moved"]],
+        "params_moved_rel": norm_rel(k["state"].params, start.params),
+        "seconds": [k["seconds"], p["seconds"]],
+        "kernel_launches": k["counts"], "bars": SHADOW_BARS,
+    }
+    ran = [n for n in TRAIN_KERNELS if k["counts"][n]]
+    bad = [n for n, bar in SHADOW_BARS.items() if not out[n] < bar]
+    if not (out["rewards_equal"] and out["advantages_equal"] and out["advantage_abs_max"] > 0):
+        bad.append("rewards or advantages")
+    if not (k["moved"] > 0 and p["moved"] > 0):
+        bad.append("params unmoved")
+    if ran != list(TRAIN_KERNELS) or any(p["counts"].values()):
+        bad.append(f"launches {k['counts']} / plain {p['counts']}")
+    if bad:
+        raise AssertionError(f"runner shadow step failed {bad}: {out}")
+    return out, start
+
+
+def runner_kernels(cfg, result, train_mask, peaks, seed) -> dict:
+    """K1, K2 and K5-K8 against their plain versions at the runner's shapes
+    (Hd=64, G=7): K1 at the engine's prefill (64 prompts right-padded to the
+    bucket of 64) and at the training microbatch, K2 on the engine's cache
+    (B=64, S=768) mid decode, K5/K6 at a row chunk (D=896, V=151936, tied),
+    K7/K8 at the microbatch -> {kernel name: figures}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 30)
+    H, Kv, Hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    plen = torch.as_tensor(result.prompt_lengths, device=dev, dtype=torch.int32)
+    B, P, S = len(plen), 64, 768
+    valid = torch.arange(P, device=dev)[None, :] < plen[:, None]
+    pos = (valid.to(torch.int32).cumsum(-1) - 1).clamp_min(0).to(torch.int32)
+    k1 = k1_figures(Rotation(lambda: (randn(B, P, H, Hd), randn(B, P, Kv, Hd),
+                                      randn(B, P, Kv, Hd)), 3), pos, valid, peaks)
+    k1["shapes"] = f"engine prefill: q[{B},{P},{H},{Hd}] k/v[{B},{P},{Kv},{Hd}], right-padded"
+    k2 = k2_figures(randn, B, S, H, Kv, Hd, torch.zeros_like(plen), plen + 129, peaks)
+    train, k1_train = check_training_kernels(cfg, train_mask, peaks, seed + 31)
+    figs = {r["name"]: {k: v for k, v in r.items() if k not in ("name", "route", "source",
+                                                                 "replaces")} for r in train}
+    figs["flash_attention_fwd"] = {"prefill": k1, "train_microbatch": k1_train}
+    figs["decode_attention_bf16"] = k2
+    return figs
+
+
+def pack_ms(full, seed) -> dict:
+    """Host time of the token-budget packing on one minibatch at the
+    yaml's full traffic (rollout_batch_size x group_size / num_mini_batches
+    rows of max_prompt_len + max_new_tokens, random lengths, under
+    max_tokens_per_mb): the partition alone (best-fit-decreasing, which the
+    JAX package runs in host C++) and the whole ``pack_microbatches``,
+    median of 20 calls each, ms."""
+    from rlinf_tpu_torch.data.dynamic_batching import best_fit_decreasing, pack_microbatches
+
+    rows = (full.runner.rollout_batch_size * full.algorithm.group_size
+            // full.runner.num_mini_batches)
+    T, budget = full.data.max_prompt_len + full.sampling.max_new_tokens, full.loss.max_tokens_per_mb
+    r = np.random.default_rng(seed)
+    lengths = r.integers(1, T + 1, rows)
+    mask = np.arange(T)[None, :] < lengths[:, None]
+    batch = {"input_ids": r.integers(0, 1000, (rows, T)).astype(np.int32),
+             "target_ids": r.integers(0, 1000, (rows, T)).astype(np.int32),
+             "attention_mask": mask, "loss_mask": mask,
+             "old_logprobs": r.normal(size=(rows, T)).astype(np.float32),
+             "advantages": r.normal(size=(rows, T)).astype(np.float32)}
+
+    def median_ms(fn):
+        ts = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    return {"rows": rows, "T": T, "max_tokens": budget,
+            "microbatches": len(best_fit_decreasing(lengths, budget)),
+            "partition_ms": median_ms(lambda: best_fit_decreasing(lengths, budget)),
+            "pack_ms": median_ms(lambda: pack_microbatches(batch, lengths, budget))}
+
+
+def runner_phase(kerns, gpu, peaks, seed):
+    """Three GRPO steps through ``main_grpo.main`` on grpo_math_qwen05b.yaml
+    at full width and depth (random weights from ``seed``, the byte
+    tokenizer, main_grpo's 512 synthetic additions, the math verifier), the
+    launch gate on that run, step 1's logprob drift, a shadow step on the
+    run's state (which moves the params), auto-resume from that state and
+    step 5, a two-step ``run_pipelined``, then the path's kernels at its
+    shapes -> (launches, {kernel name: figures at the runner's shapes})."""
+    import copy
+    import shutil
+
+    from rlinf_tpu_torch import main_grpo
+    from rlinf_tpu_torch.config import load_config
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.models.llm.model import init_params
+    from rlinf_tpu_torch.runners import ReasoningRunner
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "runner_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    yaml = str(HERE / RUNNER_YAML)
+    overrides = [*RUNNER_REDUCED, f"runner.seed={seed}", f"runner.log_dir={work / 'logs'}",
+                 f"runner.checkpoint_dir={work / 'ckpt'}"]
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    with watching_runner(record):
+        history, secs, counts = run_counted(
+            kerns, lambda: main_grpo.main(["--config", yaml, *overrides]))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    r1, result = record["runner"], record["result"]
+    peak_tflops = peaks[1] / 1e12
+    steps = [{**{k: h[k] for k in RUNNER_METRICS if k in h}, "recompute_s": rs,
+              "mfu": h["perf/train_tflops_per_s"] / peak_tflops}
+             for h, rs in zip(history, record["recompute_s"])]
+    drift = {"kernels": behaviour_drift(r1, result, lp=record["lp"]),
+             "plain": record["drift_plain"], "bar": DRIFT_BAR}
+    cfg = r1.cfg
+    out = {"phase": "runner", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
+           "layers": cfg.model.num_layers, "reduced": RUNNER_REDUCED,
+           "entry": "rlinf_tpu_torch.main_grpo.main", "attn_impl": cfg.attn_impl,
+           "recompute_logprobs": r1.recompute_logprobs,
+           "pack_microbatches": pack_ms(load_config(yaml), seed),
+           "rows": len(result.prompt_lengths), "seconds": secs, "steps": steps,
+           "peak_tflops": peak_tflops, "max_memory_allocated_gb": peak_gb,
+           "launches": counts, "logprob_drift_step1": drift}
+    emit(out)
+    bad = [k for k in RUNNER_KERNELS if not counts[k]]
+    bad += [f"{k} launched" for k, c in counts.items() if c and k not in RUNNER_KERNELS]
+    bad += [f"step {i + 1} {k}" for i, s in enumerate(steps) for k, v in s.items()
+            if not np.isfinite(v)]
+    if len(history) != 3 or r1.ckpt.latest_step() != 3:
+        bad.append(f"{len(history)} steps, checkpoint at {r1.ckpt.latest_step()}")
+    if not abs(history[0]["actor/approx_kl"]) < 1e-3:
+        bad.append(f"step-1 approx_kl {history[0]['actor/approx_kl']}")
+    bad += [f"drift {side} {k}" for side in ("kernels", "plain")
+            for k, bar in DRIFT_BAR.items() if not drift[side][k] < bar]
+    if bad:
+        raise AssertionError(f"runner phase failed: {bad}")
+
+    # the shadow step on the run's state; the runner keeps the kernels' run
+    # (step 4, params moved), saves it, and a second runner on the same
+    # checkpoint directory resumes from it
+    shadow, start = shadow_step(r1, result, kerns)
+    r1.save_checkpoint()
+    fresh = init_params(cfg.model, seed, device="cuda")
+    resume = {"params_moved_from_fresh_init": moved_share(r1.state.params, fresh),
+              "steps_1_3_left_params_at_init": not state_differences(start.params, fresh)}
+    del start, fresh
+    r2 = ReasoningRunner(load_config(yaml, overrides), ByteTokenizer(),
+                         main_grpo.synthetic_dataset(), device="cuda")
+    prompts = lambda it: [e.prompt for e in copy.deepcopy(it).next_batch()]
+    resume.update({"global_step": r2.global_step,
+                   "state_differs_at": state_differences(r1.state, r2.state),
+                   "iterator_state": r2.iterator.state_dict(),
+                   "iterator_equal": r2.iterator.state_dict() == r1.iterator.state_dict(),
+                   "next_batch_equal": prompts(r2.iterator) == prompts(r1.iterator)})
+    record.clear()
+    del r1
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (resume["global_step"] == 4 and not resume["state_differs_at"]
+            and resume["params_moved_from_fresh_init"] > 0
+            and resume["iterator_equal"] and resume["next_batch_equal"]):
+        raise AssertionError(f"auto-resume failed: {resume}")
+    (step5,) = r2.run(5)
+    resume["step5"] = {k: step5[k] for k in RUNNER_METRICS if k in step5}
+    if not (r2.global_step == 5 and np.isfinite(step5["actor/loss"])):
+        raise AssertionError(f"resumed runner's step 5: {step5}")
+    emit({"phase": "runner_shadow_and_resume", "shadow": shadow, "resume": resume})
+    train_mask = build_train_batch(result, np.zeros(result.response_ids.shape, np.float32),
+                                   pad_id=cfg.sampling.pad_token_id).attention_mask[:16]
+    del r2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # pipelined: rollout of step N+1 beside the update of step N
+    r3 = ReasoningRunner(load_config(yaml, [*RUNNER_REDUCED, f"runner.seed={seed}",
+                                            "runner.log_dir=null", "runner.checkpoint_dir=null"]),
+                         ByteTokenizer(), main_grpo.synthetic_dataset(), device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hp = r3.run_pipelined(2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pipelined = {"steps": 2, "seconds": wall, "step_s": wall / 2,
+                 "run_step_s": [h["time/rollout"] + h["time/step"] for h in history],
+                 "history": [{k: h[k] for k in RUNNER_METRICS if k in h} for h in hp]}
+    del r3
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "runner_pipelined", **pipelined})
+    if not (len(hp) == 2 and all(set(h) == set(history[0]) for h in hp)
+            and all(np.isfinite(h["actor/loss"]) for h in hp)):
+        raise AssertionError(f"run_pipelined: {pipelined}")
+
+    # the path's kernels at its shapes (Hd=64, G=7)
+    figs = runner_kernels(cfg.model, result, train_mask, peaks, seed)
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "runner_kernels", "gpu": gpu, "results": figs,
+          "seconds": time.perf_counter() - t_phase})
+    return counts, figs
 
 
 def mega_generate_qwen2_7b(seed) -> dict:
@@ -2438,6 +2947,17 @@ def main() -> int:
 
     # 7. a whole train step, kernels against plain, at a small configuration
     emit({"phase": "whole_step_check", **whole_step_check(kerns, args.seed)})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 13. the reasoning runner: whole GRPO steps through main_grpo
+    runner_counts, runner_figs = runner_phase(kerns, gpu, peaks, args.seed)
+    for k, c in runner_counts.items():
+        launches[k] += c
+    for r in results:
+        if r["name"] in runner_figs:
+            r["runner_qwen2_0_5b"] = runner_figs[r["name"]]
 
     results += new_results
     for r in results:

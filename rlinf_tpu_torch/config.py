@@ -3,7 +3,8 @@
 Port of ``rlinf_tpu/config.py``: ``TrainerConfig`` and its groups, YAML
 loading with ``a.b=c`` overrides and the cross-field validators, so that one
 YAML file drives both packages. ``MeshConfig`` and ``LoRAConfig`` are the
-JAX package's fields only: the port has no mesh and no LoRA yet.
+JAX package's fields only: the port has no mesh and no LoRA yet (a YAML's
+mesh block is validated and otherwise unused on one device).
 """
 
 from __future__ import annotations
@@ -127,9 +128,9 @@ class TrainerConfig:
     num_microbatches: int = 1
     remat: bool = True
     #: training attention: "auto" = the hand-written flash kernels on a CUDA
-    #: device when the trained sequence length reaches 1024 (the JAX
-    #: package's threshold, not yet measured on the H100), the plain path
-    #: otherwise; or force xla | pallas | ring
+    #: device when the trained sequence length reaches ATTN_KERNELS_FROM_T
+    #: (128, measured on the H100; the JAX package's threshold is 1024), the
+    #: plain path otherwise; or force xla | pallas | ring
     attn_impl: str = "auto"
 
 

@@ -141,8 +141,12 @@ class CudaKernel:
     """One C entry point of one source, with a count of its launches.
 
     ``launches`` rises by one for each call of the entry point that the
-    CUDA runtime accepted, and nowhere else.
+    CUDA runtime accepted, and nowhere else. Binding and counting hold a
+    lock: the pipelined runner launches from a rollout thread and the
+    training thread at once.
     """
+
+    _count_lock = threading.Lock()
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
         self.source = source
@@ -151,19 +155,25 @@ class CudaKernel:
         self.launches = 0
         self._fn = None
 
+    def _bind(self) -> None:
+        with self._count_lock:
+            if self._fn is None:
+                lib = load_library(self.source)
+                fn = getattr(lib, self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._lib = lib
+                self._fn = fn
+
     def __call__(self, *args) -> None:
         if self._fn is None:
-            lib = load_library(self.source)
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-            self._lib = lib
+            self._bind()
         err = self._fn(*args)
         if err != 0:
             msg = self._lib.rlinf_cuda_error_string(err).decode()
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error {err} ({msg})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int]) -> None:

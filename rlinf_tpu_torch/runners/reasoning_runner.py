@@ -1,0 +1,356 @@
+"""GRPO/PPO reasoning RL loop.
+
+Port of ``rlinf_tpu/runners/reasoning_runner.py``. Each global step calls
+the phases in sequence:
+
+  1. rollout:   engine.rollout(params, prompts)          [decode-shaped phase]
+  2. reward:    host-side rule verification              [CPU]
+  3. training:  the optional logprob recompute, then train_step(state, batch)
+                x minibatches                             [train-shaped phase]
+
+Weight sync is free: the train step updates the params in place and the next
+rollout reads them. The critic, separate-critic and LoRA configurations
+raise (ROADMAP.md §A.3), as does a mesh (§A.5).
+
+Randomness: two seeded ``torch.Generator``s on the host, one for the
+rollout's per-call sampling seeds (the engines draw their device noise from
+a seed taken from it) and one for the minibatch permutations. They are not
+JAX's threefry, so the samples and permutations differ from the JAX
+package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from rlinf_tpu_torch.algorithms import get_advantage_fn
+from rlinf_tpu_torch.algorithms.rewards.math_verifier import batch_math_rewards
+from rlinf_tpu_torch.config import TrainerConfig, resolve_attn_impl
+from rlinf_tpu_torch.data.datasets import PromptDataset, StatefulBatchIterator
+from rlinf_tpu_torch.data.io_struct import RolloutRequest, RolloutResult, build_train_batch
+from rlinf_tpu_torch.models.llm import init_params
+from rlinf_tpu_torch.rollout import build_rollout_engine, resolve_recompute_logprobs
+from rlinf_tpu_torch.training.learner import (
+    make_logprob_fn,
+    make_policy_grad_and_apply,
+    make_policy_train_step,
+)
+from rlinf_tpu_torch.training.train_state import create_train_state, make_optimizer, tree_map
+from rlinf_tpu_torch.utils import flops as F
+from rlinf_tpu_torch.utils.checkpoint import CheckpointManager
+from rlinf_tpu_torch.utils.device import resolve_device
+from rlinf_tpu_torch.utils.metrics import MetricLogger, rollout_metrics
+from rlinf_tpu_torch.utils.sync import host_sync
+from rlinf_tpu_torch.utils.timers import Timers
+
+
+class ReasoningRunner:
+    def __init__(
+        self,
+        cfg: TrainerConfig,
+        tokenizer,
+        dataset: PromptDataset,
+        *,
+        init_params_override=None,
+        mesh=None,
+        reward_fn=None,
+        device="cuda",
+    ):
+        """``init_params_override(seed)`` returns the initial params (the
+        port's dict of tensors on ``device``) in place of a random init;
+        ``reward_fn(texts, answers)`` scores the decoded responses (default:
+        the math verifier)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "ReasoningRunner(mesh=...) comes with the port's parallel slice "
+                "(ROADMAP.md §A.5)")
+        if cfg.algorithm.adv_type == "gae":
+            raise NotImplementedError(
+                "algorithm.adv_type='gae' (PPO with a critic) comes with the port's "
+                "critic slice (ROADMAP.md §A.3)")
+        if cfg.lora.enabled:
+            raise NotImplementedError(
+                "lora.enabled comes with the port's LoRA slice (ROADMAP.md §A.3)")
+        dev = resolve_device(device)
+        cfg = dataclasses.replace(cfg, attn_impl=resolve_attn_impl(cfg, dev))
+        self.cfg = cfg
+        self.device = dev
+        self.tokenizer = tokenizer
+        self.reward_fn = reward_fn or batch_math_rewards
+        self.timers = Timers()
+        self.logger = MetricLogger(cfg.runner.log_dir)
+
+        # continuous slot-pool batching unless cfg.rollout names another
+        self.engine = build_rollout_engine(cfg, device=dev)
+        self.tx = make_optimizer(cfg.optimizer)
+        self.train_step = make_policy_train_step(
+            cfg.model, cfg.loss, self.tx,
+            num_microbatches=cfg.num_microbatches,
+            remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+        )
+        if cfg.loss.max_tokens_per_mb > 0:
+            self._grad_step, self._apply_step, self._zero_grads = (
+                make_policy_grad_and_apply(
+                    cfg.model, cfg.loss, self.tx,
+                    remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+                )
+            )
+        # Logprob-consistency invariant: the recompute is on whenever the
+        # rollout decode path differs from the training path (int8 weights,
+        # the decode kernels), so PPO ratios are anchored to the training-path
+        # policy: step-1 approx_kl ~ 0 by construction.
+        self.recompute_logprobs = resolve_recompute_logprobs(cfg, device=dev)
+        self.logprob_fn = (
+            make_logprob_fn(
+                cfg.model,
+                chunk_size=cfg.loss.logprob_chunk_size,
+                attn_impl=cfg.attn_impl,
+                temperature=cfg.sampling.temperature,
+                device=dev,
+            )
+            if self.recompute_logprobs
+            else None
+        )
+
+        seed = cfg.runner.seed
+        init_fn = init_params_override or (
+            lambda s: init_params(cfg.model, s, device=dev)
+        )
+        self._sample_gen = torch.Generator().manual_seed(seed)
+        self._perm_gen = torch.Generator().manual_seed(seed + 1)
+        self.state = create_train_state(lambda: init_fn(seed), self.tx)
+
+        self.iterator = StatefulBatchIterator(
+            dataset, cfg.runner.rollout_batch_size, seed=seed
+        )
+        self.ckpt = (
+            CheckpointManager(cfg.runner.checkpoint_dir)
+            if cfg.runner.checkpoint_dir
+            else None
+        )
+        self.global_step = 0
+        if self.ckpt and cfg.runner.resume == "auto":
+            state, extra, step = self.ckpt.restore(self.state)
+            if state is not None:
+                self.state = state
+                self.global_step = step
+                if extra and "dataloader" in extra:
+                    self.iterator.load_state_dict(extra["dataloader"])
+
+    # ------------------------------------------------------------------
+    def rescale(self, new_mesh):
+        raise NotImplementedError(
+            "ReasoningRunner.rescale comes with the port's parallel slice (ROADMAP.md §A.5)")
+
+    def _permutation(self, n: int) -> np.ndarray:
+        return torch.randperm(n, generator=self._perm_gen).numpy()
+
+    def _make_request(self, examples) -> RolloutRequest:
+        max_p = self.cfg.data.max_prompt_len
+        prompt_ids = [
+            self.tokenizer.encode(ex.prompt)[:max_p] for ex in examples
+        ]
+        answers = [ex.answer for ex in examples]
+        return RolloutRequest(prompt_ids=prompt_ids, answers=answers).repeat(
+            self.cfg.algorithm.group_size
+        )
+
+    def _compute_advantages(self, result: RolloutResult, rewards: np.ndarray):
+        a = self.cfg.algorithm
+        adv_fn = get_advantage_fn(a.adv_type)
+        adv, _ = adv_fn(
+            rewards=torch.as_tensor(rewards),
+            loss_mask=torch.as_tensor(result.response_mask.T),  # [N, B]
+            group_size=a.group_size,
+            normalize_advantages=a.normalize_advantages,
+        )
+        return adv.numpy().T  # [B, N]
+
+    def _put_batch(self, arrays):
+        """Host batch -> the runner's device."""
+        return {k: torch.as_tensor(v).to(self.device) for k, v in arrays.items()}
+
+    def _dynamic_minibatch_update(self, batch_dict, train_batch, mb_idx):
+        """Token-budget microbatching: pack the minibatch's rows under
+        max_tokens_per_mb, accumulate grads over the packed microbatches,
+        one optimizer step. The batch goes to the host and each
+        microbatch's loss comes back to it, as in the JAX package."""
+        from rlinf_tpu_torch.data.dynamic_batching import pack_microbatches
+
+        np_batch = {k: v.cpu().numpy()[mb_idx] for k, v in batch_dict.items()}
+        lengths = np_batch["attention_mask"].sum(-1).astype(int)
+        mbs = pack_microbatches(
+            np_batch, lengths, self.cfg.loss.max_tokens_per_mb
+        )
+        global_valid = torch.tensor(
+            max(float(np_batch["loss_mask"].sum()), 1.0), dtype=torch.float32
+        )
+        grads = self._zero_grads(self.state.params)
+        total_loss, metrics = 0.0, {}
+        for mb in mbs:
+            grads, loss, metrics = self._grad_step(
+                self.state.params, grads, mb, global_valid
+            )
+            total_loss += float(loss)
+        self.state, grad_norm = self._apply_step(self.state, grads)
+        metrics = dict(metrics)
+        metrics["actor/loss"] = total_loss
+        metrics["actor/grad_norm"] = grad_norm
+        metrics["actor/num_dyn_microbatches"] = float(len(mbs))
+        return metrics
+
+    def _augment_batch(self, batch_dict, result):
+        """Hook for subclasses to add loss inputs (e.g. version stamps in
+        disaggregated/async mode) before the recompute + train phases."""
+
+    def run_step(self) -> Dict[str, float]:
+        with self.timers.scope("rollout"):
+            result = self._rollout_phase(self.state.params)
+        return self._train_on_result(result)
+
+    def _train_on_result(self, result) -> Dict[str, float]:
+        cfg = self.cfg
+        step_start = time.perf_counter()
+
+        # 2. rewards --------------------------------------------------------
+        with self.timers.scope("reward"):
+            texts = result.response_texts(self.tokenizer)
+            rewards = np.asarray(
+                self.reward_fn(texts, result.answers), np.float32
+            )
+            result.rewards = rewards
+
+        # 3. advantages + batch assembly ------------------------------------
+        token_advantages = self._compute_advantages(result, rewards)
+        train_batch = build_train_batch(
+            result, token_advantages, pad_id=cfg.sampling.pad_token_id
+        )
+        batch_dict = self._put_batch(train_batch.to_dict())
+
+        self._augment_batch(batch_dict, result)
+
+        # 3b. optional logprob recompute on the training path
+        if self.logprob_fn is not None:
+            lp, _ = self.logprob_fn(self.state.params, batch_dict)
+            lp = torch.where(batch_dict["loss_mask"], lp, 0.0)
+            if cfg.loss.loss_type == "decoupled":
+                # decoupled PPO: behaviour logprobs (from the rollout engine)
+                # stay in old_logprobs; the recompute is the PROXIMAL anchor
+                batch_dict["proximal_logprobs"] = lp
+            else:
+                batch_dict["old_logprobs"] = lp
+
+        # 4. training -------------------------------------------------------
+        B = train_batch.input_ids.shape[0]
+        n_mini = cfg.runner.num_mini_batches
+        metrics = {}
+        with self.timers.scope("training"):
+            perm = np.arange(B)
+            for epoch in range(cfg.runner.num_epochs):
+                if cfg.runner.num_epochs > 1 or n_mini > 1:
+                    perm = self._permutation(B)
+                for mb_idx in np.split(perm, n_mini):
+                    if cfg.loss.max_tokens_per_mb > 0:
+                        metrics = self._dynamic_minibatch_update(
+                            batch_dict, train_batch, mb_idx
+                        )
+                    else:
+                        idx = torch.as_tensor(mb_idx, device=self.device)
+                        mb = {k: v[idx] for k, v in batch_dict.items()}
+                        self.state, metrics = self.train_step(self.state, mb)
+            host_sync(metrics)
+
+        # 5. metrics / checkpoint ------------------------------------------
+        self.global_step += 1
+        out = {k: float(v) for k, v in metrics.items()}
+        out.update(
+            rollout_metrics(
+                result.response_lengths, rewards, cfg.sampling.max_new_tokens,
+                prompt_lengths=result.prompt_lengths,
+                advantages=train_batch.advantages,
+                loss_mask=train_batch.loss_mask,
+            )
+        )
+        times = self.timers.consume()
+        out.update({f"time/{k}": v for k, v in times.items()})
+        out["time/step"] = time.perf_counter() - step_start
+
+        gen_tokens = float(result.response_lengths.sum())
+        train_tokens = float(train_batch.attention_mask.sum()) * cfg.runner.num_epochs
+        if times.get("rollout"):
+            out["perf/gen_tokens_per_s"] = gen_tokens / times["rollout"]
+        if times.get("training"):
+            out["perf/train_tokens_per_s"] = train_tokens / times["training"]
+            tr_flops = 3.0 * F.model_matmul_flops_per_token(cfg.model) * train_tokens
+            out["perf/train_tflops_per_s"] = tr_flops / times["training"] / 1e12
+        out["perf/e2e_tokens_per_s"] = (gen_tokens + train_tokens) / out["time/step"]
+        self.logger.log(out, self.global_step)
+
+        if (
+            self.ckpt
+            and self.global_step % cfg.runner.save_interval == 0
+        ):
+            self.save_checkpoint()
+        return out
+
+    def save_checkpoint(self):
+        """The state and the dataloader position, at ``global_step``."""
+        self.ckpt.save(
+            self.global_step,
+            self.state,
+            extra={"dataloader": self.iterator.state_dict()},
+        )
+
+    def _rollout_phase(self, params):
+        examples = self.iterator.next_batch()
+        request = self._make_request(examples)
+        return self.engine.rollout(params, request, self._sample_gen)
+
+    def _timed_rollout(self, params):
+        t0 = time.perf_counter()
+        result = self._rollout_phase(params)
+        return result, time.perf_counter() - t0
+
+    def run_pipelined(self, max_steps: Optional[int] = None) -> List[Dict[str, float]]:
+        """Overlap the rollout of batch N+1 (in a worker thread) with the
+        training on batch N. Behaviour logprobs recorded at generation time
+        keep the PPO ratios correct under the one-step staleness.
+
+        The train step updates the params in place, so each rollout reads a
+        clone taken before the next update. The worker's rollout seconds are
+        recorded as ``time/rollout`` of the step that trains on it. The
+        kernels are built before the worker starts; on one device both
+        threads queue their work on the same stream."""
+        import concurrent.futures
+
+        if self.device.type == "cuda":
+            from rlinf_tpu_torch.ops.cuda import build
+
+            build()
+        n = max_steps or self.cfg.runner.max_steps
+        history: List[Dict[str, float]] = []
+        snapshot = lambda: tree_map(lambda t: t.clone(), self.state.params)
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        try:
+            future = pool.submit(self._timed_rollout, snapshot())
+            while self.global_step < n:
+                result, rollout_s = future.result()
+                if self.global_step + 1 < n:
+                    future = pool.submit(self._timed_rollout, snapshot())
+                self.timers.record("rollout", rollout_s)
+                history.append(self._train_on_result(result))
+        finally:
+            pool.shutdown(wait=True)
+        return history
+
+    def run(self, max_steps: Optional[int] = None) -> List[Dict[str, float]]:
+        n = max_steps or self.cfg.runner.max_steps
+        history = []
+        while self.global_step < n:
+            history.append(self.run_step())
+        return history

@@ -484,3 +484,12 @@ def test_tensor_makers_default_to_the_card(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _tensor_makers()[name]()
+
+
+def test_main_grpo_runs_on_the_card_by_default():
+    """The port's entry point takes ``--device`` and it defaults to the card."""
+    from rlinf_tpu_torch import main_grpo
+
+    assert main_grpo.parse_args(["--config", "c.yaml"]).device == "cuda"
+    assert main_grpo.parse_args(["--config", "c.yaml", "--device", "cpu", "a.b=1"]).overrides == [
+        "a.b=1"]
