@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``rlinf_tpu_torch``) on one GPU:
 the rollout serving paths (static, megakernel, continuous and paged
-engines) and the GRPO training path.
+engines), the GRPO training path, the runners and server mode.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -116,6 +116,40 @@ Last, the reasoning runner:
    rewards, kernels against plain versions, ``SHADOW_BARS``); a two-step
    ``run_pipelined`` beside ``run``'s step time. Then K1, K2 and K5-K8
    against their plain versions at the runner's shapes.
+
+Then server mode and agentic rollout:
+
+14. server: ``GenerationServer`` over the continuous engine with int8
+   weights and cache, ``use_mega=True`` and the fused sampler, at
+   Qwen2-1.5B's full width and depth on the main path's weights: phase 11's
+   long-tail mix through the engine directly, then through the server from
+   128 client threads, 16 of them over loopback HTTP (``RouterServer`` ->
+   ``OpenAIHTTPServer``, completions and chat), ``update_params`` swapping
+   in a perturbed copy once half are answered. Gates: every request
+   answered with exactly its budget; K1, K4 and K9 launched and no other
+   kernel; two ``prepare_params`` calls. Reported: tokens/s served beside
+   the engine's, p50/p95 latency, the swap's ``prepare_params`` ms. Then a
+   greedy server on 64 prompts of 640 tokens: every K9, K4 and K1 call
+   against its plain version (phase 10's and phase 4's bars); after a swap
+   the served tokens pass phase 4's bars against ``generate(mega=)`` on the
+   new params and fail them on the old. Then ``serve_openai``'s own server
+   (``--preset qwen2_1_5b``: bf16, 32 slots, K2 alone) answers 8 HTTP
+   requests and ``APIRewardClient`` scores 8 payloads against it.
+15. coding_online: ``CodingOnlineRunner`` on grpo_math_qwen05b.yaml with
+   the decoupled loss at full width and depth, the runner phase's traffic
+   (``CODING_REDUCED``), 64 coding tasks with I/O tests, 3 overlapped
+   online steps; rewards from the code-execution verifier plus
+   ``text_rule``. Gates: the verifier scored every response; param version
+   4, lag <= 2; finite metrics; params moved; K1, K2 and K5-K8 launched and
+   no other kernel.
+16. agent: ``AgentRunner`` at Qwen2.5-0.5B's widths and depth
+   (``AGENT_REDUCED``): ``CalculatorTool``, a scripted call in each
+   conversation's first turn, 2 turns, 64 conversations, 2 steps,
+   ``agent_rule`` rewards. Gates: every conversation has its two turns,
+   the observation tokens masked off with logprob 0; params moved; K1, K2
+   and K5-K8 launched and no other kernel. Then ``evaluate_reasoning``
+   greedy on the trained params over 64 synthetic additions: 64 records,
+   K1 and K2 launched and no other kernel.
 
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures, and ``{"ok": true, "device": ...}``.
@@ -1408,6 +1442,7 @@ def shadowed(stats: dict):
             else:
                 o, r = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
                 err = (o.float() - r.float()).abs().max().item()
+                st["max_rel_err"] = max(st.get("max_rel_err", 0.0), rel_err(o, r))
             st["max_abs_err"] = max(st["max_abs_err"], err)
             return out
         return run
@@ -2622,6 +2657,608 @@ def runner_phase(kerns, gpu, peaks, seed):
     return counts, figs
 
 
+# ---------------------------------------------------------------------------
+# Phases 14-16: server mode, online coding RL, the agent loop and the eval
+# ---------------------------------------------------------------------------
+
+#: what a served request launches: K1 (prefill), K4 (the fused sampler), K9
+#: (the whole decode step); the per-layer decode kernels K2 and K3 never run
+SERVER_KERNELS = ("flash_attention_fwd", "fused_lmhead_sample", "decode_megakernel")
+#: of the long-tail mix's 128 requests, these go over loopback HTTP through
+#: RouterServer -> OpenAIHTTPServer (every 8th; odd ones as chat)
+SERVER_HTTP = range(7, 128, 8)
+#: the greedy server checks: 64 prompts of 640 tokens, 16 new tokens. At
+#: that length no prompt is padded in either layout (the engine's buckets
+#: of 64, generate's left-padded rows) and generate's megakernel cache is
+#: the engine's 768 slots, so both run K9 on one schedule
+SWAP_PROMPT, SWAP_NEW = 640, 16
+#: phase 4's bars: greedy token agreement, and the logprob error over the
+#: tokens up to each row's first difference
+SWAP_BARS = {"agree": 0.95, "lp_max_abs": 0.15}
+#: the coding phase: the runner phase's traffic cut, the loss online RL needs
+CODING_REDUCED = {**{k: v for k, v in RUNNER_REDUCED.items() if "save_interval" not in k},
+                  "loss.loss_type=decoupled": "online RL trains against live-swapped "
+                                              "weights (the yaml: ppo)"}
+#: the agent phase: 64 conversations of two turns of 128 tokens, 2 steps
+AGENT_REDUCED = {
+    "runner.rollout_batch_size=8": "8 prompts x group_size 8 = 64 conversations a step "
+                                   "(the yaml: 64 prompts, 512 rows)",
+    "sampling.max_new_tokens=128": "a turn's budget (the yaml has 1024)",
+    "runner.max_steps=2": "the yaml has 400",
+}
+
+
+def percentile_ms(secs, q) -> float:
+    return float(np.percentile(np.asarray(secs) * 1e3, q)) if secs else float("nan")
+
+
+def perturbed(params, seed):
+    """A copy of ``params``, every floating leaf scaled elementwise by
+    1 + 0.2 N(0, 1) from a generator seeded with ``seed``."""
+    from rlinf_tpu_torch.training.train_state import tree_map
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def one(t):
+        if not t.is_floating_point():
+            return t.clone()
+        noise = torch.randn(t.shape, generator=g, device=t.device, dtype=torch.float32)
+        return (t.float() * (1 + 0.2 * noise)).to(t.dtype)
+
+    with torch.no_grad():
+        return tree_map(one, params)
+
+
+def server_engine(cfg, sp):
+    from rlinf_tpu_torch.rollout.continuous_engine import ContinuousBatchingEngine
+
+    return ContinuousBatchingEngine(
+        cfg, sp, num_slots=64, max_seq_len=768, prompt_bucket=64, decode_chunk=16,
+        weight_quant="int8", kv_quant="int8", use_mega=True, sampler_impl="fused",
+        attn_impl="pallas", device="cuda")
+
+
+def timed_prepare(eng, record: list):
+    """Record the seconds of each ``prepare_params`` call (the weight swap's
+    re-quantization and lm-head packing), device work included."""
+    real = eng.prepare_params
+
+    def prepare(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(params)
+        torch.cuda.synchronize()
+        record.append(time.perf_counter() - t0)
+        return out
+
+    eng.prepare_params = prepare
+
+
+def http_json(url, body=None, timeout=600.0):
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def server_mix(cfg, seed):
+    """Phase 11's long-tail mix; the SERVER_HTTP requests' prompts become
+    text of the same token count (random lowercase letters, byte tokens;
+    a chat request's template tags included) -> (prompt ids, budgets,
+    {index: (path, body)})."""
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.rollout.server import _render_chat
+
+    request, budgets = long_tail_mix(cfg, seed)
+    ids = list(request.prompt_ids)
+    r = np.random.default_rng(seed + 61)
+    tags = len(_render_chat([{"role": "user", "content": ""}]))
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    bodies = {}
+    for k, i in enumerate(SERVER_HTTP):
+        chat = k % 2 == 1
+        text = "".join(r.choice(letters, len(ids[i]) - (tags if chat else 0)))
+        if chat:
+            bodies[i] = ("/v1/chat/completions",
+                         {"messages": [{"role": "user", "content": text}], "max_tokens": budgets[i]})
+            text = _render_chat(bodies[i][1]["messages"])
+        else:
+            bodies[i] = ("/v1/completions", {"prompt": text, "max_tokens": budgets[i]})
+        ids[i] = ByteTokenizer().encode(text)
+    return ids, budgets, bodies
+
+
+def serve_mix(server, router_url, ids, budgets, bodies, swap):
+    """All requests at once from client threads (HTTP ones through the
+    router); ``swap()`` runs once half of them are answered -> per request
+    (tokens served, prompt tokens, seconds), in request order."""
+    import concurrent.futures
+
+    def call(i):
+        t0 = time.perf_counter()
+        if i in bodies:
+            path, body = bodies[i]
+            out = http_json(router_url + path, body)
+            got = (out["usage"]["completion_tokens"], out["usage"]["prompt_tokens"])
+        else:
+            got = (len(server.generate(ids[i], budgets[i], timeout=600)["tokens"]), len(ids[i]))
+        return i, got, time.perf_counter() - t0
+
+    out = [None] * len(ids)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(ids)) as pool:
+        futures = [pool.submit(call, i) for i in range(len(ids))]
+        for n, f in enumerate(concurrent.futures.as_completed(futures)):
+            i, got, secs = f.result()
+            out[i] = (*got, secs)
+            if n + 1 == len(ids) // 2:
+                swap()
+    return out
+
+
+def agreement(got_ids, got_lps, ref):
+    """Greedy token agreement with a ``generate`` output and the logprob
+    error over each row's tokens up to its first difference."""
+    ref_ids, ref_lps = ref.response_ids.cpu().numpy(), ref.response_logprobs.cpu().numpy()
+    same = got_ids == ref_ids
+    first = np.where(same.all(1), same.shape[1], np.argmin(same, axis=1))
+    err = max((float(np.abs(got_lps[b, :first[b]] - ref_lps[b, :first[b]]).max())
+               for b in range(len(first)) if first[b]), default=0.0)
+    return {"agree": float(same.mean()), "lp_max_abs": err,
+            "rows_equal": int(same.all(1).sum())}
+
+
+def greedy_server_checks(cfg, params, new_params, kerns, seed) -> dict:
+    """A greedy server (16 new tokens) on 64 prompts of SWAP_PROMPT tokens:
+    every kernel call against its plain version (K9 at phase 10's bar, K4
+    at phase 4's, K1 at K3_TOL_REL of its largest output); then ``update_params(new_params)`` and the same
+    prompts again, which must pass phase 4's bars against ``generate(mega=)``
+    on the new params and fail them against it on the old ones."""
+    from rlinf_tpu_torch.data.io_struct import RolloutRequest
+    from rlinf_tpu_torch.models.llm.quant import quantize_params
+    from rlinf_tpu_torch.models.llm.sampler import SamplingParams, generate, with_packed_lm_head
+    from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
+    from rlinf_tpu_torch.rollout.server import GenerationServer
+
+    sp = SamplingParams(max_new_tokens=SWAP_NEW, greedy=True, eos_token_id=-1)
+    eng = server_engine(cfg, sp)
+    r = np.random.default_rng(seed + 62)
+    prompts = [list(map(int, r.integers(0, cfg.vocab_size, SWAP_PROMPT))) for _ in range(64)]
+    server = GenerationServer(eng, params, seed=seed)
+    server.start()
+    stats = {}
+    try:
+        with kernels_replaced(shadowed(stats), _engine_sites()):
+            shadow_out = [f.result(timeout=600) for f in [server.submit(p) for p in prompts]]
+        server.update_params(new_params)
+        served, secs, counts = run_counted(kerns, lambda: [
+            f.result(timeout=600) for f in [server.submit(p) for p in prompts]])
+    finally:
+        server.stop()
+    if not all(len(o["tokens"]) == SWAP_NEW for o in shadow_out + served):
+        raise AssertionError("greedy server: a request not answered with its budget")
+    ids = np.asarray([o["tokens"] for o in served])
+    lps = np.asarray([o["logprobs"] for o in served], np.float32)
+    mask = np.ones((64, SWAP_PROMPT), bool)
+    side = {}
+    with torch.inference_mode():
+        # the engine's own path on the new params (its first token from the
+        # bf16 lm head, as the server's): reported beside generate's
+        eng_res = eng.rollout(new_params, RolloutRequest(prompt_ids=prompts),
+                              torch.Generator())
+        side["engine_new"] = agreement(ids, lps, types.SimpleNamespace(
+            response_ids=torch.as_tensor(eng_res.response_ids),
+            response_logprobs=torch.as_tensor(eng_res.response_logprobs)))
+        for name, p in (("new", new_params), ("old", params)):
+            q = with_packed_lm_head(quantize_params(p))
+            mega = MK.pack_decode_weights(q, cfg, eng._mega_cw)
+            ref = generate(p, cfg, torch.Generator(), np.asarray(prompts), mask, sp,
+                           attn_impl="pallas", decode_params=q, kv_quant="int8", mega=mega,
+                           device="cuda")
+            side[name] = agreement(ids, lps, ref)
+            del q, mega, ref
+    k9, k4 = stats.get("decode_megakernel", {}), stats.get("fused_lmhead_sample", {})
+    k1 = stats.get("flash_attention_fwd", {})
+    out = {"prompts": 64, "prompt_len": SWAP_PROMPT, "new_tokens": SWAP_NEW, "shadow": stats,
+           "after_swap": {"seconds": secs, "launches": counts,
+                          "vs_generate_mega_new_params": side["new"],
+                          "vs_generate_mega_old_params": side["old"],
+                          "vs_engine_rollout_new_params": side["engine_new"]},
+           "bars": SWAP_BARS}
+    bad = []
+    if not (k9.get("calls", 0) >= SWAP_NEW and k9["max_rel_err"] < 5e-2):
+        bad.append("K9 shadow")
+    if not (k4.get("calls", 0) and k4["token_agree"] > 0.95 and k4["max_abs_err"] < 0.15):
+        bad.append("K4 shadow")
+    # K1 relative to its largest output: one bf16 step of the output is up
+    # to 2^-7 of it (its absolute size grows with the prompt: 0.0156 at 640)
+    if not (k1.get("calls", 0) and k1["max_rel_err"] < K3_TOL_REL):
+        bad.append("K1 shadow")
+    passes = {k: side[k]["agree"] > SWAP_BARS["agree"]
+              and side[k]["lp_max_abs"] < SWAP_BARS["lp_max_abs"] for k in ("new", "old")}
+    if not passes["new"]:
+        bad.append("served tokens against generate(mega=) on the new params")
+    if passes["old"]:
+        bad.append("served tokens pass the bars against the old params too")
+    if bad:
+        raise AssertionError(f"greedy server checks failed {bad}: {out}")
+    return out
+
+
+def serve_openai_check(kerns) -> dict:
+    """serve_openai's own server (--preset qwen2_1_5b: bf16 weights and
+    cache, 32 slots) answers 8 HTTP requests, both routes, and
+    APIRewardClient scores 8 payloads against it."""
+    import concurrent.futures
+
+    from rlinf_tpu_torch import serve_openai
+    from rlinf_tpu_torch.algorithms.rewards.api_reward import APIRewardClient
+
+    server, http = serve_openai.build_server(serve_openai.parse_args(
+        ["--preset", "qwen2_1_5b", "--port", "0", "--max-new-tokens", "64"]))
+    bodies = [("/v1/completions", {"prompt": f"Request {i}: say something.", "max_tokens": 32})
+              if i % 2 == 0 else
+              ("/v1/chat/completions", {"messages": [{"role": "user", "content": f"hi {i}"}],
+                                        "max_tokens": 32}) for i in range(8)]
+    try:
+        def call(b):
+            t0 = time.perf_counter()
+            out = http_json(http.url + b[0], b[1])
+            return out, time.perf_counter() - t0
+
+        def run():
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                answers = list(pool.map(call, bodies))
+            scores = APIRewardClient(http.url, max_workers=8).score_batch(
+                [[{"role": "user", "content": f"Score answer {i}"}] for i in range(8)],
+                max_tokens=16)
+            return answers, scores
+
+        (answers, scores), secs, counts = run_counted(kerns, run)
+        health = http_json(http.url + "/health")
+    finally:
+        http.stop()
+        server.stop()
+    out = {"engine": "ContinuousBatchingEngine(num_slots=32), bf16 weights and cache",
+           "seconds": secs, "launches": counts, "scores": scores, "health": health,
+           "latency_ms": [s * 1e3 for _, s in answers]}
+    want = {**dict.fromkeys(kerns, 0), "decode_attention_bf16": counts["decode_attention_bf16"]}
+    if not (counts == want and counts["decode_attention_bf16"] > 0
+            and all(a["usage"]["completion_tokens"] == 32 for a, _ in answers)
+            and len(scores) == 8 and all(np.isfinite(scores)) and health["served"] == 16):
+        raise AssertionError(f"serve_openai check failed: {out}")
+    return out
+
+
+def server_phase(kerns, gpu, seed, params):
+    """GenerationServer over the megakernel engine at Qwen2-1.5B's full
+    width and depth on ``params`` (the main path's, after the training
+    phase's steps): the long-tail mix through the engine directly, then
+    through the server from client threads (16 requests over HTTP), the
+    weights swapped after half of them, each run's prefill/decode split;
+    one short request's latency straight and over HTTP; the greedy checks;
+    serve_openai's own server -> launches."""
+    from rlinf_tpu_torch.data.io_struct import RolloutRequest
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.models.llm.sampler import SamplingParams
+    from rlinf_tpu_torch.rollout.server import GenerationServer, OpenAIHTTPServer, RouterServer
+
+    t_phase = time.perf_counter()
+    cfg = LLMConfig.qwen2_1_5b()
+    new_params = perturbed(params, seed + 63)
+    ids, budgets, bodies = server_mix(cfg, seed)
+    tokens = int(sum(budgets))
+    sp = SamplingParams(max_new_tokens=256, temperature=1.0, eos_token_id=-1)
+    eng = server_engine(cfg, sp)
+    total = dict.fromkeys(kerns, 0)
+
+    # the same mix through the engine directly
+    seen = watch_engine(eng)
+    res, direct_s, direct_counts = run_counted(kerns, lambda: eng.rollout(
+        params, RolloutRequest(prompt_ids=ids, max_new_tokens=budgets),
+        torch.Generator().manual_seed(seed + 64)))
+    check_answers(res, budgets, cfg.vocab_size)
+    del res
+    split = {"engine_direct": {k: v for k, v in seen.items() if not isinstance(v, list)}}
+
+    prepare_s = []
+    timed_prepare(eng, prepare_s)
+    seen = watch_engine(eng)
+    server = GenerationServer(eng, params, seed=seed)
+    server.start()
+    http = OpenAIHTTPServer(server, ByteTokenizer())
+    http.start()
+    router = RouterServer([http.url])
+    router.start()
+    swapped = {}
+
+    def swap():
+        swapped["after_answered"] = len(ids) // 2
+        server.update_params(new_params)
+
+    try:
+        while not prepare_s:                   # the initial params prepared, pool idle
+            time.sleep(0.01)
+        served, secs, counts = run_counted(
+            kerns, lambda: serve_mix(server, router.url, ids, budgets, bodies, swap))
+        split["server"] = {k: v for k, v in seen.items() if not isinstance(v, list)}
+        split["server"]["host_s"] = secs - seen["prefill_s"] - seen["decode_s"]
+        health = {"router": http_json(router.url + "/health"),
+                  "server": http_json(http.url + "/health")}
+        # one request of 128 tokens for 1 new token on the idle server, straight
+        # to submit and through the router: what the two HTTP hops add
+        text = "x" * 128
+        single = {"direct": [], "http": []}
+        for _ in range(8):
+            t0 = time.perf_counter()
+            server.generate(ByteTokenizer().encode(text), 1)
+            single["direct"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            http_json(router.url + "/v1/completions", {"prompt": text, "max_tokens": 1})
+            single["http"].append(time.perf_counter() - t0)
+    finally:
+        router.stop()
+        http.stop()
+        server.stop()
+    for k in kerns:
+        total[k] += counts[k]
+    lat = {kind: [s for i, (_, _, s) in enumerate(served) if (i in bodies) == (kind == "http")]
+           for kind in ("http", "direct")}
+    out = {"phase": "server", "gpu": gpu, "model": "qwen2_1_5b", "layers": cfg.num_layers,
+           "engine": "ContinuousBatchingEngine(num_slots=64, max_seq_len=768, weight_quant="
+                     "'int8', kv_quant='int8', use_mega=True, sampler_impl='fused', "
+                     "attn_impl='pallas')",
+           "requests": len(ids), "http_requests": len(bodies), "generated_tokens": tokens,
+           "seconds": secs, "served_tokens_per_s": tokens / secs,
+           "engine_direct": {"seconds": direct_s, "generated_tokens_per_s": tokens / direct_s,
+                             "launches": direct_counts},
+           "latency_ms": {f"{kind}_p{q}": percentile_ms(v, q) for kind, v in lat.items()
+                          for q in (50, 95)},
+           "swap": {**swapped, "prepare_params_ms": [s * 1e3 for s in prepare_s]},
+           "time_split_s": split,
+           "single_request_ms": {k: percentile_ms(v, 50) for k, v in single.items()},
+           "health": health, "launches": counts}
+    emit(out)
+    bad = [i for i, (n, p, _) in enumerate(served) if n != budgets[i] or p != len(ids[i])]
+    bad += [f"{k} not launched" for k in SERVER_KERNELS if not counts[k]]
+    bad += [f"{k} launched" for k, c in counts.items() if c and k not in SERVER_KERNELS]
+    if len(prepare_s) != 2 or health["server"]["served"] != len(ids):
+        bad.append(f"{len(prepare_s)} prepare_params calls, {health['server']['served']} served")
+    if bad:
+        raise AssertionError(f"server phase failed on {bad}")
+    del eng
+    torch.cuda.empty_cache()
+
+    greedy = greedy_server_checks(cfg, params, new_params, kerns, seed)
+    for k in kerns:
+        total[k] += greedy["after_swap"]["launches"][k]
+    emit({"phase": "server_greedy_checks", **greedy})
+    del new_params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    openai = serve_openai_check(kerns)
+    for k in kerns:
+        total[k] += openai["launches"][k]
+    emit({"phase": "serve_openai", **openai, "seconds_phase": time.perf_counter() - t_phase})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def coding_online_phase(kerns, gpu, seed):
+    """CodingOnlineRunner on grpo_math_qwen05b.yaml with the decoupled loss
+    at full width and depth, the runner phase's traffic (64 rows, 256 new
+    tokens), 64 coding tasks with I/O tests, 3 overlapped online steps; the
+    reward is the exec verifier plus ``text_rule`` (a rule on the token
+    ids: whether a response holds any byte token) -> launches."""
+    from rlinf_tpu_torch.algorithms.rewards import code_verifier as CV
+    from rlinf_tpu_torch.config import load_config
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.runners.coding_online_runner import CodingOnlineRunner, CodingTask
+
+    if CV.code_reward("```python\nprint(sum(map(int, input().split())))\n```",
+                      [{"input": "2 3\n", "output": "5"}]) != 1.0:
+        raise AssertionError("the code verifier failed a right program beside a CUDA context")
+    r = np.random.default_rng(seed + 65)
+    tasks = []
+    for _ in range(64):
+        a, b = (int(x) for x in r.integers(2, 100, 2))
+        tasks.append(CodingTask(
+            prompt=f"Write a Python program that reads two integers and prints their sum. "
+                   f"Example: {a} {b} -> ",
+            test_cases=[{"input": f"{a} {b}\n", "output": str(a + b)},
+                        {"input": f"{b} {a + 1}\n", "output": str(a + b + 1)}]))
+    calls = {"code_reward": 0, "run_test_case": 0}
+    real_reward, real_case = CV.code_reward, CV.run_test_case
+
+    def code_reward(*a, **kw):
+        calls["code_reward"] += 1
+        return real_reward(*a, **kw)
+
+    def run_test_case(*a, **kw):
+        calls["run_test_case"] += 1
+        return real_case(*a, **kw)
+
+    def reward_fn(texts, answers):
+        ex = CV.batch_code_rewards(texts, answers, timeout_s=2.0, partial_credit=True)
+        return [0.5 * e + 0.5 * t for e, t in zip(ex, text_rule(texts, answers))]
+
+    overrides = [*CODING_REDUCED, f"runner.seed={seed}", "runner.log_dir=null",
+                 "runner.checkpoint_dir=null"]
+    t0 = time.perf_counter()
+    runner = CodingOnlineRunner(load_config(str(HERE / RUNNER_YAML), overrides), ByteTokenizer(),
+                                tasks, reward_fn=reward_fn, device="cuda")
+    build_s = time.perf_counter() - t0
+    start = clone_tree(runner.state.params)
+    CV.code_reward, CV.run_test_case = code_reward, run_test_case
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        history, secs, counts = run_counted(kerns, lambda: runner.run(3))
+    finally:
+        CV.code_reward, CV.run_test_case = real_reward, real_case
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    online = ("online/param_version", "online/version_lag")
+    steps = [{k: h[k] for k in (*RUNNER_METRICS, *online) if k in h} for h in history]
+    out = {"phase": "coding_online", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
+           "layers": runner.cfg.model.num_layers, "reduced": CODING_REDUCED,
+           "entry": "rlinf_tpu_torch.runners.CodingOnlineRunner.run", "tasks": len(tasks),
+           "attn_impl": runner.cfg.attn_impl, "recompute_logprobs": runner.recompute_logprobs,
+           "runner_build_s": build_s, "seconds": secs, "steps": steps, "verifier": calls,
+           "params_moved_share": moved_share(runner.state.params, start),
+           "max_memory_allocated_gb": peak_gb, "launches": counts}
+    emit(out)
+    bad = [k for k in RUNNER_KERNELS if not counts[k]]
+    bad += [f"{k} launched" for k, c in counts.items() if c and k not in RUNNER_KERNELS]
+    bad += [f"step {i + 1} {k}" for i, s in enumerate(steps) for k, v in s.items()
+            if not np.isfinite(v)]
+    if len(history) != 3 or history[-1]["online/param_version"] != 4.0:
+        bad.append(f"{len(history)} steps, param version {history[-1]['online/param_version']}")
+    if not all(h["online/version_lag"] <= 2.0 for h in history):
+        bad.append("version lag above 2")
+    if calls["code_reward"] != 3 * 64:
+        bad.append(f"the verifier ran on {calls['code_reward']} of {3 * 64} responses")
+    if not out["params_moved_share"] > 0:
+        bad.append("params unmoved")
+    if bad:
+        raise AssertionError(f"coding_online phase failed: {bad}")
+    del runner, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def agent_rule(texts, answers):
+    """The agent phase's rewards, a rule on the token ids through the byte
+    tokenizer: 1.0 where a conversation's text (its byte tokens decoded,
+    the observation included) has an odd number of characters."""
+    return [float(len(t) % 2 == 1) for t in texts]
+
+
+def scripted_first_call(runner, record: list):
+    """The agent phase's parse: a calc(1+1) call on each conversation's
+    first turn, cut where its decoded text ends (random weights never write
+    a tag), none on the second; each step's rollouts go to ``record``."""
+    from rlinf_tpu_torch.algorithms.toolcall_parsers import ToolCall
+
+    loop, state = runner.loop, {"left": 0}
+    real_run = loop.run
+
+    def run(params, prompt_ids, generator):
+        state["left"] = len(prompt_ids)
+        out = real_run(params, prompt_ids, generator)
+        record.append(out)
+        return out
+
+    def parse(text):
+        if state["left"] == 0:
+            return None
+        state["left"] -= 1
+        return ToolCall(tool="calc", args="1+1", raw=text, end_pos=len(text))
+
+    loop.run, loop.parse = run, parse
+
+
+def conversation_faults(r, tok, obs) -> list:
+    """What is wrong with one two-turn conversation: its turns, its masks,
+    its observation tokens (masked off, logprob 0)."""
+    bad = []
+    if not (r.num_turns == 2 and r.num_tool_calls == 1 and r.turn_errors == [False, False]):
+        bad.append(f"turns {r.num_turns}, calls {r.num_tool_calls}, errors {r.turn_errors}")
+        return bad
+    (s0, e0), (s1, e1) = r.turn_spans
+    if not (s0 == r.prompt_len and e1 == len(r.token_ids) and e0 < s1):
+        bad.append(f"spans {r.turn_spans}")
+    if not all(r.loss_mask[s0:e0]) or not all(r.loss_mask[s1:e1]) or any(r.loss_mask[:s0]):
+        bad.append("model tokens masked off or prompt on")
+    if any(r.loss_mask[e0:s1]) or any(r.logprobs[e0:s1]) or tok.decode(r.token_ids[e0:s1]) != obs:
+        bad.append("observation tokens")
+    return bad
+
+
+def agent_phase(kerns, gpu, seed):
+    """AgentRunner at Qwen2.5-0.5B's widths and depth
+    (grpo_math_qwen05b.yaml): CalculatorTool, a scripted call in turn 1,
+    max_turns=2, 64 conversations, 2 steps, ``agent_rule`` rewards; then
+    ``evaluate_reasoning`` greedy on the trained params over 64 of
+    main_grpo's synthetic additions -> launches."""
+    from rlinf_tpu_torch import main_grpo
+    from rlinf_tpu_torch.agents import AgentLoopConfig, CalculatorTool, ToolRegistry
+    from rlinf_tpu_torch.config import load_config
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.models.llm.sampler import SamplingParams
+    from rlinf_tpu_torch.runners.agent_runner import AgentRunner
+    from rlinf_tpu_torch.runners.eval_runner import evaluate_reasoning
+
+    overrides = [*AGENT_REDUCED, f"runner.seed={seed}", "runner.log_dir=null",
+                 "runner.checkpoint_dir=null"]
+    loop_cfg = AgentLoopConfig(max_turns=2, max_total_len=512)
+    runner = AgentRunner(load_config(str(HERE / RUNNER_YAML), overrides), ByteTokenizer(),
+                         main_grpo.synthetic_dataset(), ToolRegistry([CalculatorTool()]),
+                         agent_rule, loop_cfg=loop_cfg, device="cuda")
+    record = []
+    scripted_first_call(runner, record)
+    start = clone_tree(runner.state.params)
+    torch.cuda.reset_peak_memory_stats()
+    history, secs, counts = run_counted(kerns, lambda: runner.run(2))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    tok = ByteTokenizer()
+    obs = loop_cfg.tool_result_template.format("2")
+    faults = {(s, i): f for s, rolls in enumerate(record) for i, r in enumerate(rolls)
+              if (f := conversation_faults(r, tok, obs))}
+    lens = [len(r.token_ids) for rolls in record for r in rolls]
+    keys = ("time/rollout", "time/reward", "time/training", "time/step", "actor/loss",
+            "actor/grad_norm", "actor/approx_kl", "agent/reward_mean", "agent/num_turns_mean",
+            "agent/tool_calls_mean")
+    out = {"phase": "agent", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
+           "layers": runner.cfg.model.num_layers, "reduced": AGENT_REDUCED,
+           "entry": "rlinf_tpu_torch.runners.AgentRunner.run", "attn_impl": runner.cfg.attn_impl,
+           "conversations": [len(r) for r in record], "seconds": secs,
+           "tokens_per_conversation": {"min": min(lens), "mean": float(np.mean(lens)),
+                                       "max": max(lens)},
+           "steps": [{k: h[k] for k in keys if k in h} for h in history],
+           "params_moved_share": moved_share(runner.state.params, start),
+           "max_memory_allocated_gb": peak_gb, "launches": counts}
+    emit(out)
+    bad = [k for k in RUNNER_KERNELS if not counts[k]]
+    bad += [f"{k} launched" for k, c in counts.items() if c and k not in RUNNER_KERNELS]
+    bad += [f"step {i + 1} {k}" for i, s in enumerate(out["steps"]) for k, v in s.items()
+            if not np.isfinite(v)]
+    if runner.cfg.attn_impl != "pallas" or out["conversations"] != [64, 64]:
+        bad.append(f"attn_impl {runner.cfg.attn_impl}, conversations {out['conversations']}")
+    if faults:
+        bad.append(f"conversations {dict(list(faults.items())[:4])}")
+    if not out["params_moved_share"] > 0:
+        bad.append("params unmoved")
+    if bad:
+        raise AssertionError(f"agent phase failed: {bad}")
+
+    # the eval runner, greedy, on the trained params
+    data = main_grpo.synthetic_dataset(64, seed)
+    res, eval_s, eval_counts = run_counted(kerns, lambda: evaluate_reasoning(
+        runner.state.params, runner.cfg.model, tok, data,
+        sampling=SamplingParams(max_new_tokens=64, greedy=True, eos_token_id=-1),
+        batch_size=64, attn_impl=runner.cfg.attn_impl, device="cuda"))
+    ev = {"phase": "eval", "gpu": gpu, "entry": "rlinf_tpu_torch.runners.eval_runner."
+          "evaluate_reasoning", "examples": res.num_examples, "accuracy": res.accuracy,
+          "mean_response_len": res.mean_response_len, "seconds": eval_s,
+          "generated_tokens_per_s": res.mean_response_len * res.num_examples / eval_s,
+          "launches": eval_counts}
+    emit(ev)
+    want = {**dict.fromkeys(kerns, 0), "flash_attention_fwd": eval_counts["flash_attention_fwd"],
+            "decode_attention_bf16": eval_counts["decode_attention_bf16"]}
+    if not (res.num_examples == len(res.per_example) == 64 and eval_counts == want
+            and eval_counts["flash_attention_fwd"] and eval_counts["decode_attention_bf16"]
+            and res.mean_response_len == 64):
+        raise AssertionError(f"eval failed: {ev}")
+    del runner, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: counts[k] + eval_counts[k] for k in kerns}
+
+
 def mega_generate_qwen2_7b(seed) -> dict:
     """A 16-token greedy ``generate(kv_quant="int8", mega=)`` at Qwen2-7B's
     widths, 4 of its 28 layers (random weights from the seed), 16 prompts of
@@ -2947,7 +3584,6 @@ def main() -> int:
 
     # 7. a whole train step, kernels against plain, at a small configuration
     emit({"phase": "whole_step_check", **whole_step_check(kerns, args.seed)})
-    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2958,6 +3594,17 @@ def main() -> int:
     for r in results:
         if r["name"] in runner_figs:
             r["runner_qwen2_0_5b"] = runner_figs[r["name"]]
+
+    # 14-16. server mode (on the main path's weights), online coding RL,
+    # the agent loop and the eval
+    server_counts = server_phase(kerns, gpu, args.seed, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    for counts in (server_counts, coding_online_phase(kerns, gpu, args.seed),
+                   agent_phase(kerns, gpu, args.seed)):
+        for k, c in counts.items():
+            launches[k] += c
 
     results += new_results
     for r in results:

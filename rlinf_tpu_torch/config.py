@@ -197,15 +197,22 @@ def load_config(path: Optional[str] = None, overrides: Optional[list] = None) ->
     if path:
         with open(path) as f:
             data = yaml.safe_load(f) or {}
-    for ov in overrides or []:
+    apply_overrides(data, overrides or [])
+    return config_from_dict(data)
+
+
+def apply_overrides(data: Dict[str, Any], overrides) -> None:
+    """Set each ``a.b=c`` override (the value parsed as a YAML scalar) in
+    the nested dict ``data``."""
+    import yaml
+
+    for ov in overrides:
         key, _, raw = ov.partition("=")
-        val = yaml.safe_load(raw)
         node = data
         parts = key.split(".")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
-        node[parts[-1]] = val
-    return config_from_dict(data)
+        node[parts[-1]] = yaml.safe_load(raw)
 
 
 _TASK_TYPES = ("reasoning", "embodied", "sft", "offline", "agent", "serving")

@@ -1,5 +1,8 @@
-"""Training loops of the port: the GRPO/PPO reasoning runner."""
+"""Training loops of the port: the GRPO/PPO reasoning runner, the online
+coding runner, the agent runner and the eval runner."""
 
+from rlinf_tpu_torch.runners.agent_runner import AgentRunner
+from rlinf_tpu_torch.runners.coding_online_runner import CodingOnlineRunner, CodingTask
 from rlinf_tpu_torch.runners.reasoning_runner import ReasoningRunner
 
-__all__ = ["ReasoningRunner"]
+__all__ = ["AgentRunner", "CodingOnlineRunner", "CodingTask", "ReasoningRunner"]

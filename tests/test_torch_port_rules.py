@@ -493,3 +493,42 @@ def test_main_grpo_runs_on_the_card_by_default():
     assert main_grpo.parse_args(["--config", "c.yaml"]).device == "cuda"
     assert main_grpo.parse_args(["--config", "c.yaml", "--device", "cpu", "a.b=1"]).overrides == [
         "a.b=1"]
+
+
+# the server-mode and agentic slice: its modules, as the JAX package names them
+SERVING_AND_AGENT_MODULES = (
+    "rollout/server.py", "serve_openai.py", "algorithms/rewards/code_verifier.py",
+    "algorithms/rewards/api_reward.py", "runners/coding_online_runner.py",
+    "algorithms/toolcall_parsers.py", "agents/tools.py", "agents/agent_loop.py",
+    "agents/__init__.py", "runners/agent_runner.py", "main_agent_grpo.py",
+    "runners/eval_runner.py")
+
+
+@pytest.mark.parametrize("rel", SERVING_AND_AGENT_MODULES)
+def test_serving_and_agent_modules_are_held_by_the_rules(rel):
+    """Each module of the slice exists, is among the files the import and
+    device rules above walk, and imports no JAX and nothing of the JAX
+    package (the rules above, on this file by name)."""
+    path = PORT / rel
+    assert path in FILES and path in sorted(PORT.rglob("*.py"))
+    test_no_jax_or_reference_imports(path)
+    test_public_device_parameters_default_to_the_card(path)
+
+
+@pytest.mark.parametrize("module", ["main_agent_grpo", "serve_openai"])
+def test_new_entry_points_run_on_the_card_by_default(module):
+    import importlib
+
+    mod = importlib.import_module(f"rlinf_tpu_torch.{module}")
+    assert mod.parse_args([]).device == "cuda"
+    assert mod.parse_args(["--device", "cpu"]).device == "cpu"
+
+
+def test_code_verifier_execs_each_candidate_in_a_fresh_interpreter():
+    """The verifier runs from a process that holds a CUDA context: each
+    candidate is a ``subprocess.run`` of the interpreter (exec at once), never
+    a forked pool."""
+    path = PORT / "algorithms" / "rewards" / "code_verifier.py"
+    mods = set(_imported_modules(path))
+    assert "subprocess" in mods and not mods & {"multiprocessing", "concurrent.futures", "os"}
+    assert "subprocess.run(" in path.read_text()
