@@ -151,8 +151,33 @@ Then server mode and agentic rollout:
    greedy on the trained params over 64 synthetic additions: 64 records,
    K1 and K2 launched and no other kernel.
 
+Then the head dims and dtypes the kernels take beside bf16 at 64 and 128,
+the small models' default runs, and PPO with a learned critic:
+
+17. dtypes_and_head_dims: every attention kernel (K1, K7, K8, K2, K3, K10)
+   at Hd 16 and 32 in bf16, f16 and f32 and at Hd 64 and 128 in f16 and
+   f32, K4-K6 in f16 and f32, K9 at Hd 16 and 32, each against its plain
+   version with its dtype's bar (``DTYPE_BARS``: max-abs error over max
+   |plain|); timed beside the plain version, a library call and the bound
+   at the dtype's peak: the shipped small models' variants and one
+   main-path shape per dtype at the runner's Qwen2.5-0.5B widths.
+18. small_defaults: through their entry points, the default runs whose
+   model (heads of 16, f32) no kernel took before: ``main_grpo`` on
+   grpo_demo_tiny.yaml for 2 steps, ``main_agent_grpo`` at ``--preset
+   tiny`` for 2 steps, ``serve_openai`` at ``--preset tiny`` answering 8
+   HTTP requests; launch counts shown, K5, K6 and a decode kernel gated.
+19. critic: ppo_separate_critic.yaml as shipped (Hd=32, bf16) for 3 steps
+   with ``critic_warmup_steps=1``; then grpo_math_qwen05b.yaml's model at
+   full width and depth as PPO with a learned critic (``CRITIC_OVERRIDES``,
+   cut as ``CRITIC_REDUCED``), once with a separate critic and once with
+   the shared value head, 3 steps each. Gates: K1, K2 and K5-K8 launched,
+   the critic's params moved, ``critic/*`` finite, and a shadow critic
+   step and actor-critic step, kernels against plain on one batch, within
+   ``CRITIC_SHADOW_BARS``.
+
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
-line with every kernel's figures, and ``{"ok": true, "device": ...}``.
+line with every kernel's figures (each with its timed ``variants`` of
+phase 17), and ``{"ok": true, "device": ...}``.
 Any failure raises: the script exits non-zero and prints no result. It
 imports nothing of JAX or of the JAX package.
 """
@@ -351,7 +376,8 @@ def check_reports(reports: dict) -> None:
             if not (v["HGMMA"] > 0 and v["HMMA"] == 0 and v["WARPGROUP.DEPBAR"] < v["HGMMA"])]
     bad += [k for k, v in {**k3, **k2}.items() if not v["HMMA"] > 0]
     bad += [k for k, v in k9.items() if not v["HGMMA"] > 0]
-    if bad or len(k5) != 2 or len(k3) != 2 or len(k2) != 2 or len(k9) != 2:
+    if (bad or len(k5) != 2 or len(k3) != 2 or len(k2) != 2
+            or not {"mega_kernel<64>", "mega_kernel<128>"} <= set(k9)):
         raise AssertionError(f"kernel reports: {bad} (K5 {sorted(k5)}, K3 {sorted(k3)}, "
                              f"K2 {sorted(k2)}, K9 {sorted(k9)})")
 
@@ -1096,20 +1122,7 @@ def check_training_kernels(cfg, attention_mask, peaks, seed):
     q, k, v, _, _, valid_u8, o, lse, do, scale = args
     (dq, dk, dv), errs, abs_errs = flash_bwd_errors(args)
     delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), pos.data_ptr(),
-              valid_u8.data_ptr())
-
-    def dims():
-        return (B, T, T, H, Kv, Hd, float(scale), torch.cuda.current_stream().cuda_stream)
-
-    def k7():
-        FA.KERNEL_DQ(0, *common, o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                     dq.data_ptr(), *dims())
-
-    def k8():
-        FA.KERNEL_DKV(0, *common, do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), *dims())
-
+    k7, k8 = flash_bwd_launches(args, delta, (dq, dk, dv))
     k7()
     torch.cuda.synchronize()
     delta_err = rel_err(delta, FA._delta(o, do))
@@ -1166,6 +1179,36 @@ def flash_bwd_inputs(randn, pos, valid, H, Kv, Hd):
     scale = Hd**-0.5
     o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, valid_u8, scale)
     return q, k, v, pos, pos, valid_u8, o, lse, do, scale
+
+
+def flash_bwd_launches(args, delta, grads):
+    """(K7 call, K8 call): each of the backward's two kernels launched
+    alone on ``args`` (flash_bwd_inputs' tuple), K7 writing delta, K8
+    reading it, into ``grads`` = (dq, dk, dv)."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+
+    q, k, v, pos_q, pos_kv, valid_u8, o, lse, do, scale = args
+    B, Sq, H, Hd = q.shape
+    Sk, Kv = k.shape[1], k.shape[2]
+    dq, dk, dv = grads
+
+    def common():  # the tensors, not only their addresses, stay with the calls
+        return (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
+                valid_u8.data_ptr())
+
+    def dims():
+        return (B, Sq, Sk, H, Kv, Hd, FA.dtype_code("q", q), float(scale),
+                torch.cuda.current_stream().cuda_stream)
+
+    def k7():
+        FA.KERNEL_DQ(q.device.index, *common(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                     delta.data_ptr(), dq.data_ptr(), *dims())
+
+    def k8():
+        FA.KERNEL_DKV(q.device.index, *common(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), *dims())
+
+    return k7, k8
 
 
 def flash_bwd_errors(args):
@@ -2314,11 +2357,24 @@ def behaviour_drift(runner, result, lp=None) -> dict:
     return {"mean_abs": float(d.mean()), "max_abs": float(d.max()), "tokens": int(d.size)}
 
 
+def timed_calls(fn, seconds: list):
+    """``fn`` that appends each call's seconds (synchronised) to ``seconds``."""
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
 @contextlib.contextmanager
 def watching_runner(record: dict):
     """For one main_grpo run: keep the runner and step 1's rollout, measure
     step 1's drift with the plain versions (no launch) before the update,
-    and record each step's recompute (its seconds; step 1's logprobs)."""
+    and record each step's recompute (its seconds; step 1's logprobs) and
+    each separate-critic step's seconds."""
     import copy
 
     from rlinf_tpu_torch.runners import reasoning_runner as RR
@@ -2328,22 +2384,22 @@ def watching_runner(record: dict):
     def train_on_result(self, result):
         if "runner" not in record:
             record["runner"], record["result"] = self, copy.deepcopy(result)
+            if self.logprob_fn is None:
+                raise AssertionError("the watched run has no logprob recompute")
             with kernels_replaced(plain_only, _training_sites()):
                 record["drift_plain"] = behaviour_drift(self, result)
-            inner = self.logprob_fn
+            inner = timed_calls(self.logprob_fn, record.setdefault("recompute_s", []))
 
             def logprob_fn(params, batch):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
                 out = inner(params, batch)
-                torch.cuda.synchronize()
-                record["recompute_s"].append(time.perf_counter() - t0)
                 if "lp" not in record:
                     record["lp"] = out[0].float().cpu()
                 return out
 
-            record["recompute_s"] = []
             self.logprob_fn = logprob_fn
+            record["critic_step_s"] = []
+            if self.separate_critic:
+                self.critic_step = timed_calls(self.critic_step, record["critic_step_s"])
         return orig(self, result)
 
     RR.ReasoningRunner._train_on_result = train_on_result
@@ -2356,8 +2412,9 @@ def watching_runner(record: dict):
 @contextlib.contextmanager
 def summing_updates(total: list):
     """Sum, in f32, every update the optimizer hands to the params (one a
-    minibatch) into ``total`` (a list that holds the running tree)."""
-    from rlinf_tpu_torch.training import learner
+    minibatch) into ``total`` (a list that holds the running tree): the
+    policy's, the actor-critic's and the separate critic's steps."""
+    from rlinf_tpu_torch.training import critic, learner
     from rlinf_tpu_torch.training.train_state import tree_map
 
     orig = learner.apply_updates
@@ -2370,11 +2427,11 @@ def summing_updates(total: list):
                 total.append(tree_map(lambda u: u.float().clone(), updates))
         orig(params, updates)
 
-    learner.apply_updates = apply_updates
+    learner.apply_updates = critic.apply_updates = apply_updates
     try:
         yield
     finally:
-        learner.apply_updates = orig
+        learner.apply_updates = critic.apply_updates = orig
 
 
 def moved_share(a, b) -> float:
@@ -3307,6 +3364,587 @@ def check_output(ids, lps, mask, B, N, V):
         raise AssertionError("token ids out of range or rows stopped without an eos")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the default runs that no kernel took before
+# ---------------------------------------------------------------------------
+
+TINY_YAML = "examples/reasoning/config/grpo_demo_tiny.yaml"
+PPO_YAML = "examples/reasoning/config/ppo_separate_critic.yaml"
+# the kernels a small model's GRPO or PPO step launches on the card: the
+# lm head's logprobs and their gradient (K5, K6) always; the prefill and
+# train attention (K1, K7, K8) only from T = 128 on (resolve_attn_impl)
+SMALL_TRAIN_KERNELS = ("linear_ce_fwd", "linear_ce_bwd")
+# the decode kernels one of which a rollout launches
+DECODE_KERNELS = ("decode_attention_bf16", "decode_attention_q8", "decode_megakernel",
+                  "paged_attention")
+
+
+def finite_steps(history, keys=None) -> list:
+    """The metrics of each step that are not finite (all, or ``keys``)."""
+    return [f"step {i + 1} {k}" for i, h in enumerate(history) for k, v in h.items()
+            if (keys is None or k in keys) and not np.isfinite(v)]
+
+
+def small_defaults_phase(kerns, gpu) -> dict:
+    """Phase 18: on the card, through their entry points, the default runs
+    whose model (heads of 16, f32) no kernel took before: ``main_grpo`` on
+    grpo_demo_tiny.yaml as shipped for 2 steps, ``main_agent_grpo`` at its
+    default ``--preset tiny`` for 2 steps, and ``serve_openai`` at its
+    default ``--preset tiny`` answering 8 HTTP requests. Gates: finite
+    metrics, K5 and K6 and a decode kernel launched by each training run,
+    every request answered with its budget."""
+    import concurrent.futures
+    import tempfile
+
+    from rlinf_tpu_torch import main_agent_grpo, main_grpo, serve_openai
+
+    out = {"phase": "small_defaults", "gpu": gpu}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {
+            "main_grpo grpo_demo_tiny.yaml": lambda: main_grpo.main(
+                ["--config", str(HERE / TINY_YAML), "runner.max_steps=2",
+                 f"runner.log_dir={tmp}/grpo", "runner.checkpoint_dir=null"]),
+            "main_agent_grpo --preset tiny": lambda: main_agent_grpo.main(
+                ["runner.max_steps=2", f"runner.log_dir={tmp}/agent"]),
+        }
+        for name, fn in runs.items():
+            history, secs, counts = run_counted(kerns, fn)
+            out[name] = {"seconds": secs, "launches": counts,
+                         "steps": [{k: v for k, v in h.items() if k.startswith(("time/", "actor/"))}
+                                   for h in history]}
+            bad += [f"{name}: {b}" for b in finite_steps(history)]
+            bad += [f"{name}: {k} not launched" for k in SMALL_TRAIN_KERNELS if not counts[k]]
+            if not any(counts[k] for k in DECODE_KERNELS):
+                bad.append(f"{name}: no decode kernel launched")
+    server, http = serve_openai.build_server(serve_openai.parse_args(
+        ["--port", "0", "--max-new-tokens", "32"]))
+    bodies = [("/v1/completions", {"prompt": f"Request {i}", "max_tokens": 16}) if i % 2 == 0
+              else ("/v1/chat/completions",
+                    {"messages": [{"role": "user", "content": f"hi {i}"}], "max_tokens": 16})
+              for i in range(8)]
+    try:
+        def run():
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                return list(pool.map(lambda b: http_json(http.url + b[0], b[1]), bodies))
+
+        answers, secs, counts = run_counted(kerns, run)
+        health = http_json(http.url + "/health")
+    finally:
+        http.stop()
+        server.stop()
+    out["serve_openai --preset tiny"] = {"seconds": secs, "launches": counts, "health": health}
+    if not (all(a["usage"]["completion_tokens"] == 16 for a in answers)
+            and any(counts[k] for k in DECODE_KERNELS)):
+        bad.append(f"serve_openai: {answers}, {counts}")
+    emit(out)
+    if bad:
+        raise AssertionError(f"small default runs failed: {bad}")
+    launches = {k: 0 for k in kerns}
+    for v in out.values():
+        if isinstance(v, dict) and "launches" in v:
+            for k, c in v["launches"].items():
+                launches[k] += c
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: PPO with a learned critic
+# ---------------------------------------------------------------------------
+
+# grpo_math_qwen05b.yaml turned into PPO with a learned critic, then the
+# runner phase's cut: each override and why
+CRITIC_OVERRIDES = {
+    "algorithm.adv_type=gae": "PPO: GAE over a learned critic's values",
+    "algorithm.group_size=1": "PPO: no response groups",
+    "algorithm.critic_warmup_steps=1": "step 1 trains the critic alone, steps 2-3 both",
+    "loss.max_tokens_per_mb=0": "the token-budget path never steps the critic (as in the JAX "
+                                "runner): static minibatches",
+}
+CRITIC_REDUCED = {
+    "runner.rollout_batch_size=64": "64 prompts x group_size 1 = 64 rows a step, the runner "
+                                    "phase's rows (the yaml: 512)",
+    "sampling.max_new_tokens=256": "the yaml has 1024",
+    "rollout.num_slots=64": "one wave: a slot for every row",
+    "runner.max_steps=3": "the yaml has 400",
+    "runner.save_interval=3": "one checkpoint, at the last step (the yaml: every 50)",
+}
+CRITIC_KERNELS = ("flash_attention_fwd", "decode_attention_bf16", "linear_ce_fwd",
+                  "linear_ce_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# the shadow steps: one critic step (separate) and one actor-critic step
+# (shared head) from one state on one batch, with the kernels and with
+# their plain versions. values: max-abs error over max |plain| of the value
+# fn's values (24 bf16 layers apart); the critic's value loss and the grad
+# norm, relative; the actor-critic's total loss, absolute; the f32 updates
+# handed to the params, norm of the difference over the plain run's. The
+# bars are about 2x (values) and 3x or more (the rest) the readings of the
+# phase's first run on an H100 at seed 0 (values 1.92%, 2.12%; value loss
+# 5.7e-4, 5.7e-4; grad norm 3.1e-5, 3.2e-4; loss 2.3e-4; updates 0.38%,
+# 0.86%; PERF.md, Findings)
+CRITIC_SHADOW_BARS = {"values_rel": 4e-2, "value_loss_rel": 5e-3, "loss_abs": 1e-3,
+                      "grad_norm_rel": 5e-3, "update_rel": 3e-2}
+
+
+def critic_shadow(runner, result, kerns) -> dict:
+    """One critic update (separate) or actor-critic update (shared head)
+    on the first minibatch of ``result``'s batch (rewards of ``text_rule``,
+    GAE on the runner's critic), from the runner's state, with every
+    training kernel replaced by its plain version and then with the
+    kernels; the runner's state is left as it was."""
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+
+    sep = runner.separate_critic
+    rewards = np.asarray(text_rule(result.response_texts(runner.tokenizer), result.answers),
+                         np.float32)
+    tb = build_train_batch(result, np.zeros_like(result.response_logprobs),
+                           pad_id=runner.cfg.sampling.pad_token_id)
+    runs = {}
+    for mode in ("plain", "kernels"):
+        with (kernels_replaced(plain_only, _training_sites()) if mode == "plain"
+              else contextlib.nullcontext()):
+            extra = runner._gae_token_advantages(tb, rewards)
+            batch = runner._put_batch({**tb.to_dict(), "advantages": extra["advantages"],
+                                       "returns": extra["returns"],
+                                       "prev_values": extra["prev_values"]})
+            if runner.logprob_fn is not None:
+                lp, _ = runner.logprob_fn(runner.state.params, batch)
+                batch["old_logprobs"] = torch.where(batch["loss_mask"], lp, 0.0)
+            rows = batch["input_ids"].shape[0] // runner.cfg.runner.num_mini_batches
+            mb = {k: v[:rows] for k, v in batch.items()}
+            state = clone_tree(runner.critic_state if sep else runner.state)
+            updates = []
+            with summing_updates(updates):
+                (_, m), secs, counts = run_counted(
+                    kerns, lambda: (runner.critic_step if sep else runner.train_step)(state, mb))
+            runs[mode] = dict(values=torch.as_tensor(extra["prev_values"]), m=m,
+                              updates=updates[0], counts=counts, seconds=secs)
+            del state
+    k, p = runs["kernels"], runs["plain"]
+    out = {
+        "step": "make_critic_train_step" if sep else "make_actor_critic_train_step",
+        "reward_mean": float(rewards.mean()),
+        "values_rel": rel_err(k["values"], p["values"]),
+        "value_loss": [float(k["m"]["critic/value_loss"]), float(p["m"]["critic/value_loss"])],
+        "value_loss_rel": abs(float(k["m"]["critic/value_loss"] - p["m"]["critic/value_loss"]))
+                          / max(abs(float(p["m"]["critic/value_loss"])), 1e-30),
+        "update_rel": norm_rel(k["updates"], p["updates"]),
+        "update_norm": [tree_norm(k["updates"]), tree_norm(p["updates"])],
+        "seconds": [k["seconds"], p["seconds"]], "kernel_launches": k["counts"],
+        "bars": CRITIC_SHADOW_BARS,
+    }
+    gn = "critic/grad_norm" if sep else "actor/grad_norm"
+    out["grad_norm"] = [float(k["m"][gn]), float(p["m"][gn])]
+    out["grad_norm_rel"] = abs(out["grad_norm"][0] - out["grad_norm"][1]) / max(out["grad_norm"][1], 1e-30)
+    out["loss_abs"] = 0.0 if sep else abs(float(k["m"]["actor/loss"] - p["m"]["actor/loss"]))
+    bad = [n for n, bar in CRITIC_SHADOW_BARS.items() if not out[n] < bar]
+    if any(p["counts"].values()) or not k["counts"]["flash_attention_fwd"]:
+        bad.append(f"launches {k['counts']} / plain {p['counts']}")
+    if not sep and not (k["counts"]["linear_ce_fwd"] and k["counts"]["linear_ce_bwd"]):
+        bad.append("the actor-critic step did not launch K5 and K6")
+    out["bad"] = bad
+    return out
+
+
+def critic_phase(kerns, gpu, seed) -> dict:
+    """Phase 19. (a) ppo_separate_critic.yaml as shipped (Hd=32, bf16, the
+    continuous engine) through ``main_grpo.main`` for 3 steps with
+    ``critic_warmup_steps=1``: step 1 skips the actor, steps 2 and 3 train
+    it. (b) grpo_math_qwen05b.yaml's model at full width and depth with
+    CRITIC_OVERRIDES and CRITIC_REDUCED, once with a separate critic and
+    once with the shared value head: 3 steps each, then a shadow step
+    (``critic_shadow``) on step 1's rollout. Gates: K1, K2 and K5-K8
+    launched; the critic's params moved; ``critic/*`` metrics finite; the
+    shadow bars (CRITIC_SHADOW_BARS)."""
+    import shutil
+
+    from rlinf_tpu_torch import main_grpo
+    from rlinf_tpu_torch.models.llm.value_head import init_value_head
+    from rlinf_tpu_torch.training.critic import init_critic_params
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "critic_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"phase": "critic", "gpu": gpu}
+    bad, launches = [], {k: 0 for k in kerns}
+
+    ppo = [f"runner.log_dir={work / 'ppo_logs'}", "runner.max_steps=3",
+           "algorithm.critic_warmup_steps=1", f"runner.seed={seed}"]
+    history, secs, counts = run_counted(
+        kerns, lambda: main_grpo.main(["--config", str(HERE / PPO_YAML), *ppo]))
+    out["ppo_separate_critic.yaml"] = {
+        "overrides": ppo, "seconds": secs, "launches": counts,
+        "steps": [{k: v for k, v in h.items() if k.startswith(("time/", "actor/", "critic/"))}
+                  for h in history]}
+    bad += [f"ppo yaml {b}" for b in finite_steps(history)]
+    if not ([h.get("actor/warmup_skipped") for h in history] == [1.0, None, None]
+            and all("critic/value_loss" in h for h in history)):
+        bad.append("ppo yaml: the warmup step and the actor steps")
+    bad += [f"ppo yaml: {k} not launched" for k in SMALL_TRAIN_KERNELS if not counts[k]]
+    for k, c in counts.items():
+        launches[k] += c
+
+    for critic in ("separate", "shared"):
+        overrides = [*CRITIC_OVERRIDES, *CRITIC_REDUCED, f"algorithm.critic={critic}",
+                     f"runner.seed={seed}", f"runner.log_dir={work / critic / 'logs'}",
+                     f"runner.checkpoint_dir={work / critic / 'ckpt'}"]
+        record = {}
+        torch.cuda.reset_peak_memory_stats()
+        with watching_runner(record):
+            history, secs, counts = run_counted(
+                kerns, lambda: main_grpo.main(["--config", str(HERE / RUNNER_YAML), *overrides]))
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        r, result = record["runner"], record["result"]
+        if critic == "separate":    # the critic's init, drawn again from its seed
+            start = init_critic_params(r.cfg.model, r.cfg.runner.seed + 104729, device="cuda")
+            moved = moved_share(r.critic_state.params, start)
+            del start
+        else:
+            moved = moved_share({"v": r.state.params["value_head"]},
+                                {"v": init_value_head(r.cfg.model, r.cfg.runner.seed + 7,
+                                                      device="cuda")})
+        row = {"config": RUNNER_YAML, "critic": critic, "overrides": CRITIC_OVERRIDES,
+               "reduced": CRITIC_REDUCED, "layers": r.cfg.model.num_layers,
+               "rows": len(result.prompt_lengths), "seconds": secs, "launches": counts,
+               "max_memory_allocated_gb": peak_gb, "critic_params_moved_share": moved,
+               "critic_step_s": list(record["critic_step_s"]),
+               "recompute_s": list(record["recompute_s"]),
+               "logprob_drift_step1": {"kernels": behaviour_drift(r, result, lp=record["lp"]),
+                                       "plain": record["drift_plain"]},
+               "steps": [{k: v for k, v in h.items() if k.startswith(("time/", "actor/", "critic/", "perf/"))}
+                         for h in history]}
+        shadow = critic_shadow(r, result, kerns)
+        row["shadow"] = shadow
+        out[f"qwen2_0_5b {critic}"] = row
+        bad += [f"{critic}: {k} not launched" for k in CRITIC_KERNELS if not counts[k]]
+        bad += [f"{critic}: {b}" for b in finite_steps(
+            history, [k for h in history for k in h if k.startswith("critic/")])]
+        if not any(k.startswith("critic/") for k in history[-1]):
+            bad.append(f"{critic}: no critic metrics")
+        if not moved:
+            bad.append(f"{critic}: the critic's params did not move")
+        if [h.get("actor/warmup_skipped") for h in history][:1] != ([1.0] if critic == "separate" else [None]):
+            bad.append(f"{critic}: warmup step")
+        bad += [f"{critic} shadow: {b}" for b in shadow["bad"]]
+        for k, c in counts.items():
+            launches[k] += c
+        del r, record, result
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"critic phase failed: {bad}")
+    return launches
+
+# ---------------------------------------------------------------------------
+# Phase 17: head dims 16 and 32, f16 and f32
+# ---------------------------------------------------------------------------
+
+#: max-abs error over max |plain| a kernel's output may show, by dtype: twice
+#: the operands' unit roundoff, bf16 2^-8 and f16 2^-11; f32 operands run
+#: as split bf16 parts (about 2^-16 a product) and are held to tf32's 2^-11
+DTYPE_BARS = {torch.bfloat16: 2 * 2.0**-8, torch.float16: 2 * 2.0**-11, torch.float32: 2.0**-11}
+#: the card's peak rate of each operand type over bf16's (H100 data sheet,
+#: dense: bf16 and f16 989, TF32 495 TFLOP/s), for the bounds
+DTYPE_FLOPS = {torch.bfloat16: 1.0, torch.float16: 1.0, torch.float32: 495 / 989}
+DT = {torch.bfloat16: "bf16", torch.float16: "f16", torch.float32: "f32"}
+DTYPES = tuple(DT)
+#: (H, Kv) of the shipped small models: grpo_demo_tiny.yaml and the tiny
+#: preset (Hd=16), ppo_separate_critic.yaml (Hd=32)
+SMALL_HEADS = (4, 2)
+#: the runner's model (grpo_math_qwen05b.yaml): the main-path shape of
+#: the f16 and f32 checks
+QWEN05 = {"H": 14, "Kv": 2, "Hd": 64, "D": 896, "V": 151936}
+
+
+def dt_bound(nb, flops, peaks, dt):
+    return bound(nb, flops, (peaks[0], peaks[1] * DTYPE_FLOPS[dt]))
+
+
+def held(name, key, rel, dt, extra=None) -> dict:
+    """{rel_err, bar} of one variant; raise if it misses its dtype's bar."""
+    r = {"rel_err": rel, "bar": DTYPE_BARS[dt], **(extra or {})}
+    if not rel < DTYPE_BARS[dt]:
+        raise AssertionError(f"{name} at {key} disagrees with its plain version: {r}")
+    return r
+
+
+def flash_variant(g, B, T, H, Kv, Hd, dt, peaks, timed) -> dict:
+    """K1, K7 and K8 at (B, T, H, Kv, Hd) in dtype dt, right-padded rows,
+    against their plain versions; with ``timed`` each kernel's time (K7
+    and K8 launched apart), the plain versions' and SDPA's."""
+    from rlinf_tpu_torch.ops.cuda import flash_attention as FA
+
+    randn = lambda *shape: (torch.randn(shape, generator=g, device="cuda") * 0.5).to(dt)
+    valid, pos = ragged_rows(B, T, left=False)
+    vu8 = valid.to(torch.uint8)
+    q, k, v, do = randn(B, T, H, Hd), randn(B, T, Kv, Hd), randn(B, T, Kv, Hd), randn(B, T, H, Hd)
+    scale = Hd**-0.5
+    o, lse = FA.flash_attention_fwd(q, k, v, pos, pos, vu8, scale)
+    o_r, lse_r = FA.flash_attention_fwd_plain(q, k, v, pos, pos, vu8, scale)
+    args = (q, k, v, pos, pos, vu8, o, lse, do, scale)
+    got = FA.flash_attention_bwd(*args)
+    want = FA.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    key = f"B={B} T={T} H={H} Kv={Kv} Hd={Hd} {DT[dt]}"
+    if o.dtype != dt or any(t.dtype != dt for t in got):
+        raise AssertionError(f"K1/K7/K8 at {key}: outputs not in {dt}")
+    out = {"flash_attention_fwd": held("K1", key, rel_err(o, o_r), dt,
+                                       {"lse_max_abs_err": (lse - lse_r).abs().max().item()}),
+           "flash_attention_bwd_dq": held("K7", key, rel_err(got[0], want[0]), dt),
+           "flash_attention_bwd_dkv": held("K8", key, max(rel_err(got[1], want[1]),
+                                                          rel_err(got[2], want[2])), dt)}
+    if not timed:
+        return out
+    mask4 = ((pos[:, None, :] <= pos[:, :, None]) & valid[:, None, :])[:, None]
+    pairs = int(mask4.sum().item())
+    G = H // Kv
+    qt, kt, vt = (q.transpose(1, 2), k.repeat_interleave(G, 2).transpose(1, 2),
+                  v.repeat_interleave(G, 2).transpose(1, 2))
+    fwd_ms = cuda_ms(lambda: FA.flash_attention_fwd(q, k, v, pos, pos, vu8, scale), 20, warmup=3)
+    dq, dk, dv = got
+    delta = torch.empty((B, H, T), dtype=torch.float32, device="cuda")
+    dq_call, dkv_call = flash_bwd_launches(args, delta, got)
+    dq_call()
+    bwd_plain = cuda_ms(lambda: FA.flash_attention_bwd_plain(*args), 3)
+    qg = qt.detach().requires_grad_()
+    kg, vg = kt.detach().requires_grad_(), vt.detach().requires_grad_()
+    sd = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask4)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(sd, (qg, kg, vg), do.transpose(1, 2),
+                                                  retain_graph=True), 5)
+    io = nbytes(q, k, v, pos, pos, vu8)
+    fb, fby = dt_bound(io + nbytes(o, lse), 4.0 * Hd * H * pairs, peaks, dt)
+    qb, qby = dt_bound(io + nbytes(o, do, lse, delta, dq), 8.0 * Hd * H * pairs, peaks, dt)
+    kb, kby = dt_bound(io + nbytes(do, lse, delta, dk, dv), 12.0 * Hd * H * pairs, peaks, dt)
+    out["flash_attention_fwd"].update(
+        ms=fwd_ms, plain_ms=cuda_ms(lambda: FA.flash_attention_fwd_plain(q, k, v, pos, pos, vu8, scale), 3),
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask4), 10, warmup=3), bound_ms=fb, bound_by=fby)
+    out["flash_attention_bwd_dq"].update(ms=cuda_ms(dq_call, 20, warmup=3), plain_ms=bwd_plain,
+                                         library_ms=lib_bwd, bound_ms=qb, bound_by=qby)
+    out["flash_attention_bwd_dkv"].update(ms=cuda_ms(dkv_call, 20, warmup=3), plain_ms=bwd_plain,
+                                          library_ms=lib_bwd, bound_ms=kb, bound_by=kby)
+    return out
+
+
+def decode_variants(g, B, S, H, Kv, Hd, dt, peaks, timed) -> dict:
+    """K2 (cache in dt), K3 (q in dt, int8 cache) and K10 (pages in dt, 16
+    tokens a page) at q [B, H, Hd], ragged intervals with an empty row,
+    against their plain versions; with ``timed``, graph-replay times beside
+    the plain versions' and SDPA's."""
+    from rlinf_tpu_torch.ops.cuda import decode_attention as DA
+    from rlinf_tpu_torch.ops.cuda import paged_attention as PA
+
+    dev = "cuda"
+    KD = Kv * Hd
+    randn = lambda *shape: (torch.randn(shape, generator=g, device=dev) * 0.5).to(dt)
+    lengths = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev, dtype=torch.int32)
+    starts = torch.randint(0, S // 4, (B,), generator=g, device=dev, dtype=torch.int32)
+    lengths[0], starts[0] = 0, 0
+    q, kc, vc = randn(B, H, Hd), randn(B, S, KD), randn(B, S, KD)
+    kq = torch.randint(-127, 128, (B, S, KD), generator=g, device=dev, dtype=torch.int8)
+    vq = torch.randint(-127, 128, (B, S, KD), generator=g, device=dev, dtype=torch.int8)
+    ks = torch.rand((B, S), generator=g, device=dev) * 0.02 + 0.005
+    vs = torch.rand((B, S), generator=g, device=dev) * 0.02 + 0.005
+    Pg, max_pages = 16, -(-S // 16)
+    table = (torch.arange(B * max_pages, device=dev, dtype=torch.int32).reshape(B, max_pages) + 1)
+    kp, vp = randn(1 + B * max_pages, Kv, Pg, Hd), randn(1 + B * max_pages, Kv, Pg, Hd)
+    plen = lengths.clone()
+    calls = {
+        "decode_attention_bf16": (lambda: DA.decode_attention_packed(q, kc, vc, starts, lengths, num_kv=Kv),
+                                  lambda: DA.decode_attention_packed_xla(q, kc, vc, starts, lengths, num_kv=Kv),
+                                  nbytes(q, q, kc, vc) * 1.0),
+        "decode_attention_q8": (lambda: DA.decode_attention_packed_q8(q, kq, vq, ks, vs, starts, lengths, num_kv=Kv),
+                                lambda: DA.decode_attention_packed_q8_xla(q, kq, vq, ks, vs, starts, lengths, num_kv=Kv),
+                                nbytes(q, q, kq, vq, ks, vs) * 1.0),
+        "paged_attention": (lambda: PA.paged_attention(q, kp, vp, table, plen),
+                            lambda: PA.paged_attention_xla(q, kp, vp, table, plen),
+                            nbytes(q, q, table) + 2.0 * B * max_pages * Pg * KD * q.element_size()),
+    }
+    out = {}
+    slots = int((lengths - starts).clamp_min(0).sum().item())
+    for name, (call, plain, moved) in calls.items():
+        got, ref = call(), plain()
+        torch.cuda.synchronize()
+        key = f"q[{B},{H},{Hd}] {DT[dt]} S={S}"
+        if got.dtype != dt:
+            raise AssertionError(f"{name} at {key}: output {got.dtype}, expected {dt}")
+        r = held(name, key, head_rel_err(got, ref), dt,
+                 {"empty_row_max_abs": got[0].float().abs().max().item()})
+        if r["empty_row_max_abs"] != 0.0:
+            raise AssertionError(f"{name} at {key}: the empty row is not 0: {r}")
+        if timed:
+            n_keys = int(plen.sum().item()) if name == "paged_attention" else slots
+            if name == "paged_attention":
+                kd_ = kp[table.long()].permute(0, 1, 3, 2, 4).reshape(B, max_pages * Pg, KD)
+                vd_ = vp[table.long()].permute(0, 1, 3, 2, 4).reshape(B, max_pages * Pg, KD)
+                st_ = torch.zeros_like(plen)
+            else:
+                kd_, vd_, st_ = kc, vc, starts
+            pos_s = torch.arange(kd_.shape[1], device=dev)
+            smask = ((pos_s[None, :] >= st_[:, None]) & (pos_s[None, :] < (plen if name == "paged_attention" else lengths)[:, None]))[:, None, None, :]
+            r.update(ms=graph_ms(call), plain_ms=cuda_ms(plain, 5),
+                     library_ms=graph_ms(sdpa_decode(q, kd_, vd_, Kv, smask)))
+            frac = n_keys / (B * S)
+            r["bound_ms"], r["bound_by"] = dt_bound(nbytes(q, q) + (moved - nbytes(q, q)) * frac,
+                                                    4.0 * Hd * H * n_keys, peaks, dt)
+        out[name] = r
+    return out
+
+
+def mega_variant(g, Hd, peaks, seed) -> dict:
+    """K9 at a shipped small model's geometry (Hd=16: grpo_demo_tiny.yaml
+    and the tiny preset, D=64; Hd=32: ppo_separate_critic.yaml, D=128) on
+    packed random int8 weights and a random int8 cache, B=16, S=288,
+    against its plain version (MEGA_BARS), timed beside its bound."""
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.models.llm.quant import quantize_params
+    from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
+
+    D, F, L = (64, 128, 2) if Hd == 16 else (128, 256, 4)
+    cfg = LLMConfig(vocab_size=258, hidden_size=D, intermediate_size=F, num_layers=L,
+                    num_heads=D // Hd, num_kv_heads=2, max_seq_len=512, rope_theta=1e4,
+                    dtype="bfloat16")
+    qparams = quantize_params(M.init_params(cfg, seed, device="cuda"))
+    plan, mw = MK.pack_decode_weights(qparams, cfg)
+    B, S = 16, 288
+    dev = "cuda"
+    wp = torch.randint(S // 2, S, (B,), generator=g, device=dev, dtype=torch.int32)
+    starts = torch.zeros((B,), dtype=torch.int32, device=dev)
+    errs, cache, args = mega_case(MK, plan, mw, cfg, qparams, B, S, wp, wp.clone(), starts, g)
+    bad = mega_bad({"k9": errs})
+    if bad:
+        raise AssertionError(f"K9 at Hd={Hd}: {errs}")
+    call = lambda: MK.decode_step_mega(plan, mw, args[0], *cache, *args[1:])
+    ms = cuda_ms(call, 20, warmup=3)
+    plain_ms = cuda_ms(lambda: MK.decode_step_mega_plain(plan, mw, args[0], *[t.clone() for t in cache],
+                                                         *args[1:]), 3)
+    b_ms, b_by = mega_bound(plan, mw, B, int((wp - starts).sum().item()), peaks)
+    return {**errs, "shapes": f"D={D} H={cfg.num_heads} Kv=2 Hd={Hd} L={L} B={B} S={S}",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def lmhead_variants(g, n, D, V, dt, peaks, timed) -> dict:
+    """K5 and K6 (tied [V, D] weight; also the untied [D, V] one when not
+    timed) and K4 (hidden in dt, int8 head, greedy and sampled) at n rows,
+    depth D, V columns, against their plain versions."""
+    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
+    from rlinf_tpu_torch.ops.cuda import sampler_kernel as SK
+
+    dev = "cuda"
+    h = (torch.randn((n, D), generator=g, device=dev)).to(dt)
+    w = (torch.randn((V, D), generator=g, device=dev) * D**-0.5).to(dt)
+    tgt = torch.randint(0, V, (n,), generator=g, device=dev, dtype=torch.int32)
+    g_lp = torch.randn((n,), generator=g, device=dev)
+    g_ent = torch.randn((n,), generator=g, device=dev) * 1e-3
+    key = f"n={n} D={D} V={V} {DT[dt]}"
+    out = {}
+    for layout in ("vd",) if timed else ("vd", "dv"):
+        wl = w if layout == "vd" else w.t().contiguous()
+        lp, ent, lse = LCE.ce_forward(h, wl, tgt, 1.0, layout)
+        lp_r, ent_r, lse_r = LCE.ce_forward_plain(h, wl, tgt, 1.0, layout)
+        dz, dh = LCE.ce_backward(h, wl, tgt, lse, lse - ent, g_lp, g_ent, 1.0, layout)
+        dz_r, dh_r = LCE.ce_backward_plain(h, wl, tgt, lse_r, lse_r - ent_r, g_lp, g_ent, 1.0, layout)
+        torch.cuda.synchronize()
+        if dh.dtype != dt:
+            raise AssertionError(f"K6 at {key}: dh {dh.dtype}, expected {dt}")
+        sfx = "" if layout == "vd" else "_untied"
+        out["linear_ce_fwd" + sfx] = held("K5", key, max(rel_err(lp, lp_r), rel_err(ent, ent_r)), dt)
+        out["linear_ce_bwd" + sfx] = held("K6", key, max(rel_err(dz, dz_r), rel_err(dh, dh_r)), dt)
+    B = min(n, 64)
+    lm_q = torch.randint(-127, 128, (D, V), generator=g, device=dev, dtype=torch.int8)
+    lm_s = torch.rand((V,), generator=g, device=dev) * 0.01 + 1e-3
+    head = SK.pack_lm_head(lm_q, lm_s)
+    hid = h[:B].contiguous()
+    tok, lp4 = SK.fused_lmhead_sample_packed(hid, head, 7, greedy=True)
+    tok_r, lp4_r = SK.fused_lmhead_sample_packed_plain(hid, head, 7, greedy=True)
+    stok, slp = SK.fused_lmhead_sample_packed(hid, head, 7, temperature=1.0)
+    stok_r, slp_r = SK.fused_lmhead_sample_packed_plain(hid, head, 7, temperature=1.0)
+    torch.cuda.synchronize()
+    k4 = {"greedy_token_agree": (tok == tok_r).float().mean().item(),
+          "greedy_lp_max_abs": (lp4 - lp4_r).abs().max().item(),
+          "sampled_token_agree": (stok == stok_r).float().mean().item(),
+          "sampled_lp_max_abs": (slp - slp_r).abs().max().item(), "bar_agree": 0.95,
+          "bar_lp_max_abs": 0.15}
+    if not (k4["greedy_token_agree"] > 0.95 and k4["sampled_token_agree"] > 0.95
+            and k4["greedy_lp_max_abs"] < 0.15 and k4["sampled_lp_max_abs"] < 0.15):
+        raise AssertionError(f"K4 at B={B} {key}: {k4}")
+    out["fused_lmhead_sample"] = k4
+    if not timed:
+        return out
+    flops = 2.0 * n * D * V
+    b5 = dt_bound(nbytes(h, w, tgt) + 12 * n, flops, peaks, dt)
+    b6 = dt_bound(nbytes(h, w, tgt, g_lp, g_ent, dz, dh) + 8 * n, 2 * flops, peaks, dt)
+    hf = h.float() if dt == torch.float32 else h
+
+    def lib_fwd():
+        x = (hf @ w.t()).float()
+        ls = torch.log_softmax(x, -1)
+        return ls.gather(1, tgt.long()[:, None]), -(ls.exp() * ls).sum(-1)
+
+    def lib_bwd():
+        x = (hf @ w.t()).float()
+        p = torch.softmax(x, -1)
+        return (p.to(dt) @ w)
+
+    out["linear_ce_fwd"].update(ms=cuda_ms(lambda: LCE.ce_forward(h, w, tgt, 1.0, "vd"), 3, warmup=1),
+                                plain_ms=cuda_ms(lambda: LCE.ce_forward_plain(h, w, tgt, 1.0, "vd"), 2, warmup=1),
+                                library_ms=cuda_ms(lib_fwd, 3, warmup=1), bound_ms=b5[0], bound_by=b5[1])
+    out["linear_ce_bwd"].update(
+        ms=cuda_ms(lambda: LCE.ce_backward(h, w, tgt, lse, lse - ent, g_lp, g_ent, 1.0, "vd"), 3, warmup=1),
+        plain_ms=cuda_ms(lambda: LCE.ce_backward_plain(h, w, tgt, lse, lse - ent, g_lp, g_ent, 1.0, "vd"), 2,
+                         warmup=1),
+        library_ms=cuda_ms(lib_bwd, 3, warmup=1), bound_ms=b6[0], bound_by=b6[1])
+    hq = hid.float() if dt == torch.float32 else hid
+    wq = lm_q.to(hq.dtype)
+    k4["ms"] = cuda_ms(lambda: SK.fused_lmhead_sample_packed(hid, head, 7, temperature=1.0), 20, warmup=3)
+    k4["plain_ms"] = cuda_ms(lambda: SK.fused_lmhead_sample_packed_plain(hid, head, 7, temperature=1.0), 3)
+    k4["library_ms"] = cuda_ms(lambda: torch.log_softmax((hq @ wq).float() * lm_s, -1).argmax(-1), 5)
+    k4["bound_ms"], k4["bound_by"] = dt_bound(nbytes(hid, lm_q, lm_s) + 8 * B, 2.0 * B * D * V, peaks, dt)
+    return out
+
+
+def variant_checks(peaks, seed) -> dict:
+    """Phase 17. Every attention kernel at head dims 16 and 32 (the shipped
+    small models' heads, SMALL_HEADS) in bf16, f16 and f32, and at 64 and
+    128 in f16 and f32; K4-K6 in f16 and f32 at the small models' widths
+    (D=64, V=258); each against its plain version with its dtype's bar
+    (DTYPE_BARS). Timed, beside the plain versions, the library calls and
+    the bounds at each dtype's peak: the shipped small models' variants
+    (Hd=16 in f32, Hd=32 in bf16, B=16, T=256) and one main-path shape per
+    dtype at the runner's Qwen2.5-0.5B widths (f16 and f32: K1, K7, K8 at
+    its training microbatch, B=16, T=768; K2, K3, K10 at B=64, S=768; K4 at
+    B=64 and K5, K6 at 2048 rows of its [151936, 896] head). K9 at Hd 16
+    and 32 (the small models' widths; it computes in bf16 whatever the
+    model's dtype)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    H, Kv = SMALL_HEADS
+    res = {"bars": {DT[k]: v for k, v in DTYPE_BARS.items()}, "checks": {}, "timed": {}}
+    shipped = {(16, torch.float32), (32, torch.bfloat16)}
+    for Hd in (16, 32, 64, 128):
+        for dt in DTYPES:
+            if Hd >= 64 and dt == torch.bfloat16:
+                continue  # the Hopper designs: phases 2 and 5
+            timed = (Hd, dt) in shipped
+            tag = f"Hd={Hd} {DT[dt]}"
+            fl = flash_variant(g, 16 if Hd < 128 else 2, 256, H, Kv, Hd, dt, peaks, timed)
+            de = decode_variants(g, 16, 288, H, Kv, Hd, dt, peaks, timed)
+            (res["timed"] if timed else res["checks"])[f"small {tag}"] = {**fl, **de}
+    for dt in DTYPES[1:]:
+        res["checks"][f"lm head small {DT[dt]}"] = lmhead_variants(g, 256, 64, 258, dt, peaks, False)
+    for Hd in (16, 32):
+        res["timed"][f"small Hd={Hd} megakernel"] = {"decode_megakernel": mega_variant(g, Hd, peaks, seed)}
+    for dt in DTYPES[1:]:
+        tag = f"qwen2_0_5b {DT[dt]}"
+        row = flash_variant(g, 16, 768, QWEN05["H"], QWEN05["Kv"], QWEN05["Hd"], dt, peaks, True)
+        row.update(decode_variants(g, 64, 768, QWEN05["H"], QWEN05["Kv"], QWEN05["Hd"], dt, peaks, True))
+        row.update(lmhead_variants(g, 2048, QWEN05["D"], QWEN05["V"], dt, peaks, True))
+        res["timed"][tag] = row
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3606,9 +4244,22 @@ def main() -> int:
         for k, c in counts.items():
             launches[k] += c
 
+    # 17. every kernel at head dims 16 and 32 and in f16 and f32 (grad mode
+    # on: the library call of K7/K8 is SDPA's autograd backward)
+    variants = variant_checks(peaks, args.seed)
+    emit({"phase": "dtypes_and_head_dims", "gpu": gpu, **variants})
+    torch.cuda.empty_cache()
+
+    # 18-19. the small models' default runs, and PPO with a learned critic
+    for counts in (small_defaults_phase(kerns, gpu), critic_phase(kerns, gpu, args.seed)):
+        for k, c in counts.items():
+            launches[k] += c
+
     results += new_results
     for r in results:
         r["launches"] = launches[r["name"]]
+        r["variants"] = {tag: row[r["name"]] for tag, row in variants["timed"].items()
+                         if r["name"] in row}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": results})

@@ -1,10 +1,11 @@
-"""Actor losses: PPO clip (+dual-clip) and decoupled PPO.
+"""Policy and value losses: PPO clip (+dual-clip), decoupled PPO, the
+clipped-value critic loss, actor-critic and OPD.
 
 Port of ``rlinf_tpu/algorithms/losses.py`` (``compute_ppo_actor_loss``,
-``compute_decoupled_ppo_actor_loss`` and their registrations). Inputs are
-promoted to float32; every loss returns ``(loss, metrics)`` with the JAX
-package's metric keys. ``jax.lax.stop_gradient`` becomes ``detach``. The
-critic and OPD losses come with the PPO-critic slice.
+``compute_decoupled_ppo_actor_loss``, ``compute_ppo_critic_loss``,
+``compute_opd_actor_loss`` and every registration). Inputs are promoted to
+float32; every loss returns ``(loss, metrics)`` with the JAX package's
+metric keys. ``jax.lax.stop_gradient`` becomes ``detach``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from rlinf_tpu_torch.algorithms.registry import register_policy_loss
-from rlinf_tpu_torch.algorithms.utils import masked_mean, masked_mean_ratio
+from rlinf_tpu_torch.algorithms.utils import huber_loss, masked_mean, masked_mean_ratio
 
 
 def _f32(x):
@@ -205,6 +206,49 @@ def compute_decoupled_ppo_actor_loss(
     return loss, metrics
 
 
+def compute_ppo_critic_loss(
+    values: torch.Tensor,
+    returns: torch.Tensor,
+    prev_values: torch.Tensor,
+    value_clip: float,
+    huber_delta: float,
+    loss_mask: Optional[torch.Tensor] = None,
+    max_episode_steps: Optional[int] = None,
+    loss_mask_sum: Optional[torch.Tensor] = None,
+    **kwargs,
+) -> Tuple[torch.Tensor, dict]:
+    """Clipped-value huber critic loss, with the clip ratio and the
+    explained variance over the mask."""
+    values, returns, prev_values = _f32(values), _f32(returns), _f32(prev_values)
+    loss_mask_ratio = None
+    if max_episode_steps is not None and loss_mask_sum is not None and loss_mask is not None:
+        loss_mask_ratio = loss_mask_sum.float() / max_episode_steps
+    if loss_mask is None:
+        loss_mask = torch.ones_like(values, dtype=torch.bool)
+    mask_f = loss_mask.float()
+
+    clipped_values = prev_values + torch.clamp(values - prev_values, -value_clip, value_clip)
+    vloss1 = huber_loss(returns - values, huber_delta)
+    vloss2 = huber_loss(returns - clipped_values, huber_delta)
+    vloss = torch.maximum(vloss1, vloss2)
+    loss = _agg(vloss, mask_f, loss_mask_ratio, masked_mean)
+
+    clip_indicator = (clipped_values - prev_values).abs() > value_clip
+    clip_ratio = clip_indicator.float().mean()
+
+    ret_mean = masked_mean(returns, mask_f)
+    ret_var = masked_mean(torch.square(returns - ret_mean), mask_f)
+    err_var = masked_mean(torch.square(returns - values), mask_f)
+    explained_var = 1.0 - err_var / torch.clamp(ret_var, min=1e-8)
+
+    metrics = {
+        "critic/value_loss": loss.detach(),
+        "critic/value_clip_ratio": clip_ratio.detach(),
+        "critic/explained_variance": explained_var.detach(),
+    }
+    return loss, metrics
+
+
 @register_policy_loss("actor")
 def compute_grpo_actor_loss_fn(**kwargs):
     """GRPO uses the PPO-clip actor loss."""
@@ -219,3 +263,52 @@ def _ppo_actor(**kwargs):
 @register_policy_loss("decoupled_actor")
 def _decoupled_actor(**kwargs):
     return compute_decoupled_ppo_actor_loss(**kwargs)
+
+
+@register_policy_loss("actor_critic")
+def compute_ppo_actor_critic_loss(**kwargs):
+    actor_loss, am = compute_ppo_actor_loss(**kwargs)
+    critic_loss, cm = compute_ppo_critic_loss(**kwargs)
+    return actor_loss + critic_loss, {**am, **cm}
+
+
+@register_policy_loss("decoupled_actor_critic")
+def compute_decoupled_ppo_actor_critic_loss(**kwargs):
+    actor_loss, am = compute_decoupled_ppo_actor_loss(**kwargs)
+    critic_loss, cm = compute_ppo_critic_loss(**kwargs)
+    return actor_loss + critic_loss, {**am, **cm}
+
+
+@register_policy_loss("opd")
+def compute_opd_actor_loss(
+    logprobs: torch.Tensor,
+    advantages: torch.Tensor,
+    loss_mask: torch.Tensor,
+    loss_mask_sum: Optional[torch.Tensor] = None,
+    max_episode_steps: Optional[int] = None,
+    loss_agg_func: Callable = masked_mean,
+    **kwargs,
+) -> Tuple[torch.Tensor, dict]:
+    """OPD distillation: -logprob * detach(reverse-KL reward)."""
+    logprobs, advantages = _f32(logprobs), _f32(advantages)
+    if loss_mask.dim() == logprobs.dim() - 1:
+        loss_mask = loss_mask[..., None]
+    loss_mask = torch.broadcast_to(loss_mask, logprobs.shape)
+    mask_f = loss_mask.float()
+
+    loss_mask_ratio = None
+    if max_episode_steps is not None and loss_mask_sum is not None:
+        if loss_mask_sum.dim() == logprobs.dim() - 1:
+            loss_mask_sum = loss_mask_sum[..., None]
+        loss_mask_sum = torch.broadcast_to(loss_mask_sum, logprobs.shape)
+        loss_mask_ratio = loss_mask_sum.float() / max_episode_steps
+
+    opd_rewards = advantages.detach()
+    loss = _agg(-logprobs * opd_rewards, mask_f, loss_mask_ratio, loss_agg_func)
+
+    metrics = {
+        "actor/policy_loss": loss.detach(),
+        "actor/opd_reward": masked_mean(opd_rewards, mask_f),
+        "actor/opd_reverse_kl": masked_mean(-opd_rewards, mask_f),
+    }
+    return loss, metrics

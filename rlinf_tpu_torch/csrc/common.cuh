@@ -4,10 +4,13 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <limits.h>
 #include <math.h>
+
+#include <type_traits>
 
 // The JAX package's finite mask value (-2**30): (-inf) - (-inf) never occurs.
 #define RLINF_NEG_INF (-1073741824.0f)

@@ -566,9 +566,45 @@ __global__ void __launch_bounds__(Q8_NW * 32, 2) decode_bf16_split_kernel(const 
   }
 }
 
+// Head dims 16 and 32, and f16 and f32 queries and caches: the same
+// split-KV over 16-key blocks and the same merge, the split on
+// hopper.cuh's any_decode_split (mma.sync on tiles of any element type,
+// each warp staging its block's K and V rows in shared memory). The 16-byte
+// lane chunks of 64-depth blocks above do not cut a shorter row, and hold 4
+// f32 depths where the bf16 and int8 designs need 8 or 16. C is the
+// cache's element type: T (K2) or int8 (K3, with its per-slot scales).
+template <class T, class C, int HD>
+__global__ void __launch_bounds__(ANY_NW * 32) decode_any_split_kernel(const SplitArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sp = blockIdx.x % a.NS, bk = blockIdx.x / a.NS;
+  const int b = bk / a.KV, kvh = bk % a.KV, G = a.H / a.KV;
+  const Interval iv = row_interval(a, b);
+  const int s0 = sp * a.BPS;
+  if (s0 >= iv.nblk) return;  // past the row's last block: no work, no partial
+  const int s1 = min(s0 + a.BPS, iv.nblk);
+  auto rows = [&](const void* cache) {
+    const C* base = static_cast<const C*>(cache);
+    return [=](int key) -> const C* {
+      return key < a.S ? base + (((size_t)b * a.S + key) * a.KV + kvh) * HD : nullptr;
+    };
+  };
+  const float* ks = a.ks;
+  const float* vs = a.vs;
+  const size_t srow = (size_t)b * a.S;
+  auto scales = [=](int key) {
+    return ks != nullptr ? make_float2(ks[srow + key], vs[srow + key]) : make_float2(1.f, 1.f);
+  };
+  const size_t part = (size_t)bk * a.NS + sp;
+  any_decode_split<T, C, HD>(reinterpret_cast<const T*>(a.q) + ((size_t)b * a.H + kvh * G) * HD, G,
+                             (iv.blk0 + s0) * KEYS, (iv.blk0 + s1) * KEYS, iv.start, iv.end,
+                             rows(a.kc), rows(a.vc), scales, a.scale, a.part_o + part * G * HD,
+                             a.part_ml + part * G * 2, smem_raw);
+}
+
 // One CTA per (row, kv head, query head), a thread per depth: the used
-// splits' partial states merged into out [B, H, HD] bf16; a row with an
-// empty interval has none and gives 0.
+// splits' partial states merged into out [B, H, HD] of element type T; a
+// row with an empty interval has none and gives 0.
+template <class T>
 __global__ void decode_merge_kernel(const SplitArgs a, int HD) {
   const int G = a.H / a.KV, bk = blockIdx.x / G, gg = blockIdx.x % G, d = threadIdx.x;
   const int b = bk / a.KV, kvh = bk % a.KV;
@@ -583,7 +619,43 @@ __global__ void decode_merge_kernel(const SplitArgs a, int HD) {
     L = fmaf(ml[(size_t)2 * G * s + 1], e, L);
     A = fmaf(po[(size_t)G * HD * s], e, A);
   }
-  a.out[((size_t)b * a.H + kvh * G + gg) * HD + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+  reinterpret_cast<T*>(a.out)[((size_t)b * a.H + kvh * G + gg) * HD + d] =
+      Elem<T>::put(A / fmaxf(L, 1e-30f));
+}
+
+template <class T, class C, int HD>
+cudaError_t launch_any(const SplitArgs& a, cudaStream_t st) {
+  constexpr int smem = any_decode_smem<C, HD>();
+  cudaError_t err = cudaFuncSetAttribute(decode_any_split_kernel<T, C, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  decode_any_split_kernel<T, C, HD><<<a.B * a.KV * a.NS, ANY_NW * 32, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_merge_kernel<T><<<a.B * a.H, HD, 0, st>>>(a, HD);
+  return cudaGetLastError();
+}
+
+// Query type T, cache element C (T, or int8 for K3), head dim HD: 16 and 32
+// for every type, 64 and 128 for f16 and f32 (bf16 takes the kernels above).
+template <class T, bool Q8>
+cudaError_t run_any(const SplitArgs& a, int HD, cudaStream_t st) {
+  using C = typename std::conditional<Q8, int8_t, T>::type;
+  if (HD == 16) return launch_any<T, C, 16>(a, st);
+  if (HD == 32) return launch_any<T, C, 32>(a, st);
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+    if (HD == 64) return launch_any<T, C, 64>(a, st);
+    if (HD == 128) return launch_any<T, C, 128>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <bool Q8>
+cudaError_t run_any_dtype(const SplitArgs& a, int HD, int dtype, cudaStream_t st) {
+  if (dtype == 0) return run_any<__nv_bfloat16, Q8>(a, HD, st);
+  if (dtype == 1) return run_any<__half, Q8>(a, HD, st);
+  if (dtype == 2) return run_any<float, Q8>(a, HD, st);
+  return cudaErrorInvalidValue;
 }
 
 // The split kernel's shared-memory limit, raised once for each device (the
@@ -609,7 +681,7 @@ cudaError_t launch_q8(const SplitArgs& a, int device, cudaStream_t st) {
   decode_q8_split_kernel<HD><<<a.B * a.KV * a.NS, Q8_NW * 32, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<<<a.B * a.H, HD, 0, st>>>(a, HD);
+  decode_merge_kernel<__nv_bfloat16><<<a.B * a.H, HD, 0, st>>>(a, HD);
   return cudaGetLastError();
 }
 
@@ -631,7 +703,7 @@ cudaError_t launch_bf16(const SplitArgs& a, int device, cudaStream_t st) {
   decode_bf16_split_kernel<HD><<<a.B * a.KV * a.NS, Q8_NW * 32, bf_smem(HD), st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<<<a.B * a.H, HD, 0, st>>>(a, HD);
+  decode_merge_kernel<__nv_bfloat16><<<a.B * a.H, HD, 0, st>>>(a, HD);
   return cudaGetLastError();
 }
 
@@ -639,14 +711,16 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// K2. q [B, H, HD] bf16; k_cache/v_cache [B, S, KV * HD] bf16; starts,
-// lengths [B] int32; part f32 scratch of B * KV * NS * (H / KV) * (HD + 2)
-// floats laid out as K3's; out [B, H, HD] bf16. HD is 64 or 128, H / KV at
-// most 16; the splits as K3's.
+// K2. q [B, H, HD] and k_cache/v_cache [B, S, KV * HD] of element type
+// `dtype` (0 bf16, 1 f16, 2 f32); starts, lengths [B] int32; part f32
+// scratch of B * KV * NS * (H / KV) * (HD + 2) floats laid out as K3's; out
+// [B, H, HD] in q's type. HD is 16, 32, 64 or 128 (bf16 at 64 and 128: the
+// kernel above; else any_decode_split), H / KV at most 16; the splits as
+// K3's.
 extern "C" int decode_attention_bf16(int device, const void* q, const void* kc, const void* vc,
                                      const void* starts, const void* lengths, void* part,
                                      void* out, int B, int H, int KV, int S, int HD,
-                                     int BPS, int NS, float scale, void* stream) {
+                                     int dtype, int BPS, int NS, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || H / KV > MAXG_BF || BPS < 1 ||
@@ -659,22 +733,24 @@ extern "C" int decode_attention_bf16(int device, const void* q, const void* kc, 
                     static_cast<const int*>(starts), static_cast<const int*>(lengths), part_o,
                     part_ml, static_cast<__nv_bfloat16*>(out), B, H, KV, S, BPS, NS, scale};
   const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 || (HD != 64 && HD != 128)) return run_any_dtype<false>(a, HD, dtype, st);
   if (HD == 128) return launch_bf16<128>(a, device, st);
-  if (HD == 64) return launch_bf16<64>(a, device, st);
-  return cudaErrorInvalidValue;
+  return launch_bf16<64>(a, device, st);
 }
 
-// K3. q [B, H, HD] bf16; k_cache/v_cache [B, S, KV * HD] int8 and their
+// K3. q [B, H, HD] of element type `dtype` (0 bf16, 1 f16, 2 f32; out in
+// the same type); k_cache/v_cache [B, S, KV * HD] int8 and their
 // scales k_scale/v_scale [B, S] f32; starts, lengths [B] int32; part f32
 // scratch of B * KV * NS * (H / KV) * (HD + 2) floats, the splits' o
 // [B * KV, NS, H / KV, HD] then their (m, l) [B * KV, NS, H / KV, 2];
-// out [B, H, HD] bf16. HD is 64 or 128, H / KV at most 8; the splits are
-// runs of BPS 16-key blocks, NS of them covering ceil(S / 16).
+// out [B, H, HD]. HD is 16, 32, 64 or 128 (bf16 at 64 and 128: the kernel
+// above; else any_decode_split), H / KV at most 8; the splits are runs of
+// BPS 16-key blocks, NS of them covering ceil(S / 16).
 extern "C" int decode_attention_q8(int device, const void* q, const void* kc, const void* vc,
                                    const void* k_scale, const void* v_scale, const void* starts,
                                    const void* lengths, void* part, void* out,
-                                   int B, int H, int KV, int S, int HD, int BPS, int NS,
-                                   float scale, void* stream) {
+                                   int B, int H, int KV, int S, int HD, int dtype,
+                                   int BPS, int NS, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B < 1 || S < 1 || KV < 1 || H % KV != 0 || H / KV > MAXG || BPS < 1 ||
@@ -689,7 +765,7 @@ extern "C" int decode_attention_q8(int device, const void* q, const void* kc, co
                  static_cast<const int*>(lengths), part_o, part_ml,
                  static_cast<__nv_bfloat16*>(out), B, H, KV, S, BPS, NS, scale};
   const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 || (HD != 64 && HD != 128)) return run_any_dtype<true>(a, HD, dtype, st);
   if (HD == 128) return launch_q8<128>(a, device, st);
-  if (HD == 64) return launch_q8<64>(a, device, st);
-  return cudaErrorInvalidValue;
+  return launch_q8<64>(a, device, st);
 }

@@ -104,11 +104,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 enum Gemm { QKV = 0, OPROJ = 1, GATE_UP = 2, DOWN = 3 };
 
-__host__ __device__ constexpr int att_chunks(int HD) { return 4 * (HD / 64) + 2; }
+// 64-depth chunks of a head row in attention: a head of 16 or 32 depths
+// takes one chunk whose lanes past the head (16 t >= HD) load zeros and
+// are never stored, so no cache row is copied or padded
+__host__ __device__ constexpr int att_nc(int HD) { return HD < 64 ? 1 : HD / 64; }
+__host__ __device__ constexpr int att_chunks(int HD) { return 4 * att_nc(HD) + 2; }
 __host__ __device__ constexpr int att_stage(int HD) { return att_chunks(HD) * CHUNK; }
 // a warp's attention: its ring, then its query fragments ([cc][j][lane],
 // 16 bytes each: the hi and lo parts of k-step j of chunk cc)
-__host__ __device__ constexpr int att_warp(int HD) { return ATT_RING * att_stage(HD) + 32 * 4 * (HD / 64) * 16; }
+__host__ __device__ constexpr int att_warp(int HD) { return ATT_RING * att_stage(HD) + 32 * 4 * att_nc(HD) * 16; }
 __host__ __device__ constexpr int union_bytes(int HD) {
   return KBS_MAX * ACT_BLK > NCW * att_warp(HD) ? KBS_MAX * ACT_BLK : NCW * att_warp(HD);
 }
@@ -616,17 +620,88 @@ __device__ __forceinline__ void qkv_head(const MegaArgs& a, const Product& pr, i
   }
 }
 
+// qkv_head for heads of 16 or 32 depths, several to a 64-column unit: an
+// item is unit u's float4s {2 kh, 2 kh + 1}, columns 32 kh .. 32 kh + 31 of
+// the unit, which is one whole head at Hd = 32 (a depth's partner d +- 16 is
+// the other float4) and two at Hd = 16 (one a float4; the partner d +- 8 is
+// fragment element j ^ 2 of the same float4). Each k and v head's maximum
+// goes to both halves' slots of kvmax.
+template <int HD>
+__device__ __forceinline__ void qkv_unit_small(const MegaArgs& a, const Product& pr, int layer,
+                                               int rb, int u, int i4, int kh, int lane) {
+  constexpr int half = HD / 2;
+  const int g = lane / 4, t = lane % 4;
+  const int W = (a.H + 2 * a.KV) * HD, row0 = rb * ROWS + 8 * i4 + 2 * t;
+  const int kk[2] = {2 * kh, 2 * kh + 1};
+  float4 v[1][2];
+  slice_sums<1, 2>(a, pr, rb, u, 1, i4, lane, kk, v);
+  const float* bias = a.bias + (size_t)layer * W;
+  float x[2][4];
+#pragma unroll
+  for (int ki = 0; ki < 2; ++ki) {
+    const float vv[4] = {v[0][ki].x, v[0][ki].y, v[0][ki].z, v[0][ki].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = u * UNIT + 16 * kk[ki] + g + 8 * (j / 2);
+      x[ki][j] = vv[j] * __ldg(pr.sc + col) + __ldg(bias + col);
+    }
+  }
+  int pos[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    pos[e] = min(max(row0 + e < a.B ? a.positions[row0 + e] : 0, 0), a.S_rope - 1);
+  float mx[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // [ki][e]
+#pragma unroll
+  for (int ki = 0; ki < 2; ++ki)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = u * UNIT + 16 * kk[ki] + g + 8 * (j / 2), e = j % 2;
+      const int h = col / HD, d = col % HD;
+      float y = x[ki][j];
+      if (h < a.H + a.KV) {  // rope on q and k heads
+        const float xp = HD == 32 ? x[ki ^ 1][j] : x[ki][j ^ 2];
+        const float c = __ldg(a.cos_tab + (size_t)pos[e] * HD + d);
+        const float sn = __ldg(a.sin_tab + (size_t)pos[e] * HD + d);
+        y = d < half ? y * c + (-xp) * sn : y * c + xp * sn;
+      }
+      mx[ki][e] = fmaxf(mx[ki][e], fabsf(y));
+      if (row0 + e < a.B) a.qkv[(size_t)(row0 + e) * W + col] = y;
+    }
+#pragma unroll
+  for (int ki = 0; ki < 2; ++ki) {
+    const int h = (u * UNIT + 16 * kk[ki]) / HD;
+    if (h < a.H) continue;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float m = HD == 32 ? fmaxf(mx[0][e], mx[1][e]) : mx[ki][e];
+      m = fmaxf(m, __shfl_xor_sync(RLINF_FULL_MASK, m, 4));
+      m = fmaxf(m, __shfl_xor_sync(RLINF_FULL_MASK, m, 8));
+      m = fmaxf(m, __shfl_xor_sync(RLINF_FULL_MASK, m, 16));
+      const int kvh = (h - a.H) % a.KV, is_v = h >= a.H + a.KV;
+      if (g == 0 && row0 + e < a.B) {
+        float* slot = a.kvmax + (((size_t)(row0 + e) * a.KV + kvh) * 2 + is_v) * 2;
+        slot[0] = m;
+        slot[1] = m;
+      }
+    }
+    if (HD == 32) break;  // one head: both float4s are its
+  }
+}
+
+template <int HD>
 __device__ __forceinline__ void qkv_sum_phase(const MegaArgs& a, int layer) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const Product pr = product(a, layer, QKV);
-  const int nrb = (a.B + ROWS - 1) / ROWS, heads = a.H + 2 * a.KV;
+  const int nrb = (a.B + ROWS - 1) / ROWS;
+  // heads of 64 or 128 depths: items per head; of 16 or 32: per 64-column unit
+  const int heads = HD >= 64 ? a.H + 2 * a.KV : (a.H + 2 * a.KV) * HD / UNIT;
   const int items = nrb * heads * 16;
   for (int item = warp * gridDim.x + blockIdx.x; item < items; item += gridDim.x * NCW) {
     const int kh = item % 2, i4 = (item / 2) % 8, h = (item / 16) % heads, rb = item / (16 * heads);
-    if (a.HD == 128)
-      qkv_head<2>(a, pr, layer, rb, h, i4, kh, lane);
+    if constexpr (HD >= 64)
+      qkv_head<HD / 64>(a, pr, layer, rb, h, i4, kh, lane);
     else
-      qkv_head<1>(a, pr, layer, rb, h, i4, kh, lane);
+      qkv_unit_small<HD>(a, pr, layer, rb, h, i4, kh, lane);
   }
 }
 
@@ -749,9 +824,8 @@ __device__ __forceinline__ int vdepth(int cc, int pw, int r) {
 template <int HD>
 __device__ __forceinline__ void attn_phase(const MegaArgs& a, int layer) {
   const Smem sm = smem_of();
-  constexpr int NC = HD / 64;  // 64-depth chunks of a row: 16 bytes of each a lane
+  constexpr int NC = att_nc(HD);  // 64-depth chunks of a row: 16 bytes of each a lane
   constexpr int STAGE = att_stage(HD);
-  constexpr int half = HD / 2;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int B = a.B, S = a.S, KV = a.KV, G = a.H / a.KV;
   const int KVD = KV * HD, QD = a.H * HD, W = QD + 2 * KVD;
@@ -779,8 +853,8 @@ __device__ __forceinline__ void attn_phase(const MegaArgs& a, int layer) {
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const int key = key0 + g + 8 * rr;
-        const bool ok = key < S;
-        const size_t at = (((size_t)b * S + (ok ? key : 0)) * KV + kvh) * HD + 16 * t;
+        const bool ok = key < S && (HD >= 64 || 16 * t < HD);  // lanes past a short head load zeros
+        const size_t at = ok ? (((size_t)b * S + key) * KV + kvh) * HD + 16 * t : 0;
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc) {
           cp_async<16>(dst + (rr * NC + cc) * CHUNK, a.kc + lay * KVD + at + cc * 64, ok);
@@ -816,7 +890,7 @@ __device__ __forceinline__ void attn_phase(const MegaArgs& a, int layer) {
       for (int k4 = 0; k4 < 4; ++k4) {
         const int d = cc * 64 + 16 * t + 4 * k4;
         float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (head) {
+        if (head && (HD >= 64 || d < HD)) {
           q = __ldcg(reinterpret_cast<const float4*>(qh_row + d));
           if (sp == used - 1) {
             const float4 k = __ldcg(reinterpret_cast<const float4*>(k_row + d));
@@ -860,7 +934,9 @@ __device__ __forceinline__ void attn_phase(const MegaArgs& a, int layer) {
         for (int pw = 0; pw < 4; ++pw)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            o[cc][pw][e] = 2 * t + e % 2 < G ? __ldcg(v_row + vdepth(cc, pw, g + 8 * (e / 2))) : 0.f;
+            o[cc][pw][e] = 2 * t + e % 2 < G && (HD >= 64 || vdepth(cc, pw, g + 8 * (e / 2)) < HD)
+                               ? __ldcg(v_row + vdepth(cc, pw, g + 8 * (e / 2)))
+                               : 0.f;
       // quantize the new k/v (scales over the whole packed rows: the max
       // over the kv heads' maxima) into slot wp
       float kmax = 0.f, vmax = 0.f;
@@ -996,7 +1072,9 @@ __device__ __forceinline__ void attn_phase(const MegaArgs& a, int layer) {
 #pragma unroll
         for (int cc = 0; cc < NC; ++cc)
 #pragma unroll
-          for (int pw = 0; pw < 4; ++pw) __stcg(dst + vdepth(cc, pw, g + 8 * (e / 2)), o[cc][pw][e]);
+          for (int pw = 0; pw < 4; ++pw)
+            if (HD >= 64 || vdepth(cc, pw, g + 8 * (e / 2)) < HD)
+              __stcg(dst + vdepth(cc, pw, g + 8 * (e / 2)), o[cc][pw][e]);
       }
     }
     if (head && t == 0)
@@ -1095,7 +1173,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) mega_kernel(const __grid_constant
     T = product_phase<QKV>(a, layer, T);
     grid_barrier(a.sync, target);
     stamp(a.clock, e);
-    qkv_sum_phase(a, layer);
+    qkv_sum_phase<HD>(a, layer);
     grid_barrier(a.sync, target);
     stamp(a.clock, e + 1);
     attn_phase<HD>(a, layer);
@@ -1236,5 +1314,7 @@ extern "C" int decode_megakernel(
   const auto st = static_cast<cudaStream_t>(stream);
   if (HD == 128) return launch<128>(a, device, grid, sync_words, st);
   if (HD == 64) return launch<64>(a, device, grid, sync_words, st);
+  if (HD == 32) return launch<32>(a, device, grid, sync_words, st);
+  if (HD == 16) return launch<16>(a, device, grid, sync_words, st);
   return cudaErrorInvalidValue;
 }

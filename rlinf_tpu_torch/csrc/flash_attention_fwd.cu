@@ -60,6 +60,10 @@
 //    time at the path's shapes.
 //  * The epilogue reduces each row's sum over its four lanes, scales by 1/l
 //    and writes o in bf16 and lse = m ln 2 + ln l in f32.
+//  * f16 operands run the same design on the f16 form of the same wgmma
+//    instructions (flash_fwd_kernel<HD, true>: f16 tensor maps, P in f16
+//    parts, o in f16). Heads of 16 and 32, and f32 operands, take the
+//    mma.sync kernel further down (flash_fwd_any_kernel).
 
 #include "hopper.cuh"
 
@@ -97,20 +101,17 @@ __device__ __forceinline__ void sched_pass(int c) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(3 + (1 - c)) : "memory");
 }
 
-// p = x as bf16 pairs hi = bf16(x) and lo = bf16(x - hi), in wgmma's A
-// fragment order (k16 step u takes accumulator groups j = 2 u, 2 u + 1).
+// p = x as pairs of T (bf16 or f16) hi = T(x) and lo = T(x - hi), in
+// wgmma's A fragment order (k16 step u takes accumulator groups j = 2 u,
+// 2 u + 1).
+template <class T>
 __device__ __forceinline__ void split_frag(const float (&x)[32], uint32_t (&hi)[4][4],
                                            uint32_t (&lo)[4][4]) {
 #pragma unroll
   for (int u = 0; u < 4; ++u)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float a = x[8 * u + 2 * q], b = x[8 * u + 2 * q + 1];
-      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-      const float2 hf = __bfloat1622float2(h);
-      hi[u][q] = *reinterpret_cast<const uint32_t*>(&h);
-      lo[u][q] = pack_bf16(a - hf.x, b - hf.y);
-    }
+    for (int q = 0; q < 4; ++q)
+      Elem<T>::parts(x[8 * u + 2 * q], x[8 * u + 2 * q + 1], hi[u][q], lo[u][q]);
 }
 
 // The masked online softmax of one key tile, in place: s (the 64 x 64
@@ -166,10 +167,13 @@ struct Args {
   float scale;
 };
 
-template <int HD>
+// F16: f16 operands and output on the f16 form of the same wgmma
+// instructions (the same fragment layouts), else bf16.
+template <int HD, bool F16>
 __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const Args a) {
+  using T = typename std::conditional<F16, __half, __nv_bfloat16>::type;
   constexpr int NB = HD / 64;                  // 64-column boxes of a row
   constexpr int QTILE = NB * (BQ / 64) * GMMA_BOX;
   constexpr int TILE = NB * GMMA_BOX;          // bytes of a 64-row K or V tile
@@ -270,15 +274,15 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const uint64_t desc_k = kmajor(ring + st * 2 * TILE, 0);
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk)
-      wgmma_ss<64, 0>(s, desc_q + kstep(BQ, kk), desc_k + kstep(BK, kk), kk > 0);
+      wgmma_ss<64, 0, F16>(s, desc_q + kstep(BQ, kk), desc_k + kstep(BK, kk), kk > 0);
     wgmma_commit();
   };
   auto issue_pv = [&](int st) {  // O += P V of stage st, p in two parts
     const uint64_t desc_v = mnmajor(ring + st * 2 * TILE + TILE);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      wgmma_rs<HD, 1>(o, ph[u], desc_v + mnstep(u), 1);
-      wgmma_rs<HD, 1>(o, pl[u], desc_v + mnstep(u), 1);
+      wgmma_rs<HD, 1, F16>(o, ph[u], desc_v + mnstep(u), 1);
+      wgmma_rs<HD, 1, F16>(o, pl[u], desc_v + mnstep(u), 1);
     }
     wgmma_commit();
   };
@@ -300,7 +304,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     fence_regs(s);
     float alpha[2];  // o is still 0
     online_softmax(s, meta.kpos[0], rpos, m, l, scale2, t, alpha);
-    split_frag(s, ph, pl);
+    split_frag<T>(s, ph, pl);
     int pend = 0;  // the stage whose V the held p multiplies
     for (int it = 1;; ++it) {
       const int st = it % RING;
@@ -323,7 +327,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
           o[4 * j + 2 * r] *= alpha[r];
           o[4 * j + 2 * r + 1] *= alpha[r];
         }
-      split_frag(s, ph, pl);
+      split_frag<T>(s, ph, pl);
       pend = st;
     }
     sched_wait(c);
@@ -342,11 +346,11 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
     const int sq = q0 + 64 * c + 16 * warp + g + 8 * r;
     if (sq >= a.Sq) continue;
     const float ls = fmaxf(sum, 1e-30f), inv = 1.f / ls;
-    __nv_bfloat16* orow = a.out + (((size_t)b * a.Sq + sq) * a.H + h) * HD + 2 * t;
+    T* orow = reinterpret_cast<T*>(a.out) + (((size_t)b * a.Sq + sq) * a.H + h) * HD + 2 * t;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
-          pack_bf16(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+          Elem<T>::pack(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     // a row that saw no valid key keeps m = NEG_INF, as the plain version's max
     if (t == 0)
       a.lse[((size_t)b * a.H + h) * a.Sq + sq] =
@@ -354,18 +358,215 @@ __global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
   }
 }
 
-template <int HD>
+// ---------------------------------------------------------------------------
+// Head dims 16 and 32, and f16 and f32 operands: mma.sync
+// ---------------------------------------------------------------------------
+//
+// The TMA boxes and wgmma descriptors above cut a row into 64-column boxes
+// in the 128-byte swizzle of bf16; a row of 16 or 32 bf16 columns, or of
+// f32, does not fit them. This kernel computes the same function on
+// mma.sync (hopper.cuh's tiles of any element type): one CTA per (batch
+// row, query head, 64-row query tile), four warps of 16 query rows, each
+// holding its rows' Q fragments in registers. Per 64-key tile the CTA
+// stages K and V in shared memory (16-byte loads, rows padded against bank
+// conflicts), each warp forms S = Q K^T, the same masked online softmax in
+// f32, and O += P V with P as hi and lo parts. Key tiles whose least valid
+// position exceeds the query tile's greatest are skipped, as above.
+constexpr int ANY_BQ = 64, ANY_BK = 64, ANY_THREADS = 128;
+
+template <class T>
+struct AnyArgs {
+  const T *q, *k, *v;
+  const int *pos_q, *pos_kv;
+  const uint8_t* valid;
+  T* out;
+  float* lse;
+  int B, Sq, Sk, H, KV;
+  float scale;
+};
+
+template <class T, int HD>
+constexpr int any_smem() {
+  return 3 * ANY_BK * tile_ld<T, HD>() * (int)sizeof(T);
+}
+
+template <class T, int HD>
+__global__ void __launch_bounds__(ANY_THREADS) flash_fwd_any_kernel(const AnyArgs<T> a) {
+  constexpr int LD = tile_ld<T, HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + ANY_BQ * LD;
+  T* vs = ks + ANY_BK * LD;
+  __shared__ int kpos[ANY_BK];
+  // the query tile's greatest position; the key tile's least, in two slots
+  // by tile parity (a thread may still read the last tile's)
+  __shared__ int lim[3];
+  const int n_qt = (a.Sq + ANY_BQ - 1) / ANY_BQ, n_kt = (a.Sk + ANY_BK - 1) / ANY_BK;
+  const int rest = a.H * a.B;
+  const int qt = n_qt - 1 - blockIdx.x / rest;  // heavy (late) query tiles first
+  const int h = blockIdx.x % rest % a.H, b = blockIdx.x % rest / a.H;
+  const int kvh = h / (a.H / a.KV), q0 = qt * ANY_BQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = 16 * warp;
+
+  if (tid == 0) lim[0] = INT_MIN;
+  stage_rows<T>(qs, LD, ANY_BQ, HD, [&](int r) {
+    return q0 + r < a.Sq ? a.q + (((size_t)b * a.Sq + q0 + r) * a.H + h) * HD : nullptr;
+  }, tid, ANY_THREADS);
+  __syncthreads();
+  if (tid < ANY_BQ) atomicMax(&lim[0], query_pos(a.pos_q, b, q0 + tid, a.Sq));
+  FragA qf[HD / 16];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) qf[kk] = frag_a<T>(qs, LD, row0, 16 * kk, lane);
+  int rpos[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) rpos[r] = query_pos(a.pos_q, b, q0 + row0 + g + 8 * r, a.Sq);
+  __syncthreads();
+  const int qmax = lim[0];
+
+  const float scale2 = a.scale * LOG2E;
+  float m[2] = {RLINF_NEG_INF, RLINF_NEG_INF}, l[2] = {0.f, 0.f};
+  float o[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * ANY_BK;
+    int* kmin = &lim[1 + (kt & 1)];
+    if (tid == 0) *kmin = INT_MAX;
+    __syncthreads();  // the previous tile is read
+    if (tid < ANY_BK) {
+      kpos[tid] = key_pos(a.pos_kv, a.valid, b, k0 + tid, a.Sk);
+      atomicMin(kmin, kpos[tid]);
+    }
+    __syncthreads();
+    if (*kmin > qmax) continue;  // no key of the tile is visible to any row
+    auto krow = [&](const T* base) {
+      return [=](int r) {
+        return k0 + r < a.Sk ? base + (((size_t)b * a.Sk + k0 + r) * a.KV + kvh) * HD : nullptr;
+      };
+    };
+    stage_rows<T>(ks, LD, ANY_BK, HD, krow(a.k), tid, ANY_THREADS);
+    stage_rows<T>(vs, LD, ANY_BK, HD, krow(a.v), tid, ANY_THREADS);
+    __syncthreads();
+    float s[ANY_BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < ANY_BK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) mma_ab<T>(s[nt], qf[kk], frag_bt<T>(ks, LD, 8 * nt, 16 * kk, lane));
+    }
+    // s[nt][2 r + e]: row g + 8 r, key 8 nt + 2 t + e
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int nt = 0; nt < ANY_BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * r + e];
+          x = kpos[8 * nt + 2 * t + e] <= rpos[r] ? x * scale2 : RLINF_NEG_INF;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(RLINF_FULL_MASK, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(RLINF_FULL_MASK, mx, 2));
+      const float alpha = exp2f(m[r] - mx);
+      m[r] = mx;
+      l[r] *= alpha;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        o[n][2 * r] *= alpha;
+        o[n][2 * r + 1] *= alpha;
+      }
+#pragma unroll
+      for (int nt = 0; nt < ANY_BK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[nt][2 * r + e];
+          x = kpos[8 * nt + 2 * t + e] <= rpos[r] ? exp2f(x - mx) : 0.f;
+          l[r] += x;
+        }
+    }
+#pragma unroll
+    for (int u = 0; u < ANY_BK / 16; ++u) {
+      const FragA pf = frag_acc<T>(s[2 * u], s[2 * u + 1]);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) mma_pb<T>(o[n], pf, frag_b<T>(vs, LD, 16 * u, 8 * n, lane));
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(RLINF_FULL_MASK, sum, 1);
+    sum += __shfl_xor_sync(RLINF_FULL_MASK, sum, 2);
+    const int sq = q0 + row0 + g + 8 * r;
+    if (sq >= a.Sq) continue;
+    const float ls = fmaxf(sum, 1e-30f), inv = 1.f / ls;
+    T* orow = a.out + (((size_t)b * a.Sq + sq) * a.H + h) * HD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      orow[8 * n] = Elem<T>::put(o[n][2 * r] * inv);
+      orow[8 * n + 1] = Elem<T>::put(o[n][2 * r + 1] * inv);
+    }
+    if (t == 0)
+      a.lse[((size_t)b * a.H + h) * a.Sq + sq] =
+          (m[r] == RLINF_NEG_INF ? RLINF_NEG_INF : m[r] * LN2) + logf(ls);
+  }
+}
+
+template <class T, int HD>
+cudaError_t launch_any(const AnyArgs<T>& a, cudaStream_t st) {
+  constexpr int smem = any_smem<T, HD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_any_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (a.Sq + ANY_BQ - 1) / ANY_BQ * a.H;
+  flash_fwd_any_kernel<T, HD><<<tiles * a.B, ANY_THREADS, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// Element type T at head dim HD: 16 and 32 for every type, 64 and 128 for
+// f32 (bf16 and f16 take the wgmma kernel there).
+template <class T>
+cudaError_t launch_any_hd(const AnyArgs<T>& a, int HD, cudaStream_t st) {
+  if (HD == 16) return launch_any<T, 16>(a, st);
+  if (HD == 32) return launch_any<T, 32>(a, st);
+  if constexpr (std::is_same<T, float>::value) {
+    if (HD == 64) return launch_any<T, 64>(a, st);
+    if (HD == 128) return launch_any<T, 128>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <class T>
+cudaError_t run_any(const void* q, const void* k, const void* v, const void* pos_q,
+                    const void* pos_kv, const void* valid, void* out, void* lse, int B, int Sq,
+                    int Sk, int H, int KV, int HD, float scale, cudaStream_t st) {
+  const AnyArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                     static_cast<const int*>(pos_q), static_cast<const int*>(pos_kv),
+                     static_cast<const uint8_t*>(valid), static_cast<T*>(out),
+                     static_cast<float*>(lse), B, Sq, Sk, H, KV, scale};
+  return launch_any_hd<T>(a, HD, st);
+}
+
+template <int HD, bool F16>
 cudaError_t launch(const Args& a, cudaStream_t st) {
+  using T = typename std::conditional<F16, __half, __nv_bfloat16>::type;
+  constexpr CUtensorMapDataType type = Elem<T>::MAP;
   CUtensorMap tq, tk, tv;
-  if (!head_map(&tq, a.q, a.B, a.Sq, a.H, HD, BQ) || !head_map(&tk, a.k, a.B, a.Sk, a.KV, HD, BK) ||
-      !head_map(&tv, a.v, a.B, a.Sk, a.KV, HD, BK))
+  if (!head_map(&tq, a.q, a.B, a.Sq, a.H, HD, BQ, type) ||
+      !head_map(&tk, a.k, a.B, a.Sk, a.KV, HD, BK, type) ||
+      !head_map(&tv, a.v, a.B, a.Sk, a.KV, HD, BK, type))
     return cudaErrorInvalidValue;
   constexpr int smem = smem_bytes<HD>();
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HD, F16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (a.Sq + BQ - 1) / BQ * a.H;
-  flash_fwd_kernel<HD><<<tiles * a.B, THREADS, smem, st>>>(tq, tk, tv, a);
+  flash_fwd_kernel<HD, F16><<<tiles * a.B, THREADS, smem, st>>>(tq, tk, tv, a);
   return cudaGetLastError();
 }
 
@@ -373,27 +574,38 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// q [B, Sq, H, HD], k/v [B, Sk, KV, HD] bf16 (16-byte aligned); pos_q
-// [B, Sq], pos_kv [B, Sk] int32; valid [B, Sk] uint8. Writes out
-// [B, Sq, H, HD] bf16 and lse [B, H, Sq] f32. HD is 64 or 128.
+// q [B, Sq, H, HD], k/v [B, Sk, KV, HD] of element type `dtype` (0 bf16,
+// 1 f16, 2 f32; 16-byte aligned); pos_q [B, Sq], pos_kv [B, Sk] int32;
+// valid [B, Sk] uint8. Writes out [B, Sq, H, HD] in the same type and lse
+// [B, H, Sq] f32. HD is 16, 32, 64 or 128: bf16 and f16 at 64 and 128 run
+// the wgmma kernel (its f16 form for f16), everything else the mma.sync
+// kernel.
 extern "C" int flash_attention_fwd(int device, const void* q, const void* k,
                                    const void* v, const void* pos_q,
                                    const void* pos_kv, const void* valid,
                                    void* out, void* lse, int B, int Sq, int Sk,
-                                   int H, int KV, int HD, float scale,
+                                   int H, int KV, int HD, int dtype, float scale,
                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B < 1 || Sq < 1 || Sk < 1 || KV < 1 || H % KV != 0 || !aligned16(q) || !aligned16(k) ||
       !aligned16(v) || !aligned16(out))
     return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
+  if (dtype == 2 || (HD != 64 && HD != 128)) {
+    if (dtype == 1)
+      return run_any<__half>(q, k, v, pos_q, pos_kv, valid, out, lse, B, Sq, Sk, H, KV, HD, scale, st);
+    if (dtype == 2)
+      return run_any<float>(q, k, v, pos_q, pos_kv, valid, out, lse, B, Sq, Sk, H, KV, HD, scale, st);
+    return run_any<__nv_bfloat16>(q, k, v, pos_q, pos_kv, valid, out, lse, B, Sq, Sk, H, KV, HD,
+                                  scale, st);
+  }
   const Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(pos_q),
                static_cast<const int*>(pos_kv), static_cast<const uint8_t*>(valid),
                static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), B, Sq, Sk, H, KV,
                scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (HD == 128) return launch<128>(a, st);
-  if (HD == 64) return launch<64>(a, st);
-  return cudaErrorInvalidValue;
+  if (dtype == 1) return HD == 128 ? launch<128, true>(a, st) : launch<64, true>(a, st);
+  return HD == 128 ? launch<128, false>(a, st) : launch<64, false>(a, st);
 }

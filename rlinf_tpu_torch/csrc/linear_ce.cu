@@ -229,10 +229,9 @@ __device__ __forceinline__ void gemm_epilogue(const GemmArgs& a, float (&acc)[2]
 // PASS 2 (F): K5's statistics tiles and PASS 0 (A): dz tiles, both with
 // A = h [n, D], B = W as (k = d, n = v); PASS 1 (B): dh partials (A = dz
 // [n, Vp], B = W as (k = v, n = d)). B_MN: B is n-contiguous in memory.
-template <int PASS, bool B_MN>
-__global__ void __launch_bounds__(G_THREADS, 1) ce_gemm_kernel(
-    const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
-    const GemmArgs a) {
+template <int PASS, bool B_MN, bool F16>
+__device__ __forceinline__ void ce_gemm(const CUtensorMap& tm_a, const CUtensorMap& tm_b,
+                                        const GemmArgs& a) {
   extern __shared__ unsigned char g_smem[];
   __shared__ __align__(8) uint64_t bars[2][2][RING];  // [consumer][full, empty][stage]
   const uint32_t base = (smem_u32(g_smem) + 1023u) & ~1023u;
@@ -303,8 +302,8 @@ __global__ void __launch_bounds__(G_THREADS, 1) ce_gemm_kernel(
           // apart, k16 = 16 rows of 128 B.
           const uint64_t db = B_MN ? gmma_desc(sb + j * 2048, TILE_BYTES / 2, 1024)
                                    : gmma_desc(sb + j * 32, 16, 1024);
-          wgmma_ss<GN, B_MN ? 1 : 0>(acc[0], gmma_desc(sa + j * 32, 16, 1024), db, on);
-          wgmma_ss<GN, B_MN ? 1 : 0>(acc[1], gmma_desc(sa + 8192 + j * 32, 16, 1024), db, on);
+          wgmma_ss<GN, B_MN ? 1 : 0, F16>(acc[0], gmma_desc(sa + j * 32, 16, 1024), db, on);
+          wgmma_ss<GN, B_MN ? 1 : 0, F16>(acc[1], gmma_desc(sa + 8192 + j * 32, 16, 1024), db, on);
         }
         wgmma_commit();
         // the stage before this one is read: give it back to the producer
@@ -321,6 +320,21 @@ __global__ void __launch_bounds__(G_THREADS, 1) ce_gemm_kernel(
         gemm_epilogue<PASS>(a, acc, m0, n0, slice, warp, lane);
     }
   }
+}
+
+template <int PASS, bool B_MN>
+__global__ void __launch_bounds__(G_THREADS, 1) ce_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+    const GemmArgs a) {
+  ce_gemm<PASS, B_MN, false>(tm_a, tm_b, a);
+}
+
+// The same on f16 operands: the f16 form of the same wgmma (K5, K6's pass A).
+template <int PASS, bool B_MN>
+__global__ void __launch_bounds__(G_THREADS, 1) ce_gemm_f16_kernel(
+    const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
+    const GemmArgs a) {
+  ce_gemm<PASS, B_MN, true>(tm_a, tm_b, a);
 }
 
 // K5's combine: lp, ent and lse of each row from its tiles' statistics
@@ -372,47 +386,145 @@ __global__ void __launch_bounds__(MERGE_NT) dh_merge_kernel(const float* __restr
   *reinterpret_cast<__nv_bfloat162*>(dh + i + 2) = __floats2bfloat162_rn(s.z, s.w);
 }
 
+// ---------------------------------------------------------------------------
+// f16 and f32 operands: three bf16 products in one mainloop
+// ---------------------------------------------------------------------------
+//
+// f16 operands run the same mainloop on the f16 form of its wgmma
+// (ce_gemm_f16_kernel, f16 tensor maps): K5 and K6's pass A.
+// An f32 operand x is split into bf16 parts hi = bf16(x) and
+// lo = bf16(x - hi) (2^-16 of x), and the product h W becomes
+// h_hi W_hi + h_hi W_lo + h_lo W_hi: one product of depth 3 D over
+// h' = [h_hi | h_hi | h_lo] and W' = [W_hi; W_lo; W_hi] (the dropped
+// h_lo W_lo is about 2^-16 of the product). So the same mainloop, tiles and
+// epilogues run on the parts, which split_kernel writes to bf16 scratch
+// first (a pass over h and W at the memory rate). K6's pass B multiplies
+// the bf16 dz (the reference's dtype) by W; one wgmma takes one operand
+// type, so for f16 and f32 it multiplies dz by the first two blocks of W'
+// (f16 splits exactly), each into its own columns, and dh_fold_kernel adds
+// them: dh = dz (W_hi + W_lo)^T.
+
+// x [R, C] (element type T, contiguous) -> three bf16 blocks of its parts,
+// block k the lo part where bit k of lo_mask is set, else hi: column blocks
+// (out [R, 3 C]) or row blocks (out [3 R, C]).
+template <class T>
+__global__ void split_kernel(const T* __restrict__ x, __nv_bfloat16* __restrict__ out, size_t R,
+                             size_t C, int col_blocks, int lo_mask) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R * C) return;
+  const size_t r = i / C, c = i % C;
+  const float v = to_f32(x[i]);
+  const __nv_bfloat16 hi = __float2bfloat16(v);
+  const __nv_bfloat16 lo = __float2bfloat16(v - __bfloat162float(hi));
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    out[col_blocks ? (r * 3 + k) * C + c : (k * R + r) * C + c] = (lo_mask >> k) & 1 ? lo : hi;
+}
+
+// dh [n, D] of element type T = sum over slices, in slice order, of
+// part[slice] [n, 2 D], columns c and D + c added.
+template <class T>
+__global__ void __launch_bounds__(MERGE_NT) dh_fold_kernel(const float* __restrict__ part,
+                                                           T* __restrict__ dh, int n, int D,
+                                                           int n_slices) {
+  const size_t i = (size_t)blockIdx.x * MERGE_NT + threadIdx.x;
+  if (i >= (size_t)n * D) return;
+  const size_t row = i / D, c = i % D, count = (size_t)n * 2 * D;
+  const float* p = part + row * 2 * D + c;
+  float s = 0.f;
+  for (int k = 0; k < n_slices; ++k) s += p[(size_t)k * count] + p[(size_t)k * count + D];
+  dh[i] = Elem<T>::put(s);
+}
+
+template <class T>
+cudaError_t split(const void* x, void* out, size_t R, size_t C, int col_blocks, int lo_mask,
+                  cudaStream_t st) {
+  const size_t count = R * C;
+  split_kernel<T><<<static_cast<unsigned>((count + 255) / 256), 256, 0, st>>>(
+      static_cast<const T*>(x), static_cast<__nv_bfloat16*>(out), R, C, col_blocks, lo_mask);
+  return cudaGetLastError();
+}
+
+// W' of an f16 (dtype 1) or f32 (dtype 2) W ([V, D] vd, or [D, ldw]) into
+// ws ([V, 3 D] or [3 D, ldw]) bf16, and with hs h' of h [n, D] into hs
+// [n, 3 D] bf16.
+cudaError_t split_operands(int dtype, const void* h, const void* w, void* hs, void* ws, int n,
+                           int D, int V, int ldw, int vd, cudaStream_t st) {
+  auto run = [&](auto tag) {
+    using T = decltype(tag);
+    if (hs != nullptr) {
+      const cudaError_t err = split<T>(h, hs, n, D, 1, 4, st);
+      if (err != cudaSuccess) return err;
+    }
+    return vd ? split<T>(w, ws, V, D, 1, 2, st) : split<T>(w, ws, D, ldw, 0, 2, st);
+  };
+  if (dtype == 1) return run(__half{});
+  if (dtype == 2) return run(0.f);
+  return cudaErrorInvalidValue;
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-template <int PASS, bool B_MN>
+template <int PASS, bool B_MN, bool F16 = false>
 cudaError_t launch_gemm(const CUtensorMap& ta, const CUtensorMap& tb, const GemmArgs& a, int grid,
                         cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(ce_gemm_kernel<PASS, B_MN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+  const auto kernel = F16 ? ce_gemm_f16_kernel<PASS, B_MN> : ce_gemm_kernel<PASS, B_MN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
   if (err != cudaSuccess) return err;
   const int blocks = grid < a.n_items ? grid : a.n_items;
-  ce_gemm_kernel<PASS, B_MN><<<blocks, G_THREADS, G_SMEM, st>>>(ta, tb, a);
+  kernel<<<blocks, G_THREADS, G_SMEM, st>>>(ta, tb, a);
   return cudaGetLastError();
+}
+
+// Pass PASS (F or A: logits tiles, B's layout by vd) on bf16 or f16 operands.
+template <int PASS>
+cudaError_t launch_logits(const CUtensorMap& ta, const CUtensorMap& tb, const GemmArgs& a,
+                          int grid, int vd, bool f16, cudaStream_t st) {
+  if (f16) return vd ? launch_gemm<PASS, false, true>(ta, tb, a, grid, st)
+                     : launch_gemm<PASS, true, true>(ta, tb, a, grid, st);
+  return vd ? launch_gemm<PASS, false>(ta, tb, a, grid, st) : launch_gemm<PASS, true>(ta, tb, a, grid, st);
 }
 
 
 }  // namespace
 
-// K5. h [n, D] bf16, w [V, D] (vd = 1) or [D, V] (vd = 0) bf16 with rows
-// ldw elements apart, tgt [n] int32; part f32 [4, ceil(V / 128), n]
-// scratch; lp, ent, lse f32 [n]. D and ldw are multiples of 8, as TMA row
-// strides are multiples of 16 bytes (ops/cuda/linear_ce.py pads them).
-// grid: CTAs, at most one an SM.
+// K5. h [n, D], w [V, D] (vd = 1) or [D, V] (vd = 0) with rows ldw
+// elements apart, both of element type `dtype` (0 bf16, 1 f16, 2 f32); tgt
+// [n] int32; part f32 [4, ceil(V / 128), n] scratch; lp, ent, lse f32 [n];
+// for f32, hs bf16 [n, 3 D] and ws bf16 (vd [V, 3 D], else [3 D, ldw])
+// scratch for the split operands (else unused). D and ldw are multiples
+// of 8, as TMA row strides are multiples of 16 bytes (ops/cuda/linear_ce.py
+// pads them). grid: CTAs, at most one an SM.
 extern "C" int linear_ce_fwd(int device, const void* h, const void* w, const void* tgt,
-                             void* part, void* lp, void* ent, void* lse, int n, int D, int V,
-                             int ldw, int vd, int grid, float inv_temp, void* stream) {
+                             void* part, void* lp, void* ent, void* lse, void* hs, void* ws,
+                             int n, int D, int V, int ldw, int vd, int dtype, int grid,
+                             float inv_temp, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int w_inner = vd ? D : V, w_outer = vd ? V : D;
-  if (n < 1 || V < 1 || D % 8 || ldw % 8 || ldw < w_inner || grid < 1 || !aligned16(h) ||
-      !aligned16(w))
+  if (n < 1 || V < 1 || D % 8 || ldw % 8 || ldw < (vd ? D : V) || grid < 1 || !aligned16(h) ||
+      !aligned16(w) || dtype < 0 || dtype > 2 ||
+      (dtype == 2 && (!aligned16(hs) || !aligned16(ws))))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 2) {
+    if ((err = split_operands(dtype, h, w, hs, ws, n, D, V, ldw, vd, st)) != cudaSuccess) return err;
+    h = hs;
+    w = ws;
+    if (vd) ldw = 3 * D;
+    D *= 3;
+  }
+  const CUtensorMapDataType type =
+      dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int w_inner = vd ? D : V, w_outer = vd ? V : D;
   CUtensorMap tm_h, tm_w;
-  if (!make_map(&tm_h, h, D, n, D, GM) ||
-      !make_map(&tm_w, w, w_inner, w_outer, ldw, vd ? GN : 64))
+  if (!make_map(&tm_h, h, D, n, D, GM, type) ||
+      !make_map(&tm_w, w, w_inner, w_outer, ldw, vd ? GN : 64, type))
     return cudaErrorInvalidValue;
   GemmArgs a{n, D, V, 0, 0, (n + GM - 1) / GM, (V + GN - 1) / GN, (D + GK - 1) / GK, 1,
              inv_temp, static_cast<const int*>(tgt), nullptr, nullptr, nullptr, nullptr,
              nullptr, static_cast<float*>(part)};
   a.n_items = a.n_mt * a.n_nt;
-  err = vd ? launch_gemm<2, false>(tm_h, tm_w, a, grid, st)
-           : launch_gemm<2, true>(tm_h, tm_w, a, grid, st);
+  err = launch_logits<2>(tm_h, tm_w, a, grid, vd, dtype == 1, st);
   if (err != cudaSuccess) return err;
   ce_fwd_combine_kernel<<<(n + COMBINE_ROWS - 1) / COMBINE_ROWS, COMBINE_ROWS * COMBINE_SEGS, 0,
                           st>>>(static_cast<const float*>(part), static_cast<float*>(lp),
@@ -420,46 +532,78 @@ extern "C" int linear_ce_fwd(int device, const void* h, const void* w, const voi
   return cudaGetLastError();
 }
 
-// K6. h, w, tgt, D, ldw and grid as K5, plus lse, mu, g_lp, g_ent f32
-// [n]; dz bf16 [n, Vp] (Vp a multiple of 128, pad columns written 0); dh
-// bf16 [n, D]; part f32 [n_slices, n, D] scratch.
+// K6. h, w, tgt, D, ldw, dtype and grid as K5, plus lse, mu, g_lp, g_ent
+// f32 [n]; dz bf16 [n, Vp] (Vp a multiple of 128, pad columns written 0);
+// dh [n, D] in h's type; part f32 [n_slices, n, D] scratch ([n_slices, n,
+// 2 D] for f16 and f32); ws for f16 and f32, hs for f32, as K5's.
 extern "C" int linear_ce_bwd(int device, const void* h, const void* w, const void* tgt,
                              const void* lse, const void* mu, const void* g_lp,
-                             const void* g_ent, void* dz, void* dh, void* part, int n, int D,
-                             int V, int Vp, int ldw, int vd, int n_slices, int grid,
-                             float inv_temp, void* stream) {
+                             const void* g_ent, void* dz, void* dh, void* part, void* hs,
+                             void* ws, int n, int D, int V, int Vp, int ldw, int vd, int dtype,
+                             int n_slices, int grid, float inv_temp, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  // W as a matrix: vd [V rows of D], dv [D rows of V]. As B it is k-contiguous
-  // in pass A and n-contiguous in pass B for vd, the other way round for dv.
-  const int w_inner = vd ? D : V, w_outer = vd ? V : D;
-  if (n < 1 || D % 8 || Vp < V || Vp % GN || ldw % 8 || ldw < w_inner || n_slices < 1 ||
-      n_slices > Vp / GK || grid < 1 || !aligned16(h) || !aligned16(w) || !aligned16(dz))
+  if (n < 1 || D % 8 || Vp < V || Vp % GN || ldw % 8 || ldw < (vd ? D : V) || n_slices < 1 ||
+      n_slices > Vp / GK || grid < 1 || !aligned16(h) || !aligned16(w) || !aligned16(dz) ||
+      dtype < 0 || dtype > 2 || (dtype && !aligned16(ws)) || (dtype == 2 && !aligned16(hs)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int D_out = D;  // dh's columns
+  // pass A's operands (h, w at depth Da, rows of W lda apart) and pass B's
+  // W (wb at depth Db, ldb): f16 runs pass A as it is and pass B on W's
+  // parts, f32 both on the parts
+  const void *ha = h, *wa = w, *wb = w;
+  int Da = D, lda = ldw, Db = D, ldb = ldw;
+  if (dtype != 0) {
+    err = split_operands(dtype, h, w, dtype == 2 ? hs : nullptr, ws, n, D, V, ldw, vd, st);
+    if (err != cudaSuccess) return err;
+    wb = ws;
+    Db = 3 * D;
+    ldb = vd ? 3 * D : ldw;
+    if (dtype == 2) {
+      ha = hs;
+      wa = ws;
+      Da = Db;
+      lda = ldb;
+    }
+  }
+  const CUtensorMapDataType type_a =
+      dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // W as a matrix: vd [V rows of D], dv [D rows of V]. As B it is k-contiguous
+  // in pass A and n-contiguous in pass B for vd, the other way round for dv.
   // The maps read W's real extent (TMA fills what lies past it with zeros),
   // so pad columns of a padded row stride are never read.
   CUtensorMap tm_h, tm_dz, tm_wa, tm_wb;
-  if (!make_map(&tm_h, h, D, n, D, GM) || !make_map(&tm_dz, dz, Vp, n, Vp, GM) ||
-      !make_map(&tm_wa, w, w_inner, w_outer, ldw, vd ? GN : 64) ||
-      !make_map(&tm_wb, w, w_inner, w_outer, ldw, vd ? 64 : GN))
+  if (!make_map(&tm_h, ha, Da, n, Da, GM, type_a) || !make_map(&tm_dz, dz, Vp, n, Vp, GM) ||
+      !make_map(&tm_wa, wa, vd ? Da : V, vd ? V : Da, lda, vd ? GN : 64, type_a) ||
+      !make_map(&tm_wb, wb, vd ? Db : V, vd ? V : Db, ldb, vd ? 64 : GN))
     return cudaErrorInvalidValue;
-  GemmArgs a{n, D, V, Vp, 0, (n + GM - 1) / GM, Vp / GN, (D + GK - 1) / GK, 1, inv_temp,
+  GemmArgs a{n, Da, V, Vp, 0, (n + GM - 1) / GM, Vp / GN, (Da + GK - 1) / GK, 1, inv_temp,
              static_cast<const int*>(tgt), static_cast<const float*>(lse),
              static_cast<const float*>(mu), static_cast<const float*>(g_lp),
              static_cast<const float*>(g_ent), static_cast<__nv_bfloat16*>(dz),
              static_cast<float*>(part)};
   a.n_items = a.n_mt * a.n_nt;
-  err = vd ? launch_gemm<0, false>(tm_h, tm_wa, a, grid, st)
-           : launch_gemm<0, true>(tm_h, tm_wa, a, grid, st);
+  err = launch_logits<0>(tm_h, tm_wa, a, grid, vd, dtype == 1, st);
   if (err != cudaSuccess) return err;
-  a.n_nt = (D + GN - 1) / GN;
+  a.D = dtype ? 2 * D_out : D;  // pass B's columns: W' blocks hi and lo only when split
+  a.n_nt = (a.D + GN - 1) / GN;
   a.n_kb = Vp / GK;
   a.n_slices = n_slices;
   a.n_items = a.n_nt * a.n_mt * n_slices;
   err = vd ? launch_gemm<1, true>(tm_dz, tm_wb, a, grid, st)
            : launch_gemm<1, false>(tm_dz, tm_wb, a, grid, st);
   if (err != cudaSuccess) return err;
+  if (dtype != 0) {
+    const unsigned blocks = static_cast<unsigned>(((size_t)n * D_out + MERGE_NT - 1) / MERGE_NT);
+    if (dtype == 1)
+      dh_fold_kernel<__half><<<blocks, MERGE_NT, 0, st>>>(static_cast<const float*>(part),
+                                                           static_cast<__half*>(dh), n, D_out, n_slices);
+    else
+      dh_fold_kernel<float><<<blocks, MERGE_NT, 0, st>>>(static_cast<const float*>(part),
+                                                          static_cast<float*>(dh), n, D_out, n_slices);
+    return cudaGetLastError();
+  }
   const size_t count = (size_t)n * D;
   const unsigned blocks = static_cast<unsigned>((count / 4 + MERGE_NT - 1) / MERGE_NT);
   dh_merge_kernel<<<blocks, MERGE_NT, 0, st>>>(static_cast<const float*>(part),

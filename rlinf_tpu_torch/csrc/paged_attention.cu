@@ -276,9 +276,41 @@ __global__ void __launch_bounds__(NW * 32, 3) paged_split_kernel(const Args a) {
   }
 }
 
+// Head dims 16 and 32, and f16 and f32 pages: the same split over whole
+// pages and the same merge, the split on hopper.cuh's any_decode_split
+// (mma.sync on tiles of any element type, each warp staging 16 keys' rows
+// at a time from their pages). The page-stage layout above cuts rows into
+// 32-column chunks of bf16, which a shorter row or an f32 row does not fill.
+template <class T, int HD>
+__global__ void __launch_bounds__(ANY_NW * 32) paged_any_split_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sp = blockIdx.x % a.NS, bk = blockIdx.x / a.NS;
+  const int b = bk / a.KV, kvh = bk % a.KV, G = a.H / a.KV;
+  const int len = min(max(a.lengths[b], 0), a.MAXP * a.P);
+  const int npg = (len + a.P - 1) / a.P;
+  const int p0 = sp * a.PPS;
+  if (p0 >= npg) return;  // past the row's last page: no work, no partial
+  const int p1 = min(p0 + a.PPS, npg);
+  const int* table = a.page_table + (size_t)b * a.MAXP;
+  auto rows = [&](const __nv_bfloat16* pages) {
+    const T* base = reinterpret_cast<const T*>(pages);
+    return [=](int key) -> const T* {
+      const int page = table[key / a.P];
+      return base + (((size_t)page * a.KV + kvh) * a.P + key % a.P) * HD;
+    };
+  };
+  auto scales = [](int) { return make_float2(1.f, 1.f); };
+  const size_t part = (size_t)bk * a.NS + sp;
+  any_decode_split<T, T, HD>(reinterpret_cast<const T*>(a.q) + ((size_t)b * a.H + kvh * G) * HD, G,
+                             p0 * a.P, min(p1 * a.P, len), 0, len, rows(a.k_pages),
+                             rows(a.v_pages), scales, a.scale, a.part_o + part * G * HD,
+                             a.part_ml + part * G * 2, smem_raw);
+}
+
 // One CTA per (row, kv head, query head), a thread per depth: the used
-// splits' partial states merged into out [B, H, HD] bf16; a row of length 0
-// has none and gives 0.
+// splits' partial states merged into out [B, H, HD] of element type T; a
+// row of length 0 has none and gives 0.
+template <class T>
 __global__ void paged_merge_kernel(const Args a, int HD) {
   const int G = a.H / a.KV, bk = blockIdx.x / G, gg = blockIdx.x % G, d = threadIdx.x;
   const int b = bk / a.KV, kvh = bk % a.KV;
@@ -293,7 +325,34 @@ __global__ void paged_merge_kernel(const Args a, int HD) {
     L = fmaf(ml[(size_t)2 * G * s + 1], e, L);
     A = fmaf(po[(size_t)G * HD * s], e, A);
   }
-  a.out[((size_t)b * a.H + kvh * G + gg) * HD + d] = __float2bfloat16(A / fmaxf(L, 1e-30f));
+  reinterpret_cast<T*>(a.out)[((size_t)b * a.H + kvh * G + gg) * HD + d] =
+      Elem<T>::put(A / fmaxf(L, 1e-30f));
+}
+
+template <class T, int HD>
+cudaError_t launch_any(const Args& a, cudaStream_t st) {
+  constexpr int smem = any_decode_smem<T, HD>();
+  cudaError_t err = cudaFuncSetAttribute(paged_any_split_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  paged_any_split_kernel<T, HD><<<a.B * a.KV * a.NS, ANY_NW * 32, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  paged_merge_kernel<T><<<a.B * a.H, HD, 0, st>>>(a, HD);
+  return cudaGetLastError();
+}
+
+// Element type T at head dim HD: 16 and 32 for every type, 64 and 128 for
+// f16 and f32 (bf16 takes the kernel above).
+template <class T>
+cudaError_t run_any(const Args& a, int HD, cudaStream_t st) {
+  if (HD == 16) return launch_any<T, 16>(a, st);
+  if (HD == 32) return launch_any<T, 32>(a, st);
+  if constexpr (!std::is_same<T, __nv_bfloat16>::value) {
+    if (HD == 64) return launch_any<T, 64>(a, st);
+    if (HD == 128) return launch_any<T, 128>(a, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <int HD>
@@ -305,7 +364,7 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   paged_split_kernel<HD><<<a.B * a.KV * a.NS, NW * 32, smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_merge_kernel<<<a.B * a.H, HD, 0, st>>>(a, HD);
+  paged_merge_kernel<__nv_bfloat16><<<a.B * a.H, HD, 0, st>>>(a, HD);
   return cudaGetLastError();
 }
 
@@ -313,17 +372,19 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 }  // namespace
 
-// q [B, H, HD] bf16; k_pages/v_pages [NP, KV, P, HD] bf16 (16-byte
-// aligned); page_table [B, MAXP], lengths [B] int32; part_ml
-// [B * KV, NS, H / KV, 2] and part_o [B * KV, NS, H / KV, HD] f32 scratch;
-// out [B, H, HD] bf16. HD is 64 or 128, H / KV at most 16, P a multiple of
-// 8 with P * HD <= 4096; the splits are runs of PPS pages, NS of them
-// covering MAXP.
+// q [B, H, HD] and k_pages/v_pages [NP, KV, P, HD] of element type `dtype`
+// (0 bf16, 1 f16, 2 f32; 16-byte aligned); page_table [B, MAXP], lengths
+// [B] int32; part_ml [B * KV, NS, H / KV, 2] and part_o
+// [B * KV, NS, H / KV, HD] f32 scratch; out [B, H, HD] in q's type. HD is
+// 16, 32, 64 or 128 (bf16 at 64 and 128: the kernel above; else
+// any_decode_split), H / KV at most 16, P a multiple of 8 with
+// P * HD <= 4096; the splits are runs of PPS pages, NS of them covering
+// MAXP.
 extern "C" int paged_attention_bf16(int device, const void* q, const void* k_pages,
                                     const void* v_pages, const void* page_table,
                                     const void* lengths, void* part_ml, void* part_o, void* out,
-                                    int B, int H, int KV, int P, int MAXP, int HD, int PPS,
-                                    int NS, float scale, void* stream) {
+                                    int B, int H, int KV, int P, int MAXP, int HD, int dtype,
+                                    int PPS, int NS, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B < 1 || KV < 1 || H % KV != 0 || H / KV > MAXG || P < 8 || P % 8 != 0 ||
@@ -336,7 +397,10 @@ extern "C" int paged_attention_bf16(int device, const void* q, const void* k_pag
                static_cast<float*>(part_o), static_cast<__nv_bfloat16*>(out), B, H, KV, P, MAXP,
                PPS, NS, scale};
   const auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return run_any<__half>(a, HD, st);
+  if (dtype == 2) return run_any<float>(a, HD, st);
+  if (dtype != 0) return cudaErrorInvalidValue;
+  if (HD != 64 && HD != 128) return run_any<__nv_bfloat16>(a, HD, st);
   if (HD == 128) return launch<128>(a, st);
-  if (HD == 64) return launch<64>(a, st);
-  return cudaErrorInvalidValue;
+  return launch<64>(a, st);
 }

@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernel _sample_kernel of
 // rlinf_tpu/ops/pallas/sampler_kernel.py (fused_lmhead_sample). Same
 // function: z = (hidden @ lm_q) * lm_scale / T over the vocabulary, the int8
-// weight widened to bf16 and the products summed in f32, with no [B, V]
+// weight widened to bf16 (f16 for an f16 hidden state; an f32 one runs as
+// two bf16 parts, split_smem_bytes) and the products summed in f32, with no [B, V]
 // tensor in device memory; the token is the Gumbel-max draw argmax(z + g)
 // and its logprob is z_tok - logsumexp(z). Greedy mode takes the argmax of
 // the raw logits (T = 1) and its logprob. Columns >= V are excluded. Ties go
@@ -156,6 +157,18 @@ __device__ __forceinline__ void cvt_i8x4(uint32_t w, uint32_t (&b)[2]) {
   b[1] = *reinterpret_cast<const uint32_t*>(&hi);
 }
 
+// The same for f16 (an f16 hidden state): byte b + 128 in the mantissa of
+// 1024 gives the half 1024 + 128 + b, exactly; the subtraction leaves b.
+__device__ __forceinline__ void cvt_i8x4_f16(uint32_t w, uint32_t (&b)[2]) {
+  const uint32_t u = w ^ 0x80808080u;
+  const __half2 bias = __float2half2_rn(1152.f);
+  const uint32_t lo = __byte_perm(u, 0x64646464u, 0x4140), hi = __byte_perm(u, 0x64646464u, 0x4342);
+  const __half2 l = __hsub2(*reinterpret_cast<const __half2*>(&lo), bias);
+  const __half2 h = __hsub2(*reinterpret_cast<const __half2*>(&hi), bias);
+  b[0] = *reinterpret_cast<const uint32_t*>(&l);
+  b[1] = *reinterpret_cast<const uint32_t*>(&h);
+}
+
 __device__ __forceinline__ uint32_t word(const uint4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
@@ -165,7 +178,7 @@ __device__ __forceinline__ void wg_barrier(int wg) {
 }
 
 struct SampleArgs {
-  const __nv_bfloat16* hidden;  // [B, D]
+  const void* hidden;           // [B, D] bf16, f16 or f32 (hdt 0, 1, 2)
   const int8_t* w;              // packed [Vp/64][Dp/64][4096]
   const float* scale;           // [Vp], 0 beyond V
   float* part_f;                // [4, slots, B]: m, se, bs, bz
@@ -174,6 +187,7 @@ struct SampleArgs {
   float inv_temp;
   int greedy;
   uint32_t seed;
+  int hdt;
 };
 
 template <int N>
@@ -181,7 +195,27 @@ constexpr size_t smem_bytes(int Dp) {
   return (size_t)WG * N * ZLD * 4 + 1024 + (size_t)N * Dp * 2;
 }
 
-template <int N>
+// HT, the hidden state's type: 0 bf16; 1 f16, staged as it is and
+// multiplied by the weight widened to f16 on the f16 form of the wgmma; 2
+// f32, staged as two bf16 blocks, hi = bf16(x) and lo = bf16(x - hi), each
+// multiplied by the (exactly widened) weight. Either product keeps the
+// hidden state's precision, as the Pallas kernel's product in the hidden
+// dtype does. The lo block follows the hi block.
+template <int N, int HT>
+constexpr size_t split_smem_bytes(int Dp) {
+  return smem_bytes<N>(Dp) + (HT == 2 ? (size_t)N * Dp * 2 : 0);
+}
+
+// Eight f32 hidden values of row `row` from depth c8 on.
+__device__ __forceinline__ void hidden8(const SampleArgs& a, int row, int c8, float (&x)[8]) {
+  const float4* p = reinterpret_cast<const float4*>(static_cast<const float*>(a.hidden) +
+                                                    (size_t)row * a.D + c8);
+  const float4 u = p[0], v = p[1];
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+  x[4] = v.x; x[5] = v.y; x[6] = v.z; x[7] = v.w;
+}
+
+template <int N, int HT>
 __global__ void __launch_bounds__(NT, 1) sample_kernel(const SampleArgs a) {
   constexpr int TPR = 128 / N;      // threads of a warpgroup that share a row in the epilogue
   constexpr int CPT = GROUP / TPR;  // ... and the columns each of them takes
@@ -221,11 +255,25 @@ __global__ void __launch_bounds__(NT, 1) sample_kernel(const SampleArgs a) {
     const int cpr = a.Dp / 8;  // 16-byte chunks a staged row
     for (int idx = threadIdx.x; idx < N * cpr; idx += NT) {
       const int n = idx / cpr, c = idx % cpr;
+      const size_t off = (size_t)(c / 8) * N * 128 + n * 128 + ((c % 8) ^ (n % 8)) * 16;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n < rows && c * 8 < a.D)
-        v = *reinterpret_cast<const uint4*>(a.hidden + (size_t)(r0 + n) * a.D + c * 8);
-      *reinterpret_cast<uint4*>(hid_ptr + (size_t)(c / 8) * N * 128 + n * 128 +
-                                ((c % 8) ^ (n % 8)) * 16) = v;
+      if constexpr (HT == 2) {
+        uint4 lo = v;
+        if (n < rows && c * 8 < a.D) {
+          float x[8];
+          hidden8(a, r0 + n, c * 8, x);
+          uint32_t h[4], l[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) Elem<__nv_bfloat16>::parts(x[2 * i], x[2 * i + 1], h[i], l[i]);
+          v = make_uint4(h[0], h[1], h[2], h[3]);
+          lo = make_uint4(l[0], l[1], l[2], l[3]);
+        }
+        *reinterpret_cast<uint4*>(hid_ptr + (size_t)N * a.Dp * 2 + off) = lo;
+      } else if (n < rows && c * 8 < a.D) {  // bf16 or f16: 8 elements a chunk
+        v = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(a.hidden) +
+                                            (size_t)(r0 + n) * a.D + c * 8);
+      }
+      *reinterpret_cast<uint4*>(hid_ptr + off) = v;
     }
     // the tile is written by ordinary stores and read by wgmma (the async proxy)
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -249,8 +297,13 @@ __global__ void __launch_bounds__(NT, 1) sample_kernel(const SampleArgs a) {
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             uint32_t r0w[2], r1w[2];
-            cvt_i8x4(word(wv[u][j / 2], 2 * (j % 2)), r0w);
-            cvt_i8x4(word(wv[u][j / 2], 2 * (j % 2) + 1), r1w);
+            if constexpr (HT == 1) {
+              cvt_i8x4_f16(word(wv[u][j / 2], 2 * (j % 2)), r0w);
+              cvt_i8x4_f16(word(wv[u][j / 2], 2 * (j % 2) + 1), r1w);
+            } else {
+              cvt_i8x4(word(wv[u][j / 2], 2 * (j % 2)), r0w);
+              cvt_i8x4(word(wv[u][j / 2], 2 * (j % 2) + 1), r1w);
+            }
             f[j][0] = r0w[0];
             f[j][1] = r1w[0];
             f[j][2] = r0w[1];
@@ -258,9 +311,13 @@ __global__ void __launch_bounds__(NT, 1) sample_kernel(const SampleArgs a) {
           }
           wgmma_fence();
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            wgmma_rs<N, 0>(acc, f[j], gmma_desc(hid + kb * N * 128 + j * 32, 16, 1024),
-                        (kb > 0 || j > 0) ? 1u : 0u);
+          for (int j = 0; j < 4; ++j) {
+            wgmma_rs<N, 0, HT == 1>(acc, f[j], gmma_desc(hid + kb * N * 128 + j * 32, 16, 1024),
+                                    (kb > 0 || j > 0) ? 1u : 0u);
+            if constexpr (HT == 2)
+              wgmma_rs<N, 0>(acc, f[j],
+                             gmma_desc(hid + N * a.Dp * 2 + kb * N * 128 + j * 32, 16, 1024), 1u);
+          }
           wgmma_commit();
           // the previous k-block's products are done: its fragments may change
           wgmma_wait<1>();
@@ -374,20 +431,29 @@ __global__ void __launch_bounds__(RED_NT) sample_reduce_kernel(
   }
 }
 
-template <int N>
+template <int N, int HT>
 cudaError_t launch_sample(const SampleArgs& a, int grid, cudaStream_t st) {
-  const size_t smem = smem_bytes<N>(a.Dp);
+  const size_t smem = split_smem_bytes<N, HT>(a.Dp);
   if (smem > SMEM_CAP) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(sample_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(sample_kernel<N, HT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  sample_kernel<N><<<grid, NT, smem, st>>>(a);
+  sample_kernel<N, HT><<<grid, NT, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <int HT>
+cudaError_t launch_rows(const SampleArgs& a, int rows, int grid, cudaStream_t st) {
+  return rows == 16 ? launch_sample<16, HT>(a, grid, st)
+         : rows == 32 ? launch_sample<32, HT>(a, grid, st)
+                      : launch_sample<64, HT>(a, grid, st);
 }
 
 }  // namespace
 
-// hidden [B, D] bf16 (D % 8 == 0); w the packed head [Vp/64][Dp/64][4096]
+// hidden [B, D] of element type hdt (0 bf16, 1 f16, 2 f32; D % 8 == 0);
+// w the packed head [Vp/64][Dp/64][4096]
 // int8 (Vp % 64 == 0, Dp % 512 == 0, zeros beyond D and V); wscale [Vp] f32;
 // part_f f32 [4, grid * 2, B] and part_i int32 [grid * 2, B] scratch; tok
 // int32 [B], lp f32 [B]. rows: hidden rows staged at once, the N of the
@@ -396,19 +462,19 @@ extern "C" int fused_lmhead_sample(int device, const void* hidden, const void* w
                                    const void* wscale, void* part_f, void* part_i,
                                    void* tok, void* lp, int B, int D, int Dp, int V, int Vp,
                                    int grid, int rows, float inv_temp, int greedy,
-                                   uint32_t seed, void* stream) {
+                                   uint32_t seed, int hdt, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B < 1 || D % 8 || D > Dp || Dp % (KBLK * U) || V > Vp || Vp % GROUP || grid < 1 ||
-      !(rows == 16 || rows == 32 || rows == 64))
+      !(rows == 16 || rows == 32 || rows == 64) || hdt < 0 || hdt > 2)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SampleArgs a{static_cast<const __nv_bfloat16*>(hidden), static_cast<const int8_t*>(w),
+  SampleArgs a{hidden, static_cast<const int8_t*>(w),
                static_cast<const float*>(wscale), static_cast<float*>(part_f),
-               static_cast<int*>(part_i), B, D, Dp, V, Vp, inv_temp, greedy, seed};
-  err = rows == 16 ? launch_sample<16>(a, grid, st)
-        : rows == 32 ? launch_sample<32>(a, grid, st)
-                     : launch_sample<64>(a, grid, st);
+               static_cast<int*>(part_i), B, D, Dp, V, Vp, inv_temp, greedy, seed, hdt};
+  err = hdt == 0   ? launch_rows<0>(a, rows, grid, st)
+        : hdt == 1 ? launch_rows<1>(a, rows, grid, st)
+                   : launch_rows<2>(a, rows, grid, st);
   if (err != cudaSuccess) return err;
   sample_reduce_kernel<<<B, RED_NT, 0, st>>>(
       static_cast<const float*>(part_f), static_cast<const int*>(part_i),

@@ -4,12 +4,13 @@ The port's ``examples/agentic/main_agent_grpo.py``: the same config (the
 JAX example's tiny model, 24 new tokens a turn, lr 1e-4, GRPO in groups of
 4, 4 prompts a step, 20 steps), dataset (32 "compute i+i" prompts), byte
 tokenizer, calculator tool and substring reward. ``--preset`` names an
-``LLMConfig`` preset in place of the tiny model, whose head dim (16) no
-attention kernel takes, so the default runs with ``--device cpu``.
-Positional overrides ``a.b=c`` follow the flags, as in ``main_grpo``. The
-run is on the card unless ``--device cpu`` is given.
+``LLMConfig`` preset in place of the tiny model (head dim 16, f32, which
+the kernels take on the card). Positional overrides ``a.b=c`` follow the
+flags, as in ``main_grpo``. The run is on the card unless ``--device cpu``
+is given.
 
 Usage:
+  python -m rlinf_tpu_torch.main_agent_grpo runner.max_steps=2
   python -m rlinf_tpu_torch.main_agent_grpo --device cpu runner.max_steps=2
   python -m rlinf_tpu_torch.main_agent_grpo --preset qwen2_0_5b runner.max_steps=2
 """

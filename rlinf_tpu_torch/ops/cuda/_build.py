@@ -176,6 +176,19 @@ class CudaKernel:
             self.launches += 1
 
 
+#: element types the kernels take for activations, and the code each C entry
+#: takes for them (csrc: 0 bf16, 1 f16, 2 f32)
+DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def dtype_code(name: str, t: torch.Tensor) -> int:
+    """The C entries' code of ``t``'s element type; raise for any other."""
+    code = DTYPE_CODES.get(t.dtype)
+    if code is None:
+        raise ValueError(f"{name}: expected dtype bfloat16, float16 or float32, got {t.dtype}")
+    return code
+
+
 def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int]) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of this dtype and shape."""
     if not t.is_cuda:

@@ -1,12 +1,15 @@
 """Kernels K2/K3: packed-cache decode attention, and their plain versions.
 
 Port of ``rlinf_tpu/ops/pallas/decode_attention.py``. The cache is packed
-``[B, S_max, Kv*Hd]`` per layer, bf16 (K2) or int8 with one f32 scale per
-(row, slot) (K3). Slot ``s`` of row ``b`` takes part iff
-``start[b] <= s < length[b]``; an empty interval gives 0. The CUDA source
-is ``csrc/decode_attention.cu``: both split-KV over 16-key blocks
-(``split_plan``) on the tensor cores, then a merge of the splits, in one
-call each. K2 takes up to 16 query heads per kv head, K3 up to 8.
+``[B, S_max, Kv*Hd]`` per layer, in the query's dtype (K2) or int8 with one
+f32 scale per (row, slot) (K3); the query and the output are bf16, f16 or
+f32. Slot ``s`` of row ``b`` takes part iff ``start[b] <= s < length[b]``;
+an empty interval gives 0. The CUDA source is ``csrc/decode_attention.cu``:
+both split-KV over 16-key blocks (``split_plan``) on the tensor cores, then
+a merge of the splits, in one call each; bf16 at head dims 64 and 128 on
+their per-lane cp.async rings, every other head dim (16, 32) and dtype on
+an mma.sync form over tiles staged in shared memory. K2 takes up to 16 query
+heads per kv head, K3 up to 8.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
+    F, I, P, CudaKernel, check_cuda_tensor, dtype_code, sm_count, stream_handle,
 )
 from rlinf_tpu_torch.ops.cuda.geometry import check_heads
 
@@ -25,11 +28,11 @@ NEG_INF = -2.0**30
 
 KERNEL_BF16 = CudaKernel(
     "decode_attention.cu", "decode_attention_bf16",
-    [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
 )
 KERNEL_Q8 = CudaKernel(
     "decode_attention.cu", "decode_attention_q8",
-    [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
 )
 
 #: keys of one block of K2 and K3 (csrc KEYS): their splits are runs of whole blocks
@@ -107,7 +110,8 @@ def _check_common(kernel, q, k_cache, v_cache, starts, lengths, num_kv, cache_dt
     B, H, Hd = q.shape
     S = k_cache.shape[1]
     check_heads(kernel, H, num_kv, Hd)
-    check_cuda_tensor("q", q, torch.bfloat16, (B, H, Hd))
+    dtype_code("q", q)
+    check_cuda_tensor("q", q, q.dtype, (B, H, Hd))
     check_cuda_tensor("k_cache", k_cache, cache_dtype, (B, S, num_kv * Hd))
     check_cuda_tensor("v_cache", v_cache, cache_dtype, (B, S, num_kv * Hd))
     check_cuda_tensor("starts", starts, torch.int32, (B,))
@@ -116,8 +120,8 @@ def _check_common(kernel, q, k_cache, v_cache, starts, lengths, num_kv, cache_dt
 
 
 def decode_attention_packed(
-    q: torch.Tensor,          # [B, H, Hd] bf16, one decode token per row
-    k_cache: torch.Tensor,    # [B, S_max, Kv*Hd] bf16
+    q: torch.Tensor,          # [B, H, Hd] bf16, f16 or f32, one decode token per row
+    k_cache: torch.Tensor,    # [B, S_max, Kv*Hd] in q's dtype
     v_cache: torch.Tensor,
     starts: torch.Tensor,     # [B] int32 first valid slot
     lengths: torch.Tensor,    # [B] int32 end of the valid interval (exclusive)
@@ -131,7 +135,7 @@ def decode_attention_packed(
         return decode_attention_packed_xla(
             q, k_cache, v_cache, starts, lengths, num_kv=num_kv, scale=scale)
     B, H, Hd, S = _check_common(
-        "decode_attention_bf16", q, k_cache, v_cache, starts, lengths, num_kv, torch.bfloat16)
+        "decode_attention_bf16", q, k_cache, v_cache, starts, lengths, num_kv, q.dtype)
     dev = q.device.index
     bps, splits = split_plan(B * num_kv, -(-S // KEY_BLOCK), sm_count(dev))
     # the splits' o [B * Kv, splits, G, Hd], then their (m, l) [B * Kv, splits, G, 2]
@@ -139,14 +143,15 @@ def decode_attention_packed(
     out = torch.empty_like(q)
     KERNEL_BF16(
         dev, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), starts.data_ptr(),
-        lengths.data_ptr(), part.data_ptr(), out.data_ptr(), B, H, num_kv, S, Hd, bps, splits,
+        lengths.data_ptr(), part.data_ptr(), out.data_ptr(), B, H, num_kv, S, Hd,
+        dtype_code("q", q), bps, splits,
         float(Hd**-0.5 if scale is None else scale), stream_handle(),
     )
     return out
 
 
 def decode_attention_packed_q8(
-    q: torch.Tensor,          # [B, H, Hd] bf16
+    q: torch.Tensor,          # [B, H, Hd] bf16, f16 or f32
     k_cache: torch.Tensor,    # [B, S, Kv*Hd] int8
     v_cache: torch.Tensor,    # [B, S, Kv*Hd] int8
     k_scale: torch.Tensor,    # [B, S] f32
@@ -175,7 +180,7 @@ def decode_attention_packed_q8(
     KERNEL_Q8(
         dev, q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), starts.data_ptr(), lengths.data_ptr(), part.data_ptr(),
-        out.data_ptr(), B, H, num_kv, S, Hd, bps, splits,
+        out.data_ptr(), B, H, num_kv, S, Hd, dtype_code("q", q), bps, splits,
         float(Hd**-0.5 if scale is None else scale), stream_handle(),
     )
     return out

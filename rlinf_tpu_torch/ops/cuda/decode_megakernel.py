@@ -238,7 +238,7 @@ def pack_decode_weights(qparams: dict, cfg: LLMConfig,
 
 def _check_geometry(plan: MegaPlan) -> None:
     """Raise for a model the kernel does not take. Its limits: the heads of
-    ``geometry.LIMITS`` (head dims 64 and 128, at most MAX_GROUP query heads
+    ``geometry.LIMITS`` (head dims 16, 32, 64 and 128, at most MAX_GROUP query heads
     per kv head) and widths the 64 x 64 weight tiles cut (hidden,
     intermediate and qkv widths multiples of 64). The hidden size has no
     bound of its own: every product is K-sliced, and a slice of at most

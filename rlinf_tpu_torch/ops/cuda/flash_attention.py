@@ -25,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F, I, P, CudaKernel, check_cuda_tensor, stream_handle,
+    F, I, P, CudaKernel, check_cuda_tensor, dtype_code, stream_handle,
 )
 from rlinf_tpu_torch.ops.cuda.geometry import check_heads
 
@@ -33,15 +33,15 @@ NEG_INF = -2.0**30
 
 KERNEL = CudaKernel(
     "flash_attention_fwd.cu", "flash_attention_fwd",
-    [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 )
 KERNEL_DQ = CudaKernel(
     "flash_attention_bwd.cu", "flash_attention_bwd_dq",
-    [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 )
 KERNEL_DKV = CudaKernel(
     "flash_attention_bwd.cu", "flash_attention_bwd_dkv",
-    [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F, P],
 )
 
 
@@ -80,20 +80,22 @@ def flash_attention_fwd(
     pos_q: torch.Tensor, pos_kv: torch.Tensor, valid: torch.Tensor,
     scale: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 -> (o [B,Sq,H,D], lse [B,H,Sq] f32).
+    """K1 -> (o [B,Sq,H,D] in q's dtype, lse [B,H,Sq] f32).
 
-    q [B,Sq,H,D] bf16; k/v [B,Sk,K,D] bf16; pos_q [B,Sq] / pos_kv [B,Sk]
-    int32; valid [B,Sk] uint8. D is 64 or 128. CPU tensors run the plain
-    version.
+    q [B,Sq,H,D], k/v [B,Sk,K,D] of one dtype: bf16, f16 or f32; pos_q
+    [B,Sq] / pos_kv [B,Sk] int32; valid [B,Sk] uint8. D is 16, 32, 64 or
+    128 (bf16 and f16 at 64 and 128 run the wgmma kernel, the rest its mma.sync
+    form). CPU tensors run the plain version.
     """
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, pos_q, pos_kv, valid, scale)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     check_heads("flash_attention", H, K, D)
-    check_cuda_tensor("q", q, torch.bfloat16, (B, Sq, H, D))
-    check_cuda_tensor("k", k, torch.bfloat16, (B, Sk, K, D))
-    check_cuda_tensor("v", v, torch.bfloat16, (B, Sk, K, D))
+    code = dtype_code("q", q)
+    check_cuda_tensor("q", q, q.dtype, (B, Sq, H, D))
+    check_cuda_tensor("k", k, q.dtype, (B, Sk, K, D))
+    check_cuda_tensor("v", v, q.dtype, (B, Sk, K, D))
     check_cuda_tensor("pos_q", pos_q, torch.int32, (B, Sq))
     check_cuda_tensor("pos_kv", pos_kv, torch.int32, (B, Sk))
     check_cuda_tensor("valid", valid, torch.uint8, (B, Sk))
@@ -102,7 +104,7 @@ def flash_attention_fwd(
     KERNEL(
         q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         pos_q.data_ptr(), pos_kv.data_ptr(), valid.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, K, D, float(scale),
+        o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, K, D, code, float(scale),
         stream_handle(),
     )
     return o, lse
@@ -140,19 +142,20 @@ def flash_attention_bwd_plain(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
 
 
 def flash_attention_bwd(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
-    """K7 + K8 -> (dq, dk, dv) from the forward's o and lse and the output
-    gradient do. K7 forms delta = rowsum(o * do) itself and writes it for
-    K8, which runs after it on the same stream. CPU tensors run the plain
-    version."""
+    """K7 + K8 -> (dq, dk, dv) in the inputs' dtype (bf16, f16 or f32) from
+    the forward's o and lse and the output gradient do. K7 forms delta =
+    rowsum(o * do) itself and writes it for K8, which runs after it on the
+    same stream. CPU tensors run the plain version."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale)
     B, Sq, H, D = q.shape
     Sk, K = k.shape[1], k.shape[2]
     check_heads("flash_attention", H, K, D)
+    code = dtype_code("q", q)
     for name, t, shape in (("q", q, (B, Sq, H, D)), ("o", o, (B, Sq, H, D)),
                            ("do", do, (B, Sq, H, D)), ("k", k, (B, Sk, K, D)),
                            ("v", v, (B, Sk, K, D))):
-        check_cuda_tensor(name, t, torch.bfloat16, shape)
+        check_cuda_tensor(name, t, q.dtype, shape)
     check_cuda_tensor("pos_q", pos_q, torch.int32, (B, Sq))
     check_cuda_tensor("pos_kv", pos_kv, torch.int32, (B, Sk))
     check_cuda_tensor("valid", valid, torch.uint8, (B, Sk))
@@ -163,7 +166,7 @@ def flash_attention_bwd(q, k, v, pos_q, pos_kv, valid, o, lse, do, scale):
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(), pos_kv.data_ptr(),
               valid.data_ptr())
-    dims = (B, Sq, Sk, H, K, D, float(scale), stream_handle())
+    dims = (B, Sq, Sk, H, K, D, code, float(scale), stream_handle())
     KERNEL_DQ(q.device.index, *common, o.data_ptr(), do.data_ptr(), lse.data_ptr(),
               delta.data_ptr(), dq.data_ptr(), *dims)
     KERNEL_DKV(q.device.index, *common, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),

@@ -1,8 +1,10 @@
 """Which model geometries the attention kernels take, in one place.
 
-Every hand-written attention kernel serves head dims 64 and 128 and at most
-a number of query heads per kv head (G); the paged kernel also bounds the
-page size. Each wrapper checks its tensors against these limits at every
+Every hand-written attention kernel serves head dims 16, 32, 64 and 128
+(bf16 at 64 and 128 on its Hopper design, as f16 is for K1, K7 and K8; the
+rest on its mma.sync form)
+and at most a number of query heads per kv head (G); the paged kernel also
+bounds the page size. Each wrapper checks its tensors against these limits at every
 launch. ``check_kernel_geometry`` checks a model config against the kernels
 of a path when an engine, ``generate`` or a train step is built on the card,
 so that a model that no kernel of the path takes is refused before any
@@ -19,7 +21,7 @@ import torch
 if TYPE_CHECKING:
     from rlinf_tpu_torch.models.llm.config import LLMConfig
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 
 #: kernel -> (head dims it takes, most query heads per kv head; None: any)
 LIMITS = {

@@ -5,8 +5,11 @@ Port of ``rlinf_tpu/ops/pallas/linear_ce.py`` (``fused_linear_ce``). The
 CUDA source is ``csrc/linear_ce.cu``. Per row of ``hidden`` the target
 logprob and the entropy of ``softmax(hidden @ W / T)``, differentiable,
 without the [rows, V] logits in the forward. W is ``[D, V]`` ("dv") or the
-tied embedding ``[V, D]`` ("vd"). Both kernels run one mainloop (wgmma fed
-by TMA) over 128 x 128 logits tiles: the forward reduces each tile to its
+tied embedding ``[V, D]`` ("vd"); h and W are bf16, f16 (the f16 form of
+the same mainloop) or f32 (three bf16 products of their split parts, csrc
+``split_kernel``).
+Both kernels run one mainloop (wgmma fed by TMA) over 128 x 128 logits
+tiles: the forward reduces each tile to its
 rows' softmax statistics and a combine merges them in a fixed order
 (``combine_segments``); the backward writes ``dz`` (bf16 ``[rows,
 V_pad]``) and ``dh``; the weight gradient ``dz^T h`` is a plain matrix
@@ -25,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F as C_F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
+    F as C_F, I, P, CudaKernel, check_cuda_tensor, dtype_code, sm_count, stream_handle,
 )
 
 VOCAB_TILE = 128    # vocab columns per tile (csrc GN); dz is [rows, V_pad]
@@ -37,10 +40,10 @@ ROW_ALIGN = 8       # TMA row strides are multiples of 16 bytes: 8 bf16
 COMBINE_SEGMENTS = 8  # K5's combine: segments of a row's tiles (csrc COMBINE_SEGS)
 
 KERNEL_FWD = CudaKernel(
-    "linear_ce.cu", "linear_ce_fwd", [I, P, P, P, P, P, P, P, I, I, I, I, I, I, C_F, P])
+    "linear_ce.cu", "linear_ce_fwd", [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, C_F, P])
 KERNEL_BWD = CudaKernel(
     "linear_ce.cu", "linear_ce_bwd",
-    [I, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, C_F, P])
+    [I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, C_F, P])
 
 
 def vocab_slices(v_pad: int, n_slices: int) -> List[Tuple[int, int]]:
@@ -126,10 +129,21 @@ def pad_depth(h2, w, w_layout: str):
 def _check_inputs(h2, w, tgt, w_layout):
     n, D = h2.shape
     V = _vocab(w, w_layout)
-    check_cuda_tensor("hidden", h2, torch.bfloat16, (n, D))
-    check_cuda_tensor("w", w, torch.bfloat16, (D, V) if w_layout == "dv" else (V, D))
+    code = dtype_code("hidden", h2)
+    check_cuda_tensor("hidden", h2, h2.dtype, (n, D))
+    check_cuda_tensor("w", w, h2.dtype, (D, V) if w_layout == "dv" else (V, D))
     check_cuda_tensor("target_ids", tgt, torch.int32, (n,))
-    return n, D, V
+    return n, D, V, code
+
+
+def _split_scratch(h2p, wp, split_h: bool, split_w: bool):
+    """(hs, ws): bf16 scratch for the split parts (csrc split_kernel: three
+    of each, [n, 3 D] and 3 x W's elements) of h2p and wp, or an empty
+    tensor for one that is not split."""
+    def parts(t, split):
+        return torch.empty((3 * t.numel() if split else 0,), dtype=torch.bfloat16,
+                           device=h2p.device)
+    return parts(h2p, split_h), parts(wp, split_w)
 
 
 def _tma_operands(h2, w, w_layout: str, V: int):
@@ -148,49 +162,59 @@ def _tma_operands(h2, w, w_layout: str, V: int):
 
 
 def ce_forward(h2, w, tgt, inv_temp: float, w_layout: str):
-    """K5 -> (lp, ent, lse) f32 [n]. h2 [n, D] bf16, tgt [n] int32; any n
-    (the kernels mask rows past n), D and V (``_tma_operands``). CPU tensors run the
-    plain version. The tiles' f32 statistics take 16 x n x ceil(V / 128)
-    bytes of scratch (78 MB at 4096 rows, V = 151936)."""
+    """K5 -> (lp, ent, lse) f32 [n]. h2 [n, D] and w of one dtype (bf16,
+    f16 or f32), tgt [n] int32; any n (the kernels mask rows past n), D and
+    V (``_tma_operands``). CPU tensors run the plain version. The tiles'
+    f32 statistics take 16 x n x ceil(V / 128) bytes of scratch (78 MB at
+    4096 rows, V = 151936); an f32 call also takes 6 bytes an element of h2
+    and w for their bf16 parts (``_split_scratch``); f16 runs the f16 form
+    of the mainloop on them as they are."""
     if h2.device.type == "cpu":
         return ce_forward_plain(h2, w, tgt, inv_temp, w_layout)
-    n, _, V = _check_inputs(h2, w, tgt, w_layout)
+    n, _, V, code = _check_inputs(h2, w, tgt, w_layout)
     h2p, wp = _tma_operands(h2, w, w_layout, V)
+    hs, ws = _split_scratch(h2p, wp, code == 2, code == 2)
     dev = h2.device
     part = torch.empty((4, -(-V // VOCAB_TILE), n), dtype=torch.float32, device=dev)
     lp, ent, lse = (torch.empty((n,), dtype=torch.float32, device=dev) for _ in range(3))
     KERNEL_FWD(
         dev.index, h2p.data_ptr(), wp.data_ptr(), tgt.data_ptr(), part.data_ptr(),
-        lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), n, h2p.shape[1], V, wp.shape[1],
-        int(w_layout == "vd"), sm_count(dev.index), float(inv_temp), stream_handle(),
+        lp.data_ptr(), ent.data_ptr(), lse.data_ptr(), hs.data_ptr(), ws.data_ptr(), n,
+        h2p.shape[1], V, wp.shape[1], int(w_layout == "vd"), code, sm_count(dev.index),
+        float(inv_temp), stream_handle(),
     )
     return lp, ent, lse
 
 
 def ce_backward(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp: float, w_layout: str):
-    """K6 -> (dz bf16 [n, V_pad], dh bf16 [n, D]). CPU tensors run the plain
-    version. Any D and V, as K5 (``_tma_operands``). Pass B's f32 partials
-    take ``dh_slices`` x n x D x 4 bytes of scratch (277 MB at 4096 rows,
-    D = 1536, 11 slices)."""
+    """K6 -> (dz bf16 [n, V_pad], dh [n, D] in h2's dtype), as the Pallas
+    kernel's outputs. CPU tensors run the plain version. Any D and V, as K5
+    (``_tma_operands``). Pass B's f32 partials take ``dh_slices`` x n x D x
+    4 bytes of scratch (277 MB at 4096 rows, D = 1536, 11 slices; twice the
+    columns for f16 and f32, whose hi and lo weight parts each give dh
+    columns: pass B multiplies the bf16 dz by W's bf16 parts, and f32 also
+    runs pass A on the parts of h and W)."""
     if h2.device.type == "cpu":
         return ce_backward_plain(h2, w, tgt, lse, mu, g_lp, g_ent, inv_temp, w_layout)
-    n, D, V = _check_inputs(h2, w, tgt, w_layout)
+    n, D, V, code = _check_inputs(h2, w, tgt, w_layout)
     for name, t in (("lse", lse), ("mu", mu), ("g_lp", g_lp), ("g_ent", g_ent)):
         check_cuda_tensor(name, t, torch.float32, (n,))
     h2p, wp = _tma_operands(h2, w, w_layout, V)
+    hs, ws = _split_scratch(h2p, wp, code == 2, code != 0)
     Dp = h2p.shape[1]
+    cols = Dp if code == 0 else 2 * Dp  # pass B's output columns
     vp = _v_pad(V)
     dev = h2.device
     sms = sm_count(dev.index)
-    n_slices = dh_slices(n, Dp, vp, sms)
+    n_slices = dh_slices(n, cols, vp, sms)
     dz = torch.empty((n, vp), dtype=torch.bfloat16, device=dev)
-    dh = torch.empty((n, Dp), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((n_slices, n, Dp), dtype=torch.float32, device=dev)
+    dh = torch.empty((n, Dp), dtype=h2.dtype, device=dev)
+    part = torch.empty((n_slices, n, cols), dtype=torch.float32, device=dev)
     KERNEL_BWD(
         dev.index, h2p.data_ptr(), wp.data_ptr(), tgt.data_ptr(), lse.data_ptr(),
         mu.data_ptr(), g_lp.data_ptr(), g_ent.data_ptr(), dz.data_ptr(), dh.data_ptr(),
-        part.data_ptr(), n, Dp, V, vp, wp.shape[1], int(w_layout == "vd"), n_slices, sms,
-        float(inv_temp), stream_handle(),
+        part.data_ptr(), hs.data_ptr(), ws.data_ptr(), n, Dp, V, vp, wp.shape[1],
+        int(w_layout == "vd"), code, n_slices, sms, float(inv_temp), stream_handle(),
     )
     if Dp != D:
         dh = dh[:, :D].contiguous()
@@ -204,6 +228,8 @@ def weight_grad(h2, dz, w_layout: str, V: int, dtype) -> torch.Tensor:
     dzv = dz[:, :V]
     if not h2.is_cuda:
         h2, dzv = h2.float(), dzv.float()
+    elif h2.dtype != dzv.dtype:  # f16 / f32 hidden: the product in h2's dtype
+        dzv = dzv.to(h2.dtype)
     g = h2.t() @ dzv if w_layout == "dv" else dzv.t() @ h2
     return g.to(dtype)
 

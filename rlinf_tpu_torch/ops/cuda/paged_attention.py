@@ -16,14 +16,14 @@ from typing import Optional
 import torch
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F, I, P, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
+    F, I, P, CudaKernel, check_cuda_tensor, dtype_code, sm_count, stream_handle,
 )
 from rlinf_tpu_torch.ops.cuda.decode_attention import _plain, split_plan
 from rlinf_tpu_torch.ops.cuda.geometry import check_heads, check_page_size
 
 KERNEL = CudaKernel(
     "paged_attention.cu", "paged_attention_bf16",
-    [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P],
+    [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P],
 )
 
 
@@ -52,8 +52,8 @@ def paged_attention_xla(
 
 
 def paged_attention(
-    q: torch.Tensor,           # [B, H, Hd] bf16, one decode token per row
-    k_pages: torch.Tensor,     # [num_pages, Kv, P, Hd] bf16 global page pool
+    q: torch.Tensor,           # [B, H, Hd] bf16, f16 or f32, one decode token per row
+    k_pages: torch.Tensor,     # [num_pages, Kv, P, Hd] in q's dtype, global page pool
     v_pages: torch.Tensor,
     page_table: torch.Tensor,  # [B, max_pages] int32 (pad unused with 0)
     lengths: torch.Tensor,     # [B] int32
@@ -68,9 +68,10 @@ def paged_attention(
     max_pages = page_table.shape[1]
     check_heads("paged_attention", H, Kv, Hd)
     check_page_size(Pg, Hd)
-    check_cuda_tensor("q", q, torch.bfloat16, (B, H, Hd))
-    check_cuda_tensor("k_pages", k_pages, torch.bfloat16, (num_pages, Kv, Pg, Hd))
-    check_cuda_tensor("v_pages", v_pages, torch.bfloat16, (num_pages, Kv, Pg, Hd))
+    code = dtype_code("q", q)
+    check_cuda_tensor("q", q, q.dtype, (B, H, Hd))
+    check_cuda_tensor("k_pages", k_pages, q.dtype, (num_pages, Kv, Pg, Hd))
+    check_cuda_tensor("v_pages", v_pages, q.dtype, (num_pages, Kv, Pg, Hd))
     check_cuda_tensor("page_table", page_table, torch.int32, (B, max_pages))
     check_cuda_tensor("lengths", lengths, torch.int32, (B,))
     pps, splits = split_plan(B * Kv, max_pages, sm_count(q.device.index))
@@ -80,7 +81,7 @@ def paged_attention(
     KERNEL(
         q.device.index, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), part_ml.data_ptr(), part_o.data_ptr(),
-        out.data_ptr(), B, H, Kv, Pg, max_pages, Hd, pps, splits,
+        out.data_ptr(), B, H, Kv, Pg, max_pages, Hd, code, pps, splits,
         float(Hd**-0.5 if scale is None else scale), stream_handle(),
     )
     return out

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from rlinf_tpu_torch.ops.cuda._build import (
-    F as C_F, I, P, U32, CudaKernel, check_cuda_tensor, sm_count, stream_handle,
+    F as C_F, I, P, U32, CudaKernel, check_cuda_tensor, dtype_code, sm_count, stream_handle,
 )
 
 # constants of csrc/sampler.cu
@@ -44,7 +44,7 @@ SMEM_CAP = 232448         # shared memory a CTA can have on sm_90
 
 KERNEL = CudaKernel(
     "sampler.cu", "fused_lmhead_sample",
-    [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, C_F, I, U32, P],
+    [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, C_F, I, U32, I, P],
 )
 
 
@@ -159,16 +159,17 @@ def fused_lmhead_sample_packed_plain(
         hidden, lm_q, lm_scale, seed, temperature=temperature, greedy=greedy)
 
 
-def smem_bytes(rows: int, Dp: int) -> int:
+def smem_bytes(rows: int, Dp: int, split: bool = False) -> int:
     """Shared memory of the kernel at ``rows`` staged rows (csrc smem_bytes):
-    two transposed logits tiles, alignment room, the hidden block."""
-    return WARPGROUPS * rows * Z_STRIDE * 4 + 1024 + rows * Dp * 2
+    two transposed logits tiles, alignment room, the hidden block (two bf16
+    blocks, hi and lo, for an f32 hidden state: ``split``)."""
+    return WARPGROUPS * rows * Z_STRIDE * 4 + 1024 + rows * Dp * 2 * (2 if split else 1)
 
 
-def _row_block(B: int, Dp: int) -> int:
+def _row_block(B: int, Dp: int, split: bool = False) -> int:
     """Hidden rows staged at once, the N of the wgmma: the fewest of 16, 32,
     64 that hold B (64 above that), or fewer where the depth does not fit."""
-    fit = [n for n in ROW_BLOCKS if smem_bytes(n, Dp) <= SMEM_CAP]
+    fit = [n for n in ROW_BLOCKS if smem_bytes(n, Dp, split) <= SMEM_CAP]
     if not fit:
         raise ValueError(f"fused_lmhead_sample: a hidden size of {Dp} does not fit the "
                          f"kernel's shared-memory stage")
@@ -176,7 +177,7 @@ def _row_block(B: int, Dp: int) -> int:
 
 
 def fused_lmhead_sample_packed(
-    hidden: torch.Tensor,     # [B, D] bf16
+    hidden: torch.Tensor,     # [B, D] bf16, f16 or f32
     head: PackedLMHead,       # from pack_lm_head
     seed: int,                # uint32 noise key for this step
     *,
@@ -194,13 +195,14 @@ def fused_lmhead_sample_packed(
     B, D = hidden.shape
     Vp64, Dp64 = head.w.shape[:2]
     Dp, Vp = Dp64 * 64, Vp64 * 64
-    check_cuda_tensor("hidden", hidden, torch.bfloat16, (B, head.D))
+    hdt = dtype_code("hidden", hidden)
+    check_cuda_tensor("hidden", hidden, hidden.dtype, (B, head.D))
     check_cuda_tensor("lm_head packed", head.w, torch.int8, (Vp64, Dp64, 4096))
     check_cuda_tensor("lm_head scale", head.scale, torch.float32, (Vp,))
     if D % 8 or Dp % DEPTH_QUANTUM or Vp % COL_GROUP:
         raise ValueError(f"fused_lmhead_sample: D={D} must be a multiple of 8 and the "
                          f"packed head padded to {DEPTH_QUANTUM} x {COL_GROUP}")
-    rb = _row_block(B, Dp)
+    rb = _row_block(B, Dp, hdt == 2)
     dev = hidden.device
     grid = min(sm_count(dev.index), -(-Vp // (COL_GROUP * WARPGROUPS)))
     slots = grid * WARPGROUPS
@@ -212,13 +214,13 @@ def fused_lmhead_sample_packed(
         dev.index, hidden.data_ptr(), head.w.data_ptr(), head.scale.data_ptr(),
         part_f.data_ptr(), part_i.data_ptr(), tok.data_ptr(), lp.data_ptr(),
         B, D, Dp, head.V, Vp, grid, rb, float(inv_temp), int(greedy),
-        int(seed) & 0xFFFFFFFF, stream_handle(),
+        int(seed) & 0xFFFFFFFF, hdt, stream_handle(),
     )
     return tok, lp
 
 
 def fused_lmhead_sample(
-    hidden: torch.Tensor,     # [B, D] bf16
+    hidden: torch.Tensor,     # [B, D] bf16, f16 or f32
     lm_q: torch.Tensor,       # [D, V] int8
     lm_scale: torch.Tensor,   # [1, V] or [V] f32 per-output-channel scale
     seed: int,                # uint32 noise key for this step

@@ -9,8 +9,14 @@ the phases in sequence:
                 x minibatches                             [train-shaped phase]
 
 Weight sync is free: the train step updates the params in place and the next
-rollout reads them. The critic, separate-critic and LoRA configurations
-raise (ROADMAP.md §A.3), as does a mesh (§A.5).
+rollout reads them. PPO with a learned critic (``algorithm.adv_type="gae"``)
+runs with a value head on the actor's trunk (``algorithm.critic="shared"``)
+or with a critic of its own (``"separate"``: its own trunk, optimizer,
+``critic_lr``, checkpoint directory ``checkpoint_dir + "_critic"`` and
+``critic_warmup_steps`` critic-only steps). As in the JAX package, a
+token-budget microbatch run (``loss.max_tokens_per_mb > 0``) takes the
+policy-only update and never steps the critic. LoRA raises (ROADMAP.md
+§A.3), as does a mesh (§A.9).
 
 Randomness: two seeded ``torch.Generator``s on the host, one for the
 rollout's per-call sampling seeds (the engines draw their device noise from
@@ -36,6 +42,7 @@ from rlinf_tpu_torch.data.io_struct import RolloutRequest, RolloutResult, build_
 from rlinf_tpu_torch.models.llm import init_params
 from rlinf_tpu_torch.rollout import build_rollout_engine, resolve_recompute_logprobs
 from rlinf_tpu_torch.training.learner import (
+    make_actor_critic_train_step,
     make_logprob_fn,
     make_policy_grad_and_apply,
     make_policy_train_step,
@@ -68,11 +75,7 @@ class ReasoningRunner:
         if mesh is not None:
             raise NotImplementedError(
                 "ReasoningRunner(mesh=...) comes with the port's parallel slice "
-                "(ROADMAP.md §A.5)")
-        if cfg.algorithm.adv_type == "gae":
-            raise NotImplementedError(
-                "algorithm.adv_type='gae' (PPO with a critic) comes with the port's "
-                "critic slice (ROADMAP.md §A.3)")
+                "(ROADMAP.md §A.9)")
         if cfg.lora.enabled:
             raise NotImplementedError(
                 "lora.enabled comes with the port's LoRA slice (ROADMAP.md §A.3)")
@@ -88,11 +91,55 @@ class ReasoningRunner:
         # continuous slot-pool batching unless cfg.rollout names another
         self.engine = build_rollout_engine(cfg, device=dev)
         self.tx = make_optimizer(cfg.optimizer)
-        self.train_step = make_policy_train_step(
-            cfg.model, cfg.loss, self.tx,
-            num_microbatches=cfg.num_microbatches,
-            remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
-        )
+        self.with_critic = cfg.algorithm.adv_type == "gae"
+        self.separate_critic = self.with_critic and cfg.algorithm.critic == "separate"
+        self.critic_state = None
+        seed = cfg.runner.seed
+        if self.with_critic and not self.separate_critic:
+            # a value head on the shared trunk
+            from rlinf_tpu_torch.models.llm.value_head import forward_values
+
+            self.train_step = make_actor_critic_train_step(
+                cfg.model, cfg.loss, self.tx,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+            )
+            self._value_fn = torch.no_grad()(
+                lambda params, ids, mask: forward_values(
+                    params, cfg.model, ids, mask, attn_impl=cfg.attn_impl))
+        else:
+            self.train_step = make_policy_train_step(
+                cfg.model, cfg.loss, self.tx,
+                num_microbatches=cfg.num_microbatches,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+            )
+        if self.separate_critic:
+            # the critic is its own model + optimizer + warmup schedule; the
+            # actor trains with the plain policy step and GAE reads the
+            # critic's values
+            from rlinf_tpu_torch.training.critic import (
+                CriticConfig, init_critic_params, make_critic_train_step,
+                make_critic_value_fn,
+            )
+
+            self.critic_cfg = CriticConfig(
+                warmup_steps=cfg.algorithm.critic_warmup_steps,
+                lr=cfg.algorithm.critic_lr,
+            )
+            opt = cfg.optimizer
+            if self.critic_cfg.lr is not None:
+                opt = dataclasses.replace(opt, lr=self.critic_cfg.lr)
+            self.critic_tx = make_optimizer(opt)
+            self.critic_step = make_critic_train_step(
+                cfg.model, self.critic_cfg, self.critic_tx,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+            )
+            self.critic_state = create_train_state(
+                lambda: init_critic_params(cfg.model, seed + 104729, device=dev),
+                self.critic_tx,
+            )
+            raw_value_fn = make_critic_value_fn(cfg.model, attn_impl=cfg.attn_impl, device=dev)
+            self._value_fn = lambda _actor_params, ids, mask: raw_value_fn(
+                self.critic_state.params, ids, mask)
         if cfg.loss.max_tokens_per_mb > 0:
             self._grad_step, self._apply_step, self._zero_grads = (
                 make_policy_grad_and_apply(
@@ -117,10 +164,16 @@ class ReasoningRunner:
             else None
         )
 
-        seed = cfg.runner.seed
-        init_fn = init_params_override or (
+        base_init = init_params_override or (
             lambda s: init_params(cfg.model, s, device=dev)
         )
+        if self.with_critic and not self.separate_critic:
+            from rlinf_tpu_torch.models.llm.value_head import add_value_head
+
+            init_fn = lambda s: add_value_head(base_init(s), cfg.model, s + 7, device=dev)
+        else:
+            # a separate critic owns its trunk: the actor carries no value head
+            init_fn = base_init
         self._sample_gen = torch.Generator().manual_seed(seed)
         self._perm_gen = torch.Generator().manual_seed(seed + 1)
         self.state = create_train_state(lambda: init_fn(seed), self.tx)
@@ -133,6 +186,11 @@ class ReasoningRunner:
             if cfg.runner.checkpoint_dir
             else None
         )
+        self.critic_ckpt = (
+            CheckpointManager(cfg.runner.checkpoint_dir + "_critic")
+            if cfg.runner.checkpoint_dir and self.separate_critic
+            else None
+        )
         self.global_step = 0
         if self.ckpt and cfg.runner.resume == "auto":
             state, extra, step = self.ckpt.restore(self.state)
@@ -141,11 +199,15 @@ class ReasoningRunner:
                 self.global_step = step
                 if extra and "dataloader" in extra:
                     self.iterator.load_state_dict(extra["dataloader"])
+                if self.critic_ckpt is not None:
+                    cstate, _, _ = self.critic_ckpt.restore(self.critic_state, step=step)
+                    if cstate is not None:
+                        self.critic_state = cstate
 
     # ------------------------------------------------------------------
     def rescale(self, new_mesh):
         raise NotImplementedError(
-            "ReasoningRunner.rescale comes with the port's parallel slice (ROADMAP.md §A.5)")
+            "ReasoningRunner.rescale comes with the port's parallel slice (ROADMAP.md §A.9)")
 
     def _permutation(self, n: int) -> np.ndarray:
         return torch.randperm(n, generator=self._perm_gen).numpy()
@@ -174,6 +236,45 @@ class ReasoningRunner:
     def _put_batch(self, arrays):
         """Host batch -> the runner's device."""
         return {k: torch.as_tensor(v).to(self.device) for k, v in arrays.items()}
+
+    def _gae_token_advantages(self, train_batch, rewards):
+        """Token-level GAE with a critic: the sequence reward lands on the
+        last response token, and the bootstrap is cut there (done); fp32
+        values of the critic (the shared head or the separate critic)."""
+        a = self.cfg.algorithm
+        ids = torch.as_tensor(train_batch.input_ids).to(self.device)
+        amask = torch.as_tensor(train_batch.attention_mask).to(self.device)
+        values_bt = self._value_fn(self.state.params, ids, amask).float().cpu().numpy()  # [B, T]
+        lm = train_batch.loss_mask  # [B, T] bool
+        B, T = lm.shape
+        values_bt = values_bt * lm  # values outside the response don't matter
+
+        # last valid loss position per row
+        last_pos = T - 1 - np.argmax(lm[:, ::-1], axis=1)  # [B]
+        has_any = lm.any(axis=1)
+        rewards_tb = np.zeros((T, B), np.float32)
+        rewards_tb[last_pos[has_any], np.nonzero(has_any)[0]] = rewards[has_any]
+        dones_tb = np.zeros((T + 1, B), np.float32)
+        dones_tb[last_pos[has_any] + 1, np.nonzero(has_any)[0]] = 1.0
+        values_tb = np.concatenate([values_bt.T, np.zeros((1, B), np.float32)], axis=0)
+
+        gae = get_advantage_fn("gae")
+        adv, ret = gae(
+            rewards=torch.as_tensor(rewards_tb),
+            values=torch.as_tensor(values_tb),
+            dones=torch.as_tensor(dones_tb),
+            gamma=a.gamma,
+            gae_lambda=a.gae_lambda,
+            normalize_advantages=a.normalize_advantages,
+            loss_mask=torch.as_tensor(lm.T),
+        )
+        adv = adv.numpy().T * lm
+        ret = ret.numpy().T * lm
+        return {
+            "advantages": adv.astype(np.float32),
+            "returns": ret.astype(np.float32),
+            "prev_values": values_bt.astype(np.float32),
+        }
 
     def _dynamic_minibatch_update(self, batch_dict, train_batch, mb_idx):
         """Token-budget microbatching: pack the minibatch's rows under
@@ -226,11 +327,22 @@ class ReasoningRunner:
             result.rewards = rewards
 
         # 3. advantages + batch assembly ------------------------------------
-        token_advantages = self._compute_advantages(result, rewards)
-        train_batch = build_train_batch(
-            result, token_advantages, pad_id=cfg.sampling.pad_token_id
-        )
-        batch_dict = self._put_batch(train_batch.to_dict())
+        if self.with_critic:
+            train_batch = build_train_batch(
+                result, np.zeros_like(result.response_logprobs),
+                pad_id=cfg.sampling.pad_token_id,
+            )
+            extra = self._gae_token_advantages(train_batch, rewards)
+            train_batch.advantages = extra["advantages"]
+            batch_dict = self._put_batch(train_batch.to_dict())
+            batch_dict.update(self._put_batch(
+                {"returns": extra["returns"], "prev_values": extra["prev_values"]}))
+        else:
+            token_advantages = self._compute_advantages(result, rewards)
+            train_batch = build_train_batch(
+                result, token_advantages, pad_id=cfg.sampling.pad_token_id
+            )
+            batch_dict = self._put_batch(train_batch.to_dict())
 
         self._augment_batch(batch_dict, result)
 
@@ -259,6 +371,16 @@ class ReasoningRunner:
                         metrics = self._dynamic_minibatch_update(
                             batch_dict, train_batch, mb_idx
                         )
+                    elif self.separate_critic:
+                        idx = torch.as_tensor(mb_idx, device=self.device)
+                        mb = {k: v[idx] for k, v in batch_dict.items()}
+                        self.critic_state, cmetrics = self.critic_step(self.critic_state, mb)
+                        if self.global_step >= cfg.algorithm.critic_warmup_steps:
+                            self.state, metrics = self.train_step(self.state, mb)
+                        else:
+                            # critic warmup: no actor update yet
+                            metrics = {"actor/warmup_skipped": torch.tensor(1.0)}
+                        metrics = {**metrics, **cmetrics}
                     else:
                         idx = torch.as_tensor(mb_idx, device=self.device)
                         mb = {k: v[idx] for k, v in batch_dict.items()}
@@ -299,12 +421,15 @@ class ReasoningRunner:
         return out
 
     def save_checkpoint(self):
-        """The state and the dataloader position, at ``global_step``."""
+        """The state and the dataloader position, at ``global_step``; a
+        separate critic's state beside them."""
         self.ckpt.save(
             self.global_step,
             self.state,
             extra={"dataloader": self.iterator.state_dict()},
         )
+        if self.critic_ckpt is not None:
+            self.critic_ckpt.save(self.global_step, self.critic_state)
 
     def _rollout_phase(self, params):
         examples = self.iterator.next_batch()

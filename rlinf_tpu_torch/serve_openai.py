@@ -7,13 +7,13 @@ and a bf16 or f32 cache; on the card it decodes through the bf16-cache
 decode attention kernel) and the same routes (/v1/completions,
 /v1/chat/completions, /health). The weights are random from seed 0 and the
 tokenizer is the byte tokenizer. ``--preset`` names an ``LLMConfig`` preset;
-the default is the JAX example's tiny demo model, whose head dim (16) no
-attention kernel takes, so it runs with ``--device cpu``. ``--model`` (a
-Hugging Face checkpoint) waits for the port of ``models/llm/hf_import.py``
-(ROADMAP.md §A.4). The server runs on the card unless ``--device cpu`` is
-given, until interrupted.
+the default is the JAX example's tiny demo model (head dim 16, f32).
+``--model`` (a Hugging Face checkpoint) waits for the port of
+``models/llm/hf_import.py`` (ROADMAP.md §A.4). The server runs on the card
+unless ``--device cpu`` is given, until interrupted.
 
 Usage:
+  python -m rlinf_tpu_torch.serve_openai
   python -m rlinf_tpu_torch.serve_openai --device cpu
   python -m rlinf_tpu_torch.serve_openai --preset qwen2_1_5b
 then:

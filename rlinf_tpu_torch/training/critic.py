@@ -1,0 +1,101 @@
+"""Separate-critic PPO: the critic as its own model and optimizer.
+
+Port of ``rlinf_tpu/training/critic.py``: the critic is a full LLM trunk
+with a scalar value head and no lm head in use, its own ``TrainState`` and
+optimizer, trained every step on the clipped-value huber loss against GAE
+returns; ``CriticConfig.warmup_steps`` critic-only steps come before the
+first actor update. The shared-trunk value head is
+``training/learner.py make_actor_critic_train_step``.
+
+Where the JAX package jits a step that donates the state, the port runs
+eagerly and updates the critic's params and optimizer state in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from rlinf_tpu_torch.algorithms.losses import compute_ppo_critic_loss
+from rlinf_tpu_torch.models.llm import model as M
+from rlinf_tpu_torch.models.llm.config import LLMConfig
+from rlinf_tpu_torch.models.llm.value_head import add_value_head, forward_values
+from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
+from rlinf_tpu_torch.training.train_state import Optimizer, TrainState, apply_updates
+from rlinf_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class CriticConfig:
+    """``algorithm.critic='separate'`` knobs."""
+
+    value_clip: float = 0.2
+    huber_delta: float = 10.0
+    #: critic-only steps before the first actor update
+    warmup_steps: int = 0
+    #: None = reuse the actor's optimizer config
+    lr: Optional[float] = None
+
+
+def init_critic_params(cfg: LLMConfig, seed: int, device="cuda") -> Dict:
+    """Full trunk + near-zero value head; no LM head is ever used. The
+    trunk draws from ``seed``, the head from ``seed + 1``."""
+    return add_value_head(M.init_params(cfg, seed, device), cfg, seed + 1, device)
+
+
+def make_critic_value_fn(cfg: LLMConfig, *, attn_impl: str = "xla", device="cuda"):
+    """fp32 token values [B, T] from the critic's own trunk, without grad."""
+    dev = resolve_device(device)
+    check_on_card(cfg, dev, attn_impl=attn_impl)
+
+    @torch.no_grad()
+    def value_fn(params, input_ids, attention_mask):
+        return forward_values(params, cfg, torch.as_tensor(input_ids, device=dev),
+                              torch.as_tensor(attention_mask, device=dev), attn_impl=attn_impl)
+
+    return value_fn
+
+
+def make_critic_train_step(
+    cfg: LLMConfig,
+    critic_cfg: CriticConfig,
+    tx: Optimizer,
+    *,
+    remat=True,
+    attn_impl: str = "xla",
+    mesh=None,
+    device="cuda",
+) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict]]:
+    """One critic update on a batch with ``returns`` / ``prev_values``:
+    each parameter's update is added in f32 and cast back to its dtype
+    (``apply_updates``), as the JAX package's tree map does."""
+    from rlinf_tpu_torch.training.learner import _grads, _to_device, optax_global_norm
+
+    if mesh is not None:
+        raise NotImplementedError("make_critic_train_step(mesh=...) comes with the parallel slice")
+    dev = resolve_device(device)
+    check_on_card(cfg, dev, attn_impl=attn_impl)
+
+    def loss_fn(batch):
+        def fn(params):
+            values = forward_values(params, cfg, batch["input_ids"], batch["attention_mask"],
+                                    attn_impl=attn_impl, remat=remat)
+            return compute_ppo_critic_loss(
+                values=values, returns=batch["returns"], prev_values=batch["prev_values"],
+                value_clip=critic_cfg.value_clip, huber_delta=critic_cfg.huber_delta,
+                loss_mask=batch["loss_mask"])
+        return fn
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        batch = _to_device(batch, dev)
+        grads, _, metrics = _grads(state.params, loss_fn(batch))
+        updates, new_opt = tx.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+        metrics = dict(metrics)
+        metrics["critic/grad_norm"] = optax_global_norm(grads)
+        return TrainState(state.step + 1, state.params, new_opt), metrics
+
+    return train_step
+

@@ -9,8 +9,7 @@ batch.
 
 Where the JAX package jits one function that donates the state, the port
 runs eagerly and updates the params and the optimizer state in place.
-The MoE auxiliary loss and ``make_actor_critic_train_step`` come with
-their slices.
+The MoE auxiliary loss comes with the MoE slice.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ import torch
 from rlinf_tpu_torch.algorithms.losses import (
     compute_decoupled_ppo_actor_loss,
     compute_ppo_actor_loss,
+    compute_ppo_critic_loss,
 )
 from rlinf_tpu_torch.algorithms.utils import kl_penalty
 from rlinf_tpu_torch.models.llm import model as M
@@ -253,6 +253,64 @@ def make_policy_grad_and_apply(
                                               device=p.device), params)
 
     return grad_step, apply_step, zero_grads
+
+
+def make_actor_critic_train_step(
+    cfg: LLMConfig,
+    loss_cfg: PolicyLossConfig,
+    tx: Optimizer,
+    *,
+    value_clip: float = 0.2,
+    huber_delta: float = 10.0,
+    value_coef: float = 1.0,
+    remat=True,
+    attn_impl: str = "xla",
+    device="cuda",
+) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict]]:
+    """PPO actor-critic step for LLMs with a shared trunk and value head:
+    one forward gives the actor's logprobs and entropy (K5/K6 on the card)
+    and the values; the loss is the actor's + ``value_coef`` x the
+    critic's. The batch adds ``returns`` and ``prev_values`` (fp32,
+    aligned with target_ids)."""
+    from rlinf_tpu_torch.models.llm.value_head import values_from_hidden
+
+    dev = resolve_device(device)
+    check_on_card(cfg, dev, attn_impl=attn_impl)
+
+    def loss_of(batch):
+        def fn(params):
+            hidden, _ = M.forward_hidden(
+                params, cfg, batch["input_ids"], attention_mask=batch["attention_mask"],
+                attn_impl=attn_impl, remat=remat,
+            )
+            lp, ent = linear_logprobs_and_entropy(
+                params, cfg, hidden, batch["target_ids"],
+                chunk_size=loss_cfg.logprob_chunk_size,
+            )
+            values = values_from_hidden(params, hidden)
+            global_valid = batch["loss_mask"].float().sum().clamp_min(1.0)
+            actor_loss, metrics = _token_level_loss(lp, ent, batch, loss_cfg, global_valid)
+            critic_loss, cmetrics = compute_ppo_critic_loss(
+                values=values, returns=batch["returns"], prev_values=batch["prev_values"],
+                value_clip=value_clip, huber_delta=huber_delta, loss_mask=batch["loss_mask"],
+            )
+            metrics.update(cmetrics)
+            return actor_loss + value_coef * critic_loss, metrics
+        return fn
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        batch = _to_device(batch, dev)
+        grads, loss, metrics = _grads(state.params, loss_of(batch))
+        grad_norm = optax_global_norm(grads)
+        updates, new_opt = tx.update(grads, state.opt_state, state.params)
+        del grads
+        apply_updates(state.params, updates)
+        metrics = dict(metrics)
+        metrics["actor/loss"] = loss
+        metrics["actor/grad_norm"] = grad_norm
+        return TrainState(state.step + 1, state.params, new_opt), metrics
+
+    return train_step
 
 
 def make_logprob_fn(

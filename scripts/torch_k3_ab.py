@@ -162,8 +162,8 @@ def host_parts(old, args) -> dict:
         torch.empty_like(q)
 
     def entry_new():
-        DA.KERNEL_Q8(dev, *ptrs, part.data_ptr(), out.data_ptr(), B, H, Kv, S, Hd, bps, splits,
-                     scale, stream_handle())
+        DA.KERNEL_Q8(dev, *ptrs, part.data_ptr(), out.data_ptr(), B, H, Kv, S, Hd,
+                     DA.dtype_code("q", q), bps, splits, scale, stream_handle())
 
     def entry_old():
         old.fn(dev, *ptrs, out.data_ptr(), B, H, Kv, S, Hd, scale, stream_handle())

@@ -1,7 +1,7 @@
 """Model geometries the port's kernels refuse, refused where a path is built.
 
-The attention kernels take head dims 64 and 128 and a bounded number of
-query heads per kv head (G); the decode megakernel also needs widths its
+The attention kernels take head dims 16, 32, 64 and 128 and a bounded
+number of query heads per kv head (G); the decode megakernel also needs widths its
 64-column weight tiles cut (its hidden size has no bound of its own). ``ops/cuda/geometry.check_kernel_geometry`` holds those
 limits, and the engines, ``generate``, the train step and the recompute
 call it when they are built on the card, before any prompt or batch is
@@ -180,13 +180,50 @@ def test_paged_engine_takes_16_query_heads_and_refuses_odd_pages(card):
 
 
 def test_auto_attention_refuses_a_head_dim_the_kernels_do_not_take():
+    """A long-context run of grpo_demo_tiny.yaml's model resolves "auto" to
+    the kernels on the card at its shipped head dim (16); at a head dim no
+    kernel takes (96) it is refused there, and on the CPU it is "xla"."""
     cfg = load_config("examples/reasoning/config/grpo_demo_tiny.yaml", ["attn_impl=auto"])
     long = dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, max_prompt_len=2048),
                                model=dataclasses.replace(cfg.model, max_seq_len=4096))
     assert long.model.head_dim_ == 16
-    with pytest.raises(ValueError, match="Hd=16"):
-        resolve_attn_impl(long, device="cuda")
+    assert resolve_attn_impl(long, device="cuda") == "pallas"
+    odd = dataclasses.replace(long, model=dataclasses.replace(long.model, head_dim=96))
+    with pytest.raises(ValueError, match="Hd=96"):
+        resolve_attn_impl(odd, device="cuda")
     assert resolve_attn_impl(long, device="cpu") == "xla"
+
+
+SHIPPED = {
+    "grpo_demo_tiny.yaml": lambda: load_config(
+        "examples/reasoning/config/grpo_demo_tiny.yaml").model,
+    "ppo_separate_critic.yaml": lambda: load_config(
+        "examples/reasoning/config/ppo_separate_critic.yaml").model,
+    "grpo_math_qwen05b.yaml": lambda: load_config(
+        "examples/reasoning/config/grpo_math_qwen05b.yaml").model,
+    "tiny preset": lambda: LLMConfig.tiny(vocab_size=300, max_seq_len=512),
+}
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+@pytest.mark.parametrize("name", sorted(SHIPPED))
+def test_shipped_models_are_taken_on_every_kernel_path(name, path):
+    """The three shipped reasoning yamls (Hd 16, 32 and 64; f32 and bf16)
+    and the tiny preset of main_agent_grpo and serve_openai (Hd=16, f32)
+    pass every kernel path's check, pages of 16 tokens on the paged one."""
+    check_kernel_geometry(SHIPPED[name](), path, page_size=16 if path == "paged" else None)
+
+
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_small_head_dims_build_every_path_on_the_card(card, head_dim):
+    """Models with heads of 16 and 32 build the engines, the train step and
+    the recompute on the card (the checks run where each path is built)."""
+    cfg = _cfg(heads=4, kv=2, head_dim=head_dim, hidden=4 * head_dim)
+    ContinuousBatchingEngine(cfg, SamplingParams(), device="cuda")
+    RolloutEngine(cfg, SamplingParams(), attn_impl="pallas", device="cuda")
+    PagedContinuousEngine(cfg, SamplingParams(), attn_impl="pallas", device="cuda")
+    make_policy_train_step(cfg, None, None, attn_impl="pallas", device="cuda")
+    make_logprob_fn(cfg, attn_impl="pallas", device="cuda")
 
 
 def _row_splits(length, page_size, pps):

@@ -283,15 +283,48 @@ def test_generate_mega_without_int8_kv_takes_the_per_layer_path(setup):
 def test_wrapper_geometry_check():
     """The kernel stages a K-slice of the activations at a time, so the
     hidden size has no limit of its own: Qwen2-1.5B, Qwen2-7B (D=3584) and
-    the test geometry are taken; a head dim outside 64/128, more than 8
-    query heads a kv head and widths the 64-column tiles do not cut are
-    refused with a reason."""
+    the test geometry are taken, and so are the tiny model's heads of 16;
+    a head dim outside 16/32/64/128, more than 8 query heads a kv head and
+    widths the 64-column tiles do not cut are refused with a reason."""
     TMK._check_geometry(TMK.make_plan(TConfig.qwen2_1_5b()))
     TMK._check_geometry(TMK.make_plan(TConfig.qwen2_7b(), 4096))
     TMK._check_geometry(TMK.make_plan(_cfgs()[1]))
-    with pytest.raises(ValueError, match="unsupported H=4 Kv=2 Hd=16"):
-        TMK._check_geometry(TMK.make_plan(TConfig.tiny()))
+    TMK._check_geometry(TMK.make_plan(TConfig.tiny()))
+    with pytest.raises(ValueError, match="unsupported H=4 Kv=2 Hd=96"):
+        TMK._check_geometry(TMK.make_plan(_cfgs(head_dim=96, hidden_size=384)[1]))
     with pytest.raises(ValueError, match="at most 8 query heads"):
         TMK._check_geometry(TMK.make_plan(_cfgs(num_heads=32, hidden_size=2048)[1]))
     with pytest.raises(ValueError, match="intermediate 400 not a multiple"):
         TMK._check_geometry(TMK.make_plan(_cfgs(intermediate_size=400)[1]))
+
+
+@pytest.mark.parametrize("head_dim", [16, 32])
+def test_generate_mega_of_an_f32_model_matches_jax(head_dim):
+    """An f32 model with heads of 16 (the tiny preset's) and 32: the
+    megakernel computes in bf16 whatever the model's dtype (it casts the
+    embedded token, as the JAX kernel does), so greedy ``generate(mega=)``
+    is held to the bar of the bf16 test above (agreement > 0.9, logprobs
+    of the agreeing prefix within 0.05)."""
+    jcfg, tcfg = _cfgs(hidden_size=4 * head_dim, head_dim=head_dim, intermediate_size=128,
+                       dtype="float32")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(4))
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg, device="cpu")
+    jq, tq = j_quantize_params(jp), quantize_params(tp)
+    r = np.random.default_rng(5)
+    ids = r.integers(0, 256, (8, 16)).astype(np.int32)
+    lens = np.array([16, 16, 9, 16, 5, 16, 12, 16])
+    mask = np.arange(16)[None, :] >= (16 - lens)[:, None]
+    ids = np.where(mask, ids, 0).astype(np.int32)
+    jout = j_generate(jp, jcfg, jax.random.PRNGKey(3), jnp.asarray(ids), jnp.asarray(mask),
+                      JSampling(max_new_tokens=5, greedy=True), decode_params=jq,
+                      kv_quant="int8", mega=JMK.pack_decode_weights(jq, jcfg, chunk_width=256),
+                      sampler_impl="xla")
+    out = generate(tp, tcfg, torch.Generator(), ids, mask,
+                   SamplingParams(max_new_tokens=5, greedy=True), decode_params=tq,
+                   kv_quant="int8", mega=TMK.pack_decode_weights(tq, tcfg), sampler_impl="xla",
+                   device="cpu")
+    jt, jl = np.asarray(jout.response_ids), np.asarray(jout.response_logprobs)
+    agree = (out.response_ids.numpy() == jt).mean()
+    assert agree > 0.9, agree
+    same = np.cumprod(out.response_ids.numpy() == jt, axis=1).astype(bool)
+    assert np.abs(out.response_logprobs.numpy() - jl)[same].max() < 0.05

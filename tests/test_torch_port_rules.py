@@ -532,3 +532,24 @@ def test_code_verifier_execs_each_candidate_in_a_fresh_interpreter():
     mods = set(_imported_modules(path))
     assert "subprocess" in mods and not mods & {"multiprocessing", "concurrent.futures", "os"}
     assert "subprocess.run(" in path.read_text()
+
+
+def test_every_activation_kernel_takes_a_dtype_code():
+    """The C entries of every kernel that reads activations take the
+    element type's code (0 bf16, 1 f16, 2 f32; K4's ``hdt``), and the
+    wrappers compute it from the tensor: any other dtype is refused before
+    a launch. K9 computes in bf16 whatever the model's dtype and takes
+    none."""
+    import torch
+
+    from rlinf_tpu_torch.ops.cuda import kernels
+
+    assert _build.DTYPE_CODES == {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+    for name, k in kernels().items():
+        text = (_build.CSRC / k.source).read_text()
+        params = re.search(rf'extern "C" int {k.symbol}\(([^)]*)\)', text).group(1)
+        want = "int hdt" if name == "fused_lmhead_sample" else "int dtype"
+        assert (want in params) == (name != "decode_megakernel"), name
+    assert _build.dtype_code("q", torch.zeros(1, dtype=torch.float16)) == 1
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        _build.dtype_code("q", torch.zeros(1, dtype=torch.float64))

@@ -33,7 +33,7 @@ from rlinf_tpu_torch.data import io_struct as tio
 from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
 from rlinf_tpu_torch.models.llm.convert import params_from_numpy
 from rlinf_tpu_torch.runners import ReasoningRunner
-from rlinf_tpu_torch.training.train_state import tree_leaves
+from rlinf_tpu_torch.training.train_state import create_train_state, tree_leaves
 from rlinf_tpu_torch.utils.checkpoint import flatten
 
 torch.set_num_threads(2)
@@ -179,6 +179,116 @@ def test_train_on_result_matches_the_jax_runner(jax_side, monkeypatch, max_token
         np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
 
 
+PPO_YAML = "examples/reasoning/config/ppo_separate_critic.yaml"
+# the shipped PPO config in fp32 (so that both sides agree to rounding), no
+# lr warmup, the recompute on, 2 minibatches; adam's eps at 1e-3, as the
+# policy-step test takes it (an entry whose gradient is rounding noise on
+# both sides would otherwise move by up to lr either way)
+PPO_BASE = ["model.dtype=float32", "runner.log_dir=null", "algorithm.recompute_logprobs=true",
+            "runner.num_mini_batches=2", "optimizer.warmup_steps=0", "optimizer.lr=1e-3",
+            "algorithm.critic_lr=3e-3", "optimizer.eps=1e-3"]
+
+
+@pytest.mark.parametrize("critic,warmup", [("separate", 0), ("separate", 1), ("shared", 0)])
+def test_critic_runner_step_matches_the_jax_runner(monkeypatch, critic, warmup):
+    """One ``_train_on_result`` of the PPO runner with a learned critic
+    (ppo_separate_critic.yaml in fp32): a separate critic with its own
+    optimizer and ``critic_lr``, with and without a warmup step (the actor
+    update skipped), and a value head on the shared trunk. The JAX runner's
+    initial actor (and critic) params are converted into the port's runner;
+    one rollout and one permutation feed both. GAE advantages within 1e-5;
+    every ``actor/*`` and ``critic/*`` metric within 1e-4 relative (1e-5
+    absolute; the clip ratio, a count at a threshold, within 4 of its 1024
+    entries); the actor's and the critic's params after the step within
+    1e-5."""
+    ov = PPO_BASE + [f"algorithm.critic={critic}", f"algorithm.critic_warmup_steps={warmup}"]
+    jcfg = jconfig.load_config(PPO_YAML, ov)
+    jdata, tdata = _datasets()
+    params = jinit_params(jcfg.model, jax.random.PRNGKey(0))
+    jr = JRunner(jcfg, JTokenizer(), jdata, init_params_override=lambda rng: params,
+                 reward_fn=rule_reward)
+    tcfg = tconfig.load_config(PPO_YAML, ov)
+    tr = ReasoningRunner(tcfg, ByteTokenizer(), tdata, reward_fn=rule_reward, device="cpu")
+    assert tr.with_critic and tr.separate_critic == (critic == "separate")
+    np_actor = jax.tree_util.tree_map(np.array, jr.state.params)
+    tr.state = create_train_state(
+        lambda: params_from_numpy(np_actor, tcfg.model, device="cpu"), tr.tx)
+    assert ("value_head" in tr.state.params) == (critic == "shared")
+    if critic == "separate":
+        np_critic = jax.tree_util.tree_map(np.array, jr.critic_state.params)
+        tr.critic_state = create_train_state(
+            lambda: params_from_numpy(np_critic, tcfg.model, device="cpu"), tr.critic_tx)
+
+    perm = np.random.default_rng(3).permutation(16)
+    monkeypatch.setattr(jax.random, "permutation", lambda key, n: jnp.asarray(perm[:n]))
+    monkeypatch.setattr(tr, "_permutation", lambda n: perm[:n])
+    logs = {"jax": [], "torch": []}
+    for side, r in (("jax", jr), ("torch", tr)):
+        monkeypatch.setattr(r, "_gae_token_advantages",
+                            _recording(r._gae_token_advantages, logs[side]))
+    arrays = _rollout_arrays()
+    jm = jr._train_on_result(jio.RolloutResult(**copy.deepcopy(arrays)))
+    tm = tr._train_on_result(tio.RolloutResult(**copy.deepcopy(arrays)))
+
+    for k in ("advantages", "returns", "prev_values"):
+        np.testing.assert_allclose(logs["torch"][0][k], logs["jax"][0][k], atol=1e-5, err_msg=k)
+    assert np.abs(logs["torch"][0]["advantages"]).max() > 0
+    assert set(tm) == set(jm)
+    assert ("actor/warmup_skipped" in tm) == (warmup > 0)
+    for k in sorted(k for k in jm if k.startswith(("actor/", "critic/"))):
+        # the clip ratio counts |clip(v - prev) + prev - prev| > value_clip
+        # over the minibatch's 1024 entries: an entry clipped to exactly the
+        # bound lands a rounding either side of it, so a few may count apart
+        atol = 4 / 1024 if k == "critic/value_clip_ratio" else 1e-5
+        np.testing.assert_allclose(tm[k], jm[k], rtol=1e-4, atol=atol, err_msg=k)
+    assert any(k.startswith("critic/") for k in tm)
+    for got, want in zip(tree_leaves(tr.state.params),
+                         jax.tree_util.tree_leaves(jr.state.params)):
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+    if critic == "separate":
+        moved = [not np.allclose(_np(a), b) for a, b in
+                 zip(tree_leaves(tr.critic_state.params), jax.tree_util.tree_leaves(np_critic))]
+        assert any(moved)
+        for got, want in zip(tree_leaves(tr.critic_state.params),
+                             jax.tree_util.tree_leaves(jr.critic_state.params)):
+            np.testing.assert_allclose(_np(got), _np(want), atol=1e-5)
+
+
+def test_separate_critic_checkpoints_beside_the_actor(tmp_path):
+    """main_grpo on ppo_separate_critic.yaml (bf16, as shipped) for two
+    steps with a warmup step saves the critic under ``checkpoint_dir +
+    "_critic"``; a runner resumed from it holds both states bitwise equal
+    to a second run's after the same two steps."""
+    ck = tmp_path / "ck"
+    common = ["--config", PPO_YAML, "--device", "cpu", "runner.rollout_batch_size=4",
+              "algorithm.critic_warmup_steps=1", f"runner.checkpoint_dir={ck}",
+              "runner.save_interval=1", "runner.log_dir=null"]
+    first = main_grpo.main([*common, "runner.max_steps=2"])
+    assert first[0]["actor/warmup_skipped"] == 1.0 and "actor/warmup_skipped" not in first[1]
+    assert (tmp_path / "ck_critic").is_dir()
+    tdata = main_grpo.synthetic_dataset()
+    cfg = tconfig.load_config(PPO_YAML, common[4:])
+    resumed = ReasoningRunner(cfg, ByteTokenizer(), tdata, device="cpu")
+    assert resumed.global_step == 2
+    full = ReasoningRunner(tconfig.load_config(PPO_YAML, [c.replace(str(ck), str(tmp_path / "b"))
+                                                          for c in common[4:]]),
+                           ByteTokenizer(), tdata, device="cpu")
+    full.run(2)
+    for a, b in ((resumed.state.params, full.state.params),
+                 (resumed.critic_state.params, full.critic_state.params)):
+        assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def test_grpo_demo_tiny_step_in_f32_as_shipped(tmp_path):
+    """grpo_demo_tiny.yaml as shipped (fp32, Hd=16, 16 prompts x 8) takes
+    one whole step through main_grpo: finite metrics, the actor updated."""
+    history = main_grpo.main(["--config", YAML, "--device", "cpu", "runner.max_steps=1",
+                              f"runner.log_dir={tmp_path}"])
+    (m,) = history
+    assert all(np.isfinite(v) for v in m.values())
+    assert m["actor/grad_norm"] >= 0 and m["rollout/response_len_mean"] > 0
+
+
 def test_main_grpo_cli_writes_the_jax_runners_metrics(jax_side, tmp_path):
     """``main_grpo.main`` on the CPU runs two whole steps and writes
     ``metrics.jsonl`` rows whose keys are the JAX runner's step keys (and
@@ -274,7 +384,7 @@ def test_run_pipelined_rolls_out_on_a_snapshot(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override, match", [
-    ("algorithm.adv_type=gae", "A.3"),
+    ("optimizer.name=adafactor", "later slice"),
     ("lora.enabled=true", "A.3"),
 ])
 def test_unported_options_raise(override, match):
