@@ -175,6 +175,31 @@ the small models' default runs, and PPO with a learned critic:
    step and actor-critic step, kernels against plain on one batch, within
    ``CRITIC_SHADOW_BARS``.
 
+Then adafactor and selective recompute, LoRA and SFT:
+
+20. adafactor_remat: the training phase's batch (B=64, T=768, 4
+   microbatches) at Qwen2-1.5B's full width and depth with adafactor at lr
+   1e-6 (bench.py's optimizer above 1e9 parameters), 4 steps under
+   remat=True and 4 under remat="dots" (the projections' outputs kept):
+   the median of steps 2-4, peak memory and the optimizer state's bytes
+   beside the training phase's adamw with master weights. Gates: K1 and
+   K5-K8 launched under each, K1 twice a layer in one microbatch's forward
+   and backward under each, the two forms' gradients on one microbatch
+   bitwise equal or within ``SHADOW_BARS``.
+21. lora: ``main_grpo`` on grpo_math_qwen05b.yaml in LoRA mode
+   (``LORA_OVERRIDES``, rank 16, the runner phase's cut) for 3 steps; then a
+   runner with ``text_rule`` rewards for 3 steps. Gates: the base params
+   bitwise the init's, the adapters' b moved, every rollout's params
+   bitwise the merge of its step, a shadow step within ``SHADOW_BARS``, a
+   ``resume=auto`` and a ``lora.path`` runner bitwise, K1, K2 and K5-K8
+   launched; the train step with K6's dw product skipped and computed, in
+   turns; one step with an lm_head target (K5/K6 on the untied head).
+22. sft: ``main_sft`` on a jsonl of 512 synthetic GSM8K-style problems with
+   chain-of-thought answers, grpo_math_qwen05b.yaml's model at full width
+   and depth, 64 rows a batch, 3 steps. Gates: T >= 128 (the attention
+   kernels, not the plain path), finite loss, K1 and K5-K8 launched, a
+   bitwise resume, a shadow step within ``SHADOW_BARS``.
+
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures (each with its timed ``variants`` of
 phase 17), and ``{"ok": true, "device": ...}``.
@@ -186,6 +211,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import re
@@ -2352,7 +2378,7 @@ def behaviour_drift(runner, result, lp=None) -> dict:
     tb = build_train_batch(result, np.zeros(result.response_ids.shape, np.float32),
                            pad_id=runner.cfg.sampling.pad_token_id)
     if lp is None:
-        lp, _ = runner.logprob_fn(runner.state.params, runner._put_batch(tb.to_dict()))
+        lp, _ = runner.logprob_fn(runner._policy_params(), runner._put_batch(tb.to_dict()))
     d = np.abs(lp.float().cpu().numpy() - tb.old_logprobs)[tb.loss_mask]
     return {"mean_abs": float(d.mean()), "max_abs": float(d.max()), "tokens": int(d.size)}
 
@@ -2413,10 +2439,12 @@ def watching_runner(record: dict):
 def summing_updates(total: list):
     """Sum, in f32, every update the optimizer hands to the params (one a
     minibatch) into ``total`` (a list that holds the running tree): the
-    policy's, the actor-critic's and the separate critic's steps."""
-    from rlinf_tpu_torch.training import critic, learner
+    policy's, the actor-critic's, the separate critic's, the LoRA and the
+    SFT steps."""
+    from rlinf_tpu_torch.training import critic, learner, lora_learner, sft
     from rlinf_tpu_torch.training.train_state import tree_map
 
+    mods = (learner, critic, lora_learner, sft)
     orig = learner.apply_updates
 
     def apply_updates(params, updates):
@@ -2427,11 +2455,13 @@ def summing_updates(total: list):
                 total.append(tree_map(lambda u: u.float().clone(), updates))
         orig(params, updates)
 
-    learner.apply_updates = critic.apply_updates = apply_updates
+    for m in mods:
+        m.apply_updates = apply_updates
     try:
         yield
     finally:
-        learner.apply_updates = critic.apply_updates = orig
+        for m in mods:
+            m.apply_updates = orig
 
 
 def moved_share(a, b) -> float:
@@ -3637,6 +3667,499 @@ def critic_phase(kerns, gpu, seed) -> dict:
     return launches
 
 # ---------------------------------------------------------------------------
+# Phase 20: adafactor, under remat=True and remat="dots"
+# ---------------------------------------------------------------------------
+
+#: the two recompute forms phase 20 trains under
+REMAT_FORMS = (True, "dots")
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors of a tree (dicts, lists, tuples, NamedTuples)."""
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values()
+               if isinstance(t, torch.Tensor))
+
+
+def remat_grads_check(cfg, params, loss_cfg, mb, global_valid, kerns) -> dict:
+    """One microbatch's gradients through ``learner._grads`` under
+    remat=True and remat="dots" from the same params: K1's launches in the
+    forward and backward (the kernel runs inside an autograd Function that
+    the selective policy cannot keep, so each form recomputes it: 2 a
+    layer), and the two forms' gradients, bitwise or apart by the shadow
+    bars (grad norm; the gradients' direction by the first-moment bar)."""
+    from rlinf_tpu_torch.training.learner import _grads, microbatch_loss_with_moe
+
+    grads, out = {}, {}
+    for remat in REMAT_FORMS:
+        def run():
+            return _grads(params, lambda p: microbatch_loss_with_moe(
+                p, cfg, loss_cfg, mb, global_valid, attn_impl="pallas", remat=remat))
+        (g, loss, _), secs, counts = run_counted(kerns, run)
+        grads[remat] = g
+        out[str(remat)] = {"loss": float(loss), "seconds": secs,
+                           "k1_launches": counts["flash_attention_fwd"],
+                           "launches": {k: c for k, c in counts.items() if c}}
+    a, b = grads["dots"], grads[True]
+    out["bitwise_equal"] = not state_differences(a, b)
+    out["grad_norm"] = [tree_norm(a), tree_norm(b)]
+    out["grad_norm_rel"] = abs(out["grad_norm"][0] - out["grad_norm"][1]) / max(out["grad_norm"][1], 1e-30)
+    out["grads_rel"] = norm_rel(a, b)
+    out["k1_launches_wanted"] = 2 * cfg.num_layers
+    return out
+
+
+def adafactor_remat_phase(kerns, gpu, batch, adamw_state_bytes, seed) -> dict:
+    """Phase 20: the training phase's batch (B=64, T=768, 4 microbatches,
+    entropy bonus 1e-3) at Qwen2-1.5B's full width and depth with adafactor
+    at lr 1e-6 and no master copy (bench.py's optimizer for presets above
+    1e9 parameters), TRAIN_STEPS steps under remat=True and TRAIN_STEPS
+    under remat="dots", each from a fresh init: the median of steps 2-4,
+    peak memory, the optimizer state's bytes beside the training phase's
+    adamw with master weights. Gates: K1 and K5-K8 launched under each
+    form, finite loss and grad norm, K1 twice a layer in one microbatch's
+    forward and backward under each form, and the two forms' gradients on
+    one microbatch bitwise equal or within the shadow bars."""
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.training.learner import PolicyLossConfig, make_policy_train_step
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig, TrainState, make_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = LLMConfig.qwen2_1_5b()
+    loss_cfg = PolicyLossConfig(entropy_bonus=1e-3)
+    opt = OptimizerConfig(name="adafactor", lr=1e-6)
+    tx = make_optimizer(opt)
+    host = batch.to_dict()
+    B, T = host["input_ids"].shape
+    out = {"phase": "adafactor_remat", "gpu": gpu, "model": "qwen2_1_5b",
+           "layers": cfg.num_layers, "batch": B, "seq_len": T, "num_microbatches": 4,
+           "optimizer": dataclasses.asdict(opt),
+           "adamw_master_state_gb": adamw_state_bytes / 1e9}
+    bad, launches = [], {k: 0 for k in kerns}
+
+    # one init (about as long as a whole form's steps): each form starts
+    # from a copy of it
+    params0 = M.init_params(cfg, seed, device="cuda")
+    dev = {k: torch.as_tensor(v).cuda() for k, v in host.items()}
+    mb = {k: v[:B // 4] for k, v in dev.items()}
+    gv = dev["loss_mask"].float().sum().clamp_min(1.0)
+    check = remat_grads_check(cfg, params0, loss_cfg, mb, gv, kerns)
+    out["grads_check"] = check
+    del dev, mb
+    for form in REMAT_FORMS:
+        if check[str(form)]["k1_launches"] != check["k1_launches_wanted"]:
+            bad.append(f"remat={form}: K1 launched {check[str(form)]['k1_launches']} times in "
+                       f"one microbatch's forward and backward")
+    if not check["bitwise_equal"] and not (
+            check["grad_norm_rel"] < SHADOW_BARS["grad_norm_rel"]
+            and check["grads_rel"] < SHADOW_BARS["first_moment_rel"]):
+        bad.append(f"remat='dots' gradients against remat=True's: {check}")
+
+    for form in REMAT_FORMS:
+        params = clone_tree(params0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_fn = make_policy_train_step(cfg, loss_cfg, tx, num_microbatches=4, remat=form,
+                                         attn_impl="pallas", device="cuda")
+        state = TrainState(0, params, tx.init(params))
+        state_bytes = tree_bytes(state.opt_state)
+        steps, metrics = [], []
+        watch = StepWatch()
+
+        def run(state=state):
+            for _ in range(TRAIN_STEPS):
+                (state, m), rec = watch.step(lambda: step_fn(state, host))
+                steps.append(rec)
+                metrics.append({k: float(v) for k, v in m.items()})
+            return state
+
+        state, secs, counts = run_counted(kerns, run)
+        watch.close()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        later = sorted(r["seconds"] for r in steps[1:])
+        moved = moved_share(state.params, params0)
+        out[f"remat={form}"] = {
+            "seconds": secs, "steps": steps, "step_s_median": later[len(later) // 2],
+            "step_s_min": later[0], "max_memory_allocated_gb": peak,
+            "optimizer_state_gb": state_bytes / 1e9,
+            "params_moved_share": moved, "metrics": metrics, "launches": counts}
+        bad += [f"remat={form}: {k} not launched" for k in TRAIN_KERNELS if not counts[k]]
+        bad += [f"remat={form}: step {i + 1} {k}" for i, m in enumerate(metrics)
+                for k in ("actor/loss", "actor/grad_norm") if not np.isfinite(m[k])]
+        for k, c in counts.items():
+            launches[k] += c
+        del state, params, step_fn
+    del params0
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"adafactor/remat phase failed: {bad}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: LoRA through main_grpo
+# ---------------------------------------------------------------------------
+
+# the runner phase's yaml and cut, in LoRA mode: each override and why
+LORA_OVERRIDES = {
+    "lora.enabled=true": "rank-16 adapters (alpha 32) on the default targets (wq, wk, wv, "
+                         "wo, gate, up, down); the base frozen",
+    "loss.max_tokens_per_mb=0": "LoRA refuses the token budget (as the JAX runner): "
+                                "static minibatches",
+}
+LORA_HEAD_TARGETS = "lora.targets=[wq,wk,wv,wo,gate,up,down,lm_head]"
+
+
+@contextlib.contextmanager
+def weight_grad_always():
+    """K6's wrapper as it was before it skipped the lm head's dw product for
+    a frozen head: dw from the saved dz whether the weight needs it or not."""
+    from rlinf_tpu_torch.ops.cuda import linear_ce as LCE
+
+    orig = LCE.LinearCE.backward
+
+    def backward(ctx, g_lp, g_ent):
+        h2, w, tgt, lse, ent = ctx.saved_tensors
+        g_lp = torch.zeros_like(lse) if g_lp is None else g_lp.float().contiguous()
+        g_ent = torch.zeros_like(lse) if g_ent is None else g_ent.float().contiguous()
+        dz, dh = LCE.ce_backward(h2, w, tgt, lse, lse - ent, g_lp, g_ent, ctx.inv_temp,
+                                 ctx.w_layout)
+        dw = LCE.weight_grad(h2, dz, ctx.w_layout, LCE._vocab(w, ctx.w_layout), w.dtype)
+        return dh, dw, None, None, None
+
+    LCE.LinearCE.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        LCE.LinearCE.backward = orig
+
+
+def lora_minibatch(runner, result) -> dict:
+    """The first minibatch of ``result``'s train batch as the runner's
+    step takes it: rewards of ``text_rule``, GRPO advantages, the recompute
+    as old logprobs (on the merged params)."""
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+
+    rewards = np.asarray(text_rule(result.response_texts(runner.tokenizer), result.answers),
+                         np.float32)
+    tb = build_train_batch(result, runner._compute_advantages(result, rewards),
+                           pad_id=runner.cfg.sampling.pad_token_id)
+    batch = runner._put_batch(tb.to_dict())
+    lp, _ = runner.logprob_fn(runner._policy_params(), batch)
+    batch["old_logprobs"] = torch.where(batch["loss_mask"], lp, 0.0)
+    rows = batch["input_ids"].shape[0] // runner.cfg.runner.num_mini_batches
+    return {k: v[:rows] for k, v in batch.items()}
+
+
+def lora_phase(kerns, gpu, seed) -> dict:
+    """Phase 21. (a) ``main_grpo.main`` on grpo_math_qwen05b.yaml in LoRA
+    mode (LORA_OVERRIDES, the runner phase's RUNNER_REDUCED): 3 steps with
+    the math verifier. (b) A ReasoningRunner on the same config with
+    ``text_rule`` rewards (non-zero advantages) for 3 steps, then the gates:
+    the base params bitwise the init's, the adapters' b moved from 0, each
+    rollout's params bitwise ``merge_lora(base, adapters)`` of its step, a
+    shadow step (kernels against plain, SHADOW_BARS), a ``resume=auto``
+    runner and a ``lora.path`` runner holding the adapters bitwise, K1, K2
+    and K5-K8 launched; the train step on one minibatch with K6's dw
+    product skipped (a frozen head) and computed, in turns. (c) One step
+    with "lm_head" among the targets (K5 and K6 on the explicit untied
+    head)."""
+    import shutil
+
+    from rlinf_tpu_torch import main_grpo
+    from rlinf_tpu_torch.config import load_config
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.models.llm.lora import lora_num_params, merge_lora
+    from rlinf_tpu_torch.models.llm.model import init_params
+    from rlinf_tpu_torch.models.llm.quant import quantize_params
+    from rlinf_tpu_torch.runners import ReasoningRunner
+    from rlinf_tpu_torch.training.train_state import tree_leaves
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "lora_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    yaml = str(HERE / RUNNER_YAML)
+    base_ov = [*LORA_OVERRIDES, *RUNNER_REDUCED, f"runner.seed={seed}"]
+    out = {"phase": "lora", "gpu": gpu, "config": RUNNER_YAML, "overrides": LORA_OVERRIDES,
+           "reduced": RUNNER_REDUCED}
+    bad, launches = [], {k: 0 for k in kerns}
+    steps_of = lambda history: [{k: v for k, v in h.items()
+                                 if k.startswith(("time/", "actor/", "perf/"))} for h in history]
+
+    # (a) through the entry point
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    with watching_runner(record):
+        history, secs, counts = run_counted(kerns, lambda: main_grpo.main(
+            ["--config", yaml, *base_ov, f"runner.log_dir={work / 'logs'}",
+             "runner.checkpoint_dir=null"]))
+    r0 = record["runner"]
+    trainable = lora_num_params(r0.state.params)
+    total = sum(t.numel() for t in tree_leaves(r0.base_params))
+    out["main_grpo"] = {"seconds": secs, "launches": counts, "steps": steps_of(history),
+                        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "recompute_s": list(record["recompute_s"]),
+                        "logprob_drift_step1": {"kernels": behaviour_drift(r0, record["result"],
+                                                                           lp=record["lp"]),
+                                                "plain": record["drift_plain"]}}
+    out["trainable_params"], out["base_params"] = trainable, total
+    out["trainable_share"] = trainable / total
+    bad += [f"main_grpo: {k} not launched" for k in RUNNER_KERNELS if not counts[k]]
+    bad += [f"main_grpo: {b}" for b in finite_steps(history)]
+    for k, c in counts.items():
+        launches[k] += c
+    del record, r0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) rule rewards, the gates
+    ov = [*base_ov, "runner.log_dir=null", f"runner.checkpoint_dir={work / 'ckpt'}"]
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    r1 = ReasoningRunner(load_config(yaml, ov), ByteTokenizer(), main_grpo.synthetic_dataset(),
+                         reward_fn=text_rule, device="cuda")
+    seen = []
+    engine_rollout = r1.engine.rollout
+
+    def rollout(params, request, generator, **kw):
+        seen.append((params, clone_tree(r1.state.params)))
+        return engine_rollout(params, request, generator, **kw)
+
+    r1.engine.rollout = rollout
+    with watching_runner(record):
+        history, secs, counts = run_counted(kerns, lambda: r1.run(3))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    result = record["result"]
+    row = {"seconds": secs, "launches": counts, "steps": steps_of(history),
+           "max_memory_allocated_gb": peak, "recompute_s": list(record["recompute_s"])}
+    fresh = init_params(r1.cfg.model, seed, device="cuda")
+    row["base_differs_from_init_at"] = state_differences(r1.base_params, fresh)
+    del fresh
+    row["b_nonzero"] = {k: bool(v.any()) for k, v in flatten(r1.state.params).items()
+                        if k.endswith("/b")}
+    row["engine_params_differ_from_merge_at"] = [
+        state_differences(params, merge_lora(r1.base_params, adapters, r1.cfg.lora))
+        for params, adapters in seen]
+    del seen
+    r1.engine.rollout = engine_rollout
+    with torch.no_grad():
+        row["merge_ms"] = cuda_ms(r1._policy_params, 3, warmup=1)
+        row["quantize_params_ms"] = cuda_ms(lambda: quantize_params(r1._policy_params()), 3,
+                                            warmup=1)
+    bad += [f"rule run: {k} not launched" for k in RUNNER_KERNELS if not counts[k]]
+    bad += [f"rule run: {b}" for b in finite_steps(history)]
+    if row["base_differs_from_init_at"]:
+        bad.append(f"the base params changed: {row['base_differs_from_init_at'][:5]}")
+    if not all(row["b_nonzero"].values()):
+        bad.append(f"adapters' b still zero: {row['b_nonzero']}")
+    if len(row["engine_params_differ_from_merge_at"]) != 3 or any(
+            row["engine_params_differ_from_merge_at"]):
+        bad.append(f"engine params vs merge: {row['engine_params_differ_from_merge_at']}")
+    for k, c in counts.items():
+        launches[k] += c
+
+    # K6's dw product skipped for the frozen tied head, and computed, in turns
+    mb = lora_minibatch(r1, result)
+    start = clone_tree(r1.state)
+    step = lambda: r1.train_step(clone_tree(start), mb)
+    dw = {"skip": [], "dw": []}
+    for mode in ("skip", "dw", "dw", "skip", "skip", "dw"):
+        with weight_grad_always() if mode == "dw" else contextlib.nullcontext():
+            dw[mode].append(cuda_ms(step, 5, warmup=1))
+    row["train_step_ms_frozen_head"] = {"dw_skipped": dw["skip"], "dw_computed": dw["dw"],
+                                        "rows": int(mb["input_ids"].shape[0]),
+                                        "seq_len": int(mb["input_ids"].shape[1])}
+    del mb, start
+
+    # shadow step on step 1's rollout; the runner keeps the kernels' run (step 4)
+    shadow, _ = shadow_step(r1, result, kerns)
+    row["shadow"] = shadow
+    r1.save_checkpoint()
+    r2 = ReasoningRunner(load_config(yaml, ov), ByteTokenizer(), main_grpo.synthetic_dataset(),
+                         device="cuda")
+    r3 = ReasoningRunner(load_config(yaml, [*base_ov, "runner.log_dir=null",
+                                            "runner.checkpoint_dir=null",
+                                            f"lora.path={work / 'ckpt'}"]),
+                         ByteTokenizer(), main_grpo.synthetic_dataset(), device="cuda")
+    row["resume"] = {"global_step": r2.global_step,
+                     "state_differs_at": state_differences(r1.state, r2.state)}
+    row["lora_path"] = {"global_step": r3.global_step,
+                        "adapters_differ_at": state_differences(r1.state.params, r3.state.params)}
+    if not (r2.global_step == 4 and not row["resume"]["state_differs_at"]):
+        bad.append(f"resume=auto: {row['resume']}")
+    if not (r3.global_step == 0 and not row["lora_path"]["adapters_differ_at"]):
+        bad.append(f"lora.path: {row['lora_path']}")
+    out["rule_rewards"] = row
+    del r1, r2, r3, record, result
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) an lm_head target: K5/K6 on the explicit [D, V] head
+    r4 = ReasoningRunner(load_config(yaml, [*base_ov, LORA_HEAD_TARGETS, "runner.log_dir=null",
+                                            "runner.checkpoint_dir=null"]),
+                         ByteTokenizer(), main_grpo.synthetic_dataset(), reward_fn=text_rule,
+                         device="cuda")
+    history, secs, counts = run_counted(kerns, lambda: r4.run(1))
+    head = {"seconds": secs, "launches": counts, "steps": steps_of(history),
+            "trainable_params": lora_num_params(r4.state.params),
+            "lm_head_b_moved": bool(r4.state.params["lm_head"]["b"].any())}
+    out["lm_head_target"] = head
+    if not (counts["linear_ce_fwd"] and counts["linear_ce_bwd"] and head["lm_head_b_moved"]):
+        bad.append(f"lm_head target: {head}")
+    for k, c in counts.items():
+        launches[k] += c
+    del r4
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"LoRA phase failed: {bad}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: SFT through main_sft
+# ---------------------------------------------------------------------------
+
+# grpo_math_qwen05b.yaml's model and optimizer as SFT, cut to a short run:
+# each override and why
+SFT_REDUCED = {
+    "runner.rollout_batch_size=64": "64 rows a batch",
+    "runner.max_steps=3": "the yaml has 400",
+    "runner.save_interval=3": "one checkpoint, at the last step (the yaml: every 50)",
+}
+SFT_EXAMPLES = 512
+
+
+@contextlib.contextmanager
+def watching_sft(record: dict):
+    """For one main_sft run: keep the runner and each batch's shape."""
+    from rlinf_tpu_torch.runners import sft_runner as SR
+
+    orig = SR.SFTRunner._build_batch
+
+    def build_batch(self, examples):
+        record["runner"] = self
+        batch = orig(self, examples)
+        record.setdefault("batches", []).append(batch)
+        return batch
+
+    SR.SFTRunner._build_batch = build_batch
+    try:
+        yield
+    finally:
+        SR.SFTRunner._build_batch = orig
+
+
+def sft_shadow(runner, batch, kerns) -> dict:
+    """One SFT step from the runner's state on ``batch``, with every training
+    kernel replaced by its plain version and then with the kernels; the
+    runner's state is left as it was."""
+    runs = {}
+    for mode in ("plain", "kernels"):
+        state, updates = clone_tree(runner.state), []
+        with (kernels_replaced(plain_only, _training_sites()) if mode == "plain"
+              else contextlib.nullcontext()), summing_updates(updates):
+            (state, m), secs, counts = run_counted(kerns, lambda: runner.train_step(state, batch))
+        runs[mode] = dict(m={k: float(v) for k, v in m.items()}, state=state,
+                          updates=updates[0], counts=counts, seconds=secs)
+        del state
+    k, p = runs["kernels"], runs["plain"]
+    out = {"loss": [k["m"]["sft/loss"], p["m"]["sft/loss"]],
+           "loss_abs": abs(k["m"]["sft/loss"] - p["m"]["sft/loss"]),
+           "grad_norm": [k["m"]["sft/grad_norm"], p["m"]["sft/grad_norm"]],
+           "grad_norm_rel": abs(k["m"]["sft/grad_norm"] - p["m"]["sft/grad_norm"])
+                            / max(p["m"]["sft/grad_norm"], 1e-30),
+           "first_moment_rel": norm_rel(k["state"].opt_state["mu"], p["state"].opt_state["mu"]),
+           "update_rel": norm_rel(k["updates"], p["updates"]),
+           "update_norm": [tree_norm(k["updates"]), tree_norm(p["updates"])],
+           "seconds": [k["seconds"], p["seconds"]], "kernel_launches": k["counts"],
+           "bars": {n: SHADOW_BARS[n] for n in ("loss_abs", "grad_norm_rel",
+                                                "first_moment_rel", "update_rel")}}
+    out["bad"] = [n for n, bar in out["bars"].items() if not out[n] < bar]
+    if [n for n in TRAIN_KERNELS if k["counts"][n]] != list(TRAIN_KERNELS) or any(
+            p["counts"].values()):
+        out["bad"].append(f"launches {k['counts']} / plain {p['counts']}")
+    return out
+
+
+def sft_phase(kerns, gpu, seed) -> dict:
+    """Phase 22: ``main_sft.main`` on a jsonl of SFT_EXAMPLES synthetic
+    GSM8K-style problems with chain-of-thought answers (the port's copy of
+    gsm_synth, seeded), grpo_math_qwen05b.yaml's model at full width and
+    depth (byte tokenizer, random weights), cut as SFT_REDUCED. Gates: each
+    batch's T reaches ATTN_KERNELS_FROM_T (so K1, K7 and K8 run, not the
+    plain attention), finite sft/loss, K1 and K5-K8 launched, a runner with
+    resume=auto holding the run's state bitwise at step 3, and a shadow
+    step (kernels against plain, SHADOW_BARS) on the last batch."""
+    import tempfile
+
+    from rlinf_tpu_torch import main_sft
+    from rlinf_tpu_torch.config import ATTN_KERNELS_FROM_T, load_config
+    from rlinf_tpu_torch.data.datasets import PromptDataset
+    from rlinf_tpu_torch.data.gsm_synth import build_sft_examples
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.runners import SFTRunner
+
+    t_phase = time.perf_counter()
+    yaml = str(HERE / RUNNER_YAML)
+    out = {"phase": "sft", "gpu": gpu, "config": RUNNER_YAML, "reduced": SFT_REDUCED,
+           "examples": SFT_EXAMPLES}
+    bad = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "sft.jsonl"
+        data.write_text("\n".join(json.dumps({"prompt": e.prompt, "answer": e.answer})
+                                  for e in build_sft_examples(SFT_EXAMPLES, seed)))
+        ov = [*SFT_REDUCED, f"runner.seed={seed}", f"runner.log_dir={tmp}/logs",
+              f"runner.checkpoint_dir={tmp}/ckpt"]
+        record = {}
+        torch.cuda.reset_peak_memory_stats()
+        with watching_sft(record):
+            history, secs, counts = run_counted(kerns, lambda: main_sft.main(
+                ["--config", yaml, "--data-path", str(data), *ov]))
+        r = record["runner"]
+        T = [int(b["input_ids"].shape[1]) for b in record["batches"]]
+        out.update({"seconds": secs, "launches": counts, "attn_impl": r.cfg.attn_impl,
+                    "seq_len": T, "rows": [int(b["input_ids"].shape[0]) for b in record["batches"]],
+                    "loss_tokens": [int(b["loss_mask"].sum()) for b in record["batches"]],
+                    "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "steps": history})
+        if min(T) < ATTN_KERNELS_FROM_T:
+            bad.append(f"T {T} under {ATTN_KERNELS_FROM_T}: the plain attention ran")
+        bad += [f"{k} not launched" for k in TRAIN_KERNELS if not counts[k]]
+        bad += [b for b in finite_steps(history)]
+        r2 = SFTRunner(load_config(yaml, ov), ByteTokenizer(), PromptDataset.from_jsonl(str(data)),
+                       device="cuda")
+        out["resume"] = {"global_step": r2.global_step,
+                         "state_differs_at": state_differences(r.state, r2.state),
+                         "iterator_equal": r2.iterator.state_dict() == r.iterator.state_dict()}
+        if not (r2.global_step == 3 and not out["resume"]["state_differs_at"]
+                and out["resume"]["iterator_equal"]):
+            bad.append(f"resume: {out['resume']}")
+        del r2
+        shadow = sft_shadow(r, record["batches"][-1], kerns)
+        out["shadow"] = shadow
+        bad += [f"shadow: {b}" for b in shadow["bad"]]
+        del r, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_phase"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"SFT phase failed: {bad}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Phase 17: head dims 16 and 32, f16 and f32
 # ---------------------------------------------------------------------------
 
@@ -4215,7 +4738,8 @@ def main() -> int:
     # 6. the training path on the rollout, then one more step under the profiler
     state, batch, step_fn, train_counts = training_path(cfg, params, res, kerns, gpu, args.seed)
     emit(profile_train_step(state, batch, step_fn))
-    del state
+    adamw_state_bytes = tree_bytes(state.opt_state)
+    del state, step_fn
     torch.cuda.empty_cache()
     for k, c in train_counts.items():
         launches[k] += c
@@ -4252,6 +4776,13 @@ def main() -> int:
 
     # 18-19. the small models' default runs, and PPO with a learned critic
     for counts in (small_defaults_phase(kerns, gpu), critic_phase(kerns, gpu, args.seed)):
+        for k, c in counts.items():
+            launches[k] += c
+
+    # 20-22. adafactor under remat=True and "dots" on the training phase's
+    # batch, LoRA through main_grpo, SFT through main_sft
+    for counts in (adafactor_remat_phase(kerns, gpu, batch, adamw_state_bytes, args.seed),
+                   lora_phase(kerns, gpu, args.seed), sft_phase(kerns, gpu, args.seed)):
         for k, c in counts.items():
             launches[k] += c
 

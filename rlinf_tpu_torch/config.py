@@ -2,17 +2,19 @@
 
 Port of ``rlinf_tpu/config.py``: ``TrainerConfig`` and its groups, YAML
 loading with ``a.b=c`` overrides and the cross-field validators, so that one
-YAML file drives both packages. ``MeshConfig`` and ``LoRAConfig`` are the
-JAX package's fields only: the port has no mesh and no LoRA yet (a YAML's
-mesh block is validated and otherwise unused on one device).
+YAML file drives both packages. ``LoRAConfig`` lives in
+``models/llm/lora.py``, as in the JAX package. ``MeshConfig`` is the JAX
+package's fields only: the port has no mesh yet (a YAML's mesh block is
+validated and otherwise unused on one device).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 from rlinf_tpu_torch.models.llm.config import LLMConfig
+from rlinf_tpu_torch.models.llm.lora import LoRAConfig
 from rlinf_tpu_torch.models.llm.sampler import SamplingParams
 from rlinf_tpu_torch.training.learner import PolicyLossConfig
 from rlinf_tpu_torch.training.train_state import OptimizerConfig
@@ -101,19 +103,6 @@ class MeshConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class LoRAConfig:
-    enabled: bool = False
-    rank: int = 16
-    alpha: float = 32.0
-    targets: Tuple[str, ...] = ("wq", "wk", "wv", "wo", "gate", "up", "down")
-    path: str = ""
-
-    @property
-    def scaling(self) -> float:
-        return self.alpha / self.rank
-
-
-@dataclasses.dataclass(frozen=True)
 class TrainerConfig:
     model: LLMConfig = dataclasses.field(default_factory=LLMConfig.tiny)
     sampling: SamplingParams = dataclasses.field(default_factory=SamplingParams)
@@ -126,7 +115,9 @@ class TrainerConfig:
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     lora: LoRAConfig = dataclasses.field(default_factory=LoRAConfig)
     num_microbatches: int = 1
-    remat: bool = True
+    #: True (or "full") recomputes each block in the backward, "dots" keeps
+    #: the projections' outputs and recomputes the rest, False keeps all
+    remat: object = True
     #: training attention: "auto" = the hand-written flash kernels on a CUDA
     #: device when the trained sequence length reaches ATTN_KERNELS_FROM_T
     #: (128, measured on the H100; the JAX package's threshold is 1024), the

@@ -12,12 +12,17 @@ the config compute dtype with fp32 softmax/norm statistics.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import QTensor, mm
@@ -175,6 +180,21 @@ def _block(
     return _mlp_or_moe(cfg, x, layer), (k, v)
 
 
+#: the products remat="dots" keeps: plain matrix products (the projections,
+#: [B*S, D] x [D, out] after matmul's reshape); batched products (bmm, the
+#: plain attention's scores) are recomputed
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_save_dots_contexts = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
 def forward_hidden(
     params: Params,
     cfg: LLMConfig,
@@ -192,16 +212,17 @@ def forward_hidden(
     attention_mask: [B, S] bool, False = padding (left or right).
     remat: True or "full" recomputes each block in the backward
       (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
-      does; "dots" (keep the matmul outputs) has no counterpart yet.
+      does; "dots" keeps the outputs of the projections (``aten.mm`` and
+      ``aten.addmm``, products with no batch dims) and recomputes the rest
+      (norms, rope, activations, attention), as
+      ``dots_with_no_batch_dims_saveable`` does. The attention kernels
+      launch inside an autograd Function that the dispatcher does not see
+      into, so they are recomputed under either form.
     unroll_layers: accepted for the JAX signature; the port always runs the
       layers as a Python loop.
     """
     del unroll_layers
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save matmul outputs, recompute the rest) comes with a "
-            "later slice of the port; use remat=True")
-    if remat not in (False, True, "full"):
+    if remat not in (False, True, "full", "dots"):
         raise ValueError(f"remat must be False, True, 'full' or 'dots', got {remat!r}")
     B, S = input_ids.shape
     dev = input_ids.device
@@ -219,7 +240,10 @@ def forward_hidden(
 
     ks, vs = [], []
     for layer in _layers(params["blocks"], cfg.num_layers):
-        if remat and torch.is_grad_enabled():
+        if remat == "dots" and torch.is_grad_enabled():
+            x, (k, v) = checkpoint(block_fn, x, layer, use_reentrant=False,
+                                   context_fn=_save_dots_contexts)
+        elif remat and torch.is_grad_enabled():
             x, (k, v) = checkpoint(block_fn, x, layer, use_reentrant=False)
         else:
             x, (k, v) = block_fn(x, layer)

@@ -251,7 +251,9 @@ class LinearCE(torch.autograd.Function):
         g_ent = torch.zeros_like(lse) if g_ent is None else g_ent.float().contiguous()
         dz, dh = ce_backward(h2, w, tgt, lse, lse - ent, g_lp, g_ent, ctx.inv_temp,
                              ctx.w_layout)
-        dw = weight_grad(h2, dz, ctx.w_layout, _vocab(w, ctx.w_layout), w.dtype)
+        # a frozen head (LoRA without an lm_head target) takes no dw product
+        dw = (weight_grad(h2, dz, ctx.w_layout, _vocab(w, ctx.w_layout), w.dtype)
+              if ctx.needs_input_grad[1] else None)
         return dh, dw, None, None, None
 
 

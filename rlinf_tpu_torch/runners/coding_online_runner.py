@@ -125,7 +125,7 @@ class CodingOnlineRunner(ReasoningRunner):
         """A copy for the serving thread: the train step updates the
         state's params in place, so the server must never hold them."""
         with torch.no_grad():
-            return tree_map(lambda t: t.clone(), self.state.params)
+            return tree_map(lambda t: t.clone(), self._policy_params())
 
     def _sync_weights(self):
         """Live weight swap: the server picks the new params up between

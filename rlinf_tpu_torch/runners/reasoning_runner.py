@@ -15,8 +15,14 @@ or with a critic of its own (``"separate"``: its own trunk, optimizer,
 ``critic_lr``, checkpoint directory ``checkpoint_dir + "_critic"`` and
 ``critic_warmup_steps`` critic-only steps). As in the JAX package, a
 token-budget microbatch run (``loss.max_tokens_per_mb > 0``) takes the
-policy-only update and never steps the critic. LoRA raises (ROADMAP.md
-§A.3), as does a mesh (§A.9).
+policy-only update and never steps the critic. With ``lora.enabled`` the
+train state holds the adapters alone (``models/llm/lora.py``), the base
+params stay frozen, and the rollout, the recompute and the checkpoints
+read ``_policy_params()``, the adapters merged into the base (the engine
+re-quantizes the merged weights at each rollout); ``lora.path`` restores
+an adapter checkpoint, and the checkpoints hold the adapter state only.
+LoRA refuses a critic (the config's validator) and the token budget, as
+the JAX runner does. A mesh raises (ROADMAP.md §A.9).
 
 Randomness: two seeded ``torch.Generator``s on the host, one for the
 rollout's per-call sampling seeds (the engines draw their device noise from
@@ -76,9 +82,10 @@ class ReasoningRunner:
             raise NotImplementedError(
                 "ReasoningRunner(mesh=...) comes with the port's parallel slice "
                 "(ROADMAP.md §A.9)")
-        if cfg.lora.enabled:
+        if cfg.lora.enabled and cfg.loss.max_tokens_per_mb > 0:
             raise NotImplementedError(
-                "lora.enabled comes with the port's LoRA slice (ROADMAP.md §A.3)")
+                "lora.enabled with dynamic token-budget microbatching "
+                "(loss.max_tokens_per_mb > 0) is not supported, as in the JAX runner")
         dev = resolve_device(device)
         cfg = dataclasses.replace(cfg, attn_impl=resolve_attn_impl(cfg, dev))
         self.cfg = cfg
@@ -106,6 +113,16 @@ class ReasoningRunner:
             self._value_fn = torch.no_grad()(
                 lambda params, ids, mask: forward_values(
                     params, cfg.model, ids, mask, attn_impl=cfg.attn_impl))
+        elif cfg.lora.enabled:
+            # train only the adapters; the frozen base params are an argument
+            from rlinf_tpu_torch.training.lora_learner import make_lora_policy_train_step
+
+            lora_step = make_lora_policy_train_step(
+                cfg.model, cfg.loss, self.tx, cfg.lora,
+                num_microbatches=cfg.num_microbatches,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+            )
+            self.train_step = lambda state, batch: lora_step(state, self.base_params, batch)
         else:
             self.train_step = make_policy_train_step(
                 cfg.model, cfg.loss, self.tx,
@@ -176,7 +193,23 @@ class ReasoningRunner:
             init_fn = base_init
         self._sample_gen = torch.Generator().manual_seed(seed)
         self._perm_gen = torch.Generator().manual_seed(seed + 1)
-        self.state = create_train_state(lambda: init_fn(seed), self.tx)
+        if cfg.lora.enabled:
+            from rlinf_tpu_torch.models.llm.lora import init_lora_params, merge_lora
+
+            self.base_params = init_fn(seed)
+            self.state = create_train_state(
+                lambda: init_lora_params(cfg.model, cfg.lora,
+                                         torch.Generator().manual_seed(seed + 11), device=dev),
+                self.tx,
+            )
+            if cfg.lora.path:
+                state, _, _ = CheckpointManager(cfg.lora.path).restore(self.state)
+                if state is not None:
+                    self.state = state
+            self._merge = torch.no_grad()(lambda base, lora: merge_lora(base, lora, cfg.lora))
+        else:
+            self.base_params = None
+            self.state = create_train_state(lambda: init_fn(seed), self.tx)
 
         self.iterator = StatefulBatchIterator(
             dataset, cfg.runner.rollout_batch_size, seed=seed
@@ -305,13 +338,21 @@ class ReasoningRunner:
         metrics["actor/num_dyn_microbatches"] = float(len(mbs))
         return metrics
 
+    def _policy_params(self):
+        """The params the rollout and the recompute read: the adapters merged
+        into the base under LoRA (new tensors for the targets, the base's
+        own for the rest), the train state's otherwise."""
+        if self.base_params is not None:
+            return self._merge(self.base_params, self.state.params)
+        return self.state.params
+
     def _augment_batch(self, batch_dict, result):
         """Hook for subclasses to add loss inputs (e.g. version stamps in
         disaggregated/async mode) before the recompute + train phases."""
 
     def run_step(self) -> Dict[str, float]:
         with self.timers.scope("rollout"):
-            result = self._rollout_phase(self.state.params)
+            result = self._rollout_phase(self._policy_params())
         return self._train_on_result(result)
 
     def _train_on_result(self, result) -> Dict[str, float]:
@@ -348,7 +389,7 @@ class ReasoningRunner:
 
         # 3b. optional logprob recompute on the training path
         if self.logprob_fn is not None:
-            lp, _ = self.logprob_fn(self.state.params, batch_dict)
+            lp, _ = self.logprob_fn(self._policy_params(), batch_dict)
             lp = torch.where(batch_dict["loss_mask"], lp, 0.0)
             if cfg.loss.loss_type == "decoupled":
                 # decoupled PPO: behaviour logprobs (from the rollout engine)
@@ -459,7 +500,7 @@ class ReasoningRunner:
             build()
         n = max_steps or self.cfg.runner.max_steps
         history: List[Dict[str, float]] = []
-        snapshot = lambda: tree_map(lambda t: t.clone(), self.state.params)
+        snapshot = lambda: tree_map(lambda t: t.clone(), self._policy_params())
         pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         try:
             future = pool.submit(self._timed_rollout, snapshot())

@@ -129,6 +129,13 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.T
             for k, v in batch.items()}
 
 
+def _microbatches(batch: Dict[str, torch.Tensor], n: int) -> list:
+    """``batch`` as ``n`` microbatches of consecutive rows."""
+    if n == 1:
+        return [batch]
+    return [dict(zip(batch, vals)) for vals in zip(*(v.chunk(n) for v in batch.values()))]
+
+
 def _grads(params, loss_fn) -> Tuple[Any, torch.Tensor, Dict]:
     """(grads tree in the params' dtypes, loss, metrics) of ``loss_fn(p)``.
 
@@ -190,10 +197,8 @@ def make_policy_train_step(
         if num_microbatches == 1:
             grads, loss, metrics = _grads(state.params, loss_of(batch, global_valid))
         else:
-            mbs = [dict(zip(batch, vals)) for vals in
-                   zip(*(v.chunk(num_microbatches) for v in batch.values()))]
             grads, loss, metrics_list = None, torch.zeros((), device=dev), []
-            for mb in mbs:
+            for mb in _microbatches(batch, num_microbatches):
                 g, mb_loss, mb_metrics = _grads(state.params, loss_of(mb, global_valid))
                 if grads is None:
                     grads = tree_map(lambda x: x.to(acc_dt), g)

@@ -8,23 +8,29 @@ agree with ``optax`` to fp32 rounding:
   clip_by_global_norm -> scale_by_adam (bias-corrected, m^ / (sqrt(v^) + eps))
   -> add_decayed_weights -> scale by -lr * schedule(count)
 
+or, for ``name="adafactor"`` (optax 0.2.6's ``adafactor`` as the JAX
+package calls it):
+
+  clip_by_global_norm -> scale_by_factored_rms -> clip_by_block_rms(1)
+  -> scale by schedule(count) -> scale_by_param_block_rms(1e-3)
+  -> add_decayed_weights (weight_decay > 0 only) -> scale(-1)
+
 The caller applies an update as ``(p.float() + u).to(p.dtype)``. Moments
 take the dtype optax gives them: at init the parameter's dtype (bf16 for
 bf16 parameters, f32 against the f32 master copy), then the dtype of the
 arithmetic that updates them (bf16 moments updated with f32 gradients
-become f32, as in optax). ``torch.optim.AdamW`` rounds in another order and
-is not used.
-
-Adafactor comes with a later slice of the port; ``create_train_state``
-takes no mesh yet.
+become f32, as in optax; adafactor casts its statistics back to the
+parameter's dtype). ``torch.optim.AdamW`` rounds in another order and is
+not used. ``create_train_state`` takes no mesh yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -48,7 +54,8 @@ class OptimizerConfig:
     warmup_steps: int = 0
     total_steps: int = 0  # 0 => constant after warmup
     schedule: str = "constant"  # constant | cosine
-    #: adamw | adafactor (adafactor is not ported yet)
+    #: adamw | adafactor (beta2 is then adafactor's decay exponent: the
+    #: second moment's decay at step t is 1 - (t + 1)^-beta2)
     name: str = "adamw"
     #: adamw first-moment dtype ("float32" | "bfloat16")
     moment_dtype: str = "float32"
@@ -74,9 +81,17 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def _mean(x: torch.Tensor, *dims, keepdim: bool = False) -> torch.Tensor:
+    """``jnp.mean``: a bf16 or f16 input is summed in f32 and the mean cast
+    back (torch's own half-precision reduction of a large leaf rounds
+    differently)."""
+    return x.float().mean(dims or None, keepdim=keepdim).to(x.dtype)
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt(sum of squares) over every leaf, in the leaves' dtype (optax)."""
-    return torch.sqrt(sum((x * x).sum() for x in tree_leaves(tree)))
+    """sqrt(sum of squares) over every leaf, in the leaves' dtype, each
+    leaf's sum taken in f32 as XLA takes it (optax)."""
+    return torch.sqrt(sum((x * x).float().sum().to(x.dtype) for x in tree_leaves(tree)))
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +169,15 @@ def _store(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     return old
 
 
+def _global_clip(grads, clip: float) -> Callable:
+    """optax.clip_by_global_norm(clip) (or identity at clip <= 0) as a
+    function of one leaf: g / ||grads|| * clip where the norm reaches clip."""
+    g_norm = global_norm(grads) if clip > 0 else None
+    if g_norm is None or bool(g_norm < clip):
+        return lambda g: g
+    return lambda g: (g / g_norm.to(g.dtype)) * clip
+
+
 def adamw(cfg: OptimizerConfig) -> Optimizer:
     """optax.chain(clip_by_global_norm(clip) | identity, adamw(schedule, b1,
     b2, eps, weight_decay, mu_dtype))."""
@@ -174,12 +198,10 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** (count + 1)
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** (count + 1)
         step_size = -lr(count) if callable(lr) else -lr
-        g_norm = global_norm(grads) if clip > 0 else None
-        clipped = g_norm is not None and not bool(g_norm < clip)
+        clipped = _global_clip(grads, clip)
 
         def leaf(g, mu, nu, p):
-            if clipped:
-                g = (g / g_norm.to(g.dtype)) * clip
+            g = clipped(g)
             new_mu = (1 - b1) * g + b1 * mu
             new_nu = (1 - b2) * (g**2) + b2 * nu
             mu_hat = new_mu / bc1.to(device=g.device, dtype=new_mu.dtype)
@@ -197,6 +219,116 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
         out = tree_map(leaf, grads, state["mu"], state["nu"], params)
         updates, mu, nu = (tree_map(lambda t, i=i: t[i], out) for i in range(3))
         return updates, {"count": count + 1, "mu": mu, "nu": nu}
+
+    return Optimizer(init, update)
+
+
+#: adafactor's constants (optax.adafactor's defaults, which the JAX package keeps)
+FACTOR_MIN_DIM = 128
+FACTOR_EPS = 1e-30
+PARAM_SCALE_MIN = 1e-3
+
+
+def factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """(second largest, largest) dim of ``shape`` where the second largest
+    reaches FACTOR_MIN_DIM, else None: optax's ``_factored_dims``, ties
+    broken by numpy's argsort as there."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < FACTOR_MIN_DIM:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    m = _mean(x * x)
+    return torch.sqrt(m.float()).to(m.dtype)
+
+
+def _rsqrt(x: torch.Tensor) -> torch.Tensor:
+    """``x ** -0.5`` as XLA computes it for bf16: in f32, rounded once
+    (torch's bf16 pow rounds differently for about 1% of inputs)."""
+    return (x.float() ** -0.5).to(x.dtype)
+
+
+def adafactor(cfg: OptimizerConfig) -> Optimizer:
+    """optax.chain(clip_by_global_norm(clip) | identity, adafactor(schedule,
+    decay_rate=beta2, weight_decay_rate=weight_decay or None)).
+
+    A leaf whose two largest dims reach 128 keeps a row and a column mean of
+    the squared gradient (``v_row`` drops the largest dim, ``v_col`` the
+    second largest); any other leaf keeps ``v`` of its own shape. Unused
+    statistics are [1] tensors, as in optax. The arithmetic follows optax's
+    dtypes: the decay is an f32 scalar, the statistics are cast back to the
+    parameter's dtype, and each later product takes the wider of its
+    operands' dtypes."""
+    lr = make_schedule(cfg)
+    wd, clip, exponent = cfg.weight_decay, cfg.clip_grad, cfg.beta2
+
+    def init(params):
+        def one(p):
+            dims = factored_dims(p.shape)
+            small = lambda: torch.zeros((1,), dtype=p.dtype, device=p.device)
+            if dims is None:
+                return small(), small(), torch.zeros_like(p)
+            d1, d0 = dims
+            row = [n for i, n in enumerate(p.shape) if i != d0]
+            col = [n for i, n in enumerate(p.shape) if i != d1]
+            return (torch.zeros(row, dtype=p.dtype, device=p.device),
+                    torch.zeros(col, dtype=p.dtype, device=p.device), small())
+
+        out = tree_map(one, params)
+        v_row, v_col, v = (tree_map(lambda t, i=i: t[i], out)
+                           for i in range(3))
+        return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        count = state["count"]
+        t = torch.tensor(count + 1, dtype=torch.float32)
+        decay = 1.0 - t ** (-exponent)          # f32, as optax's _decay_rate_pow
+        step = lr(count) if callable(lr) else None
+        clipped = _global_clip(grads, clip)
+
+        def leaf(g, v_row, v_col, v, p):
+            g = clipped(g)
+            dt, dev = p.dtype, g.device
+            d = decay.to(dev)
+            g_sqr = g * g + FACTOR_EPS
+            dims = factored_dims(p.shape)
+            if dims is not None:
+                d1, d0 = dims
+                new_row = (d * v_row.float() + (1.0 - d) * _mean(g_sqr, d0).float()).to(dt)
+                new_col = (d * v_col.float() + (1.0 - d) * _mean(g_sqr, d1).float()).to(dt)
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = _rsqrt(new_row / _mean(new_row, reduced_d1, keepdim=True))
+                col_factor = _rsqrt(new_col)
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                v_row, v_col = _store(v_row, new_row), _store(v_col, new_col)
+            else:
+                new_v = (d * v.float() + (1.0 - d) * g_sqr.float()).to(dt)
+                u = g * _rsqrt(new_v)
+                v = _store(v, new_v)
+            u = u / torch.clamp_min(_rms(u), 1.0)                 # clip_by_block_rms(1)
+            if step is None:
+                u = lr * u
+            else:
+                u = torch.as_tensor(step).to(device=dev, dtype=u.dtype) * u
+            rms = _rms(p)                                         # scale_by_param_block_rms
+            scale = torch.where(rms <= PARAM_SCALE_MIN,
+                                torch.full_like(rms, PARAM_SCALE_MIN), rms)
+            wide = torch.promote_types(u.dtype, scale.dtype)
+            u = u.to(wide) * scale.to(wide)
+            if wd > 0:
+                wide = torch.promote_types(u.dtype, p.dtype)
+                u = u.to(wide) + (wd * p).to(wide)
+            return -1 * u, v_row, v_col, v
+
+        out = tree_map(leaf, grads, state["v_row"], state["v_col"], state["v"], params)
+        updates, v_row, v_col, v = (tree_map(lambda t, i=i: t[i], out)
+                                    for i in range(4))
+        return updates, {"count": count + 1, "v_row": v_row, "v_col": v_col, "v": v}
 
     return Optimizer(init, update)
 
@@ -227,12 +359,10 @@ def with_master_weights(inner: Optimizer) -> Optimizer:
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
-    if cfg.name == "adafactor":
-        raise NotImplementedError(
-            "optimizer.name='adafactor' comes with a later slice of the port; use adamw")
-    if cfg.name != "adamw":
+    makers = {"adamw": adamw, "adafactor": adafactor}
+    if cfg.name not in makers:
         raise ValueError(f"optimizer.name must be adamw|adafactor, got {cfg.name!r}")
-    tx = adamw(cfg)
+    tx = makers[cfg.name](cfg)
     return with_master_weights(tx) if cfg.master_weights else tx
 
 

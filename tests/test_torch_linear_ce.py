@@ -134,6 +134,29 @@ def test_linear_ce_chunks_rows_and_sums_weight_grads():
         np.testing.assert_allclose(_np(a), _np(b), atol=1e-5)
 
 
+@pytest.mark.parametrize("w_layout", ["dv", "vd"])
+def test_frozen_weight_takes_no_weight_grad_and_the_same_dh(w_layout, monkeypatch):
+    """With the weight frozen (LoRA without an lm_head target) the backward
+    skips the dw product and gives the dh of a trainable weight, exactly."""
+    r = np.random.default_rng(4)
+    n, D, V = 70, 16, 300
+    h = r.normal(size=(n, D)).astype(np.float32)
+    w = (r.normal(size=(D, V) if w_layout == "dv" else (V, D)) * 0.1).astype(np.float32)
+    ids = _t(r.integers(0, V, n).astype(np.int32))
+    calls, orig = [], tce.weight_grad
+    monkeypatch.setattr(tce, "weight_grad", lambda *a: calls.append(1) or orig(*a))
+    out = {}
+    for frozen in (False, True):
+        calls.clear()
+        th, tw = _t(h).requires_grad_(True), _t(w).requires_grad_(not frozen)
+        lp, ent = tce.fused_linear_ce(th, tw, ids, w_layout=w_layout)
+        (lp.sum() + 0.5 * ent.sum()).backward()
+        out[frozen] = (th.grad, tw.grad, len(calls))
+    assert out[False][2] == 1 and out[False][1] is not None
+    assert out[True][2] == 0 and out[True][1] is None
+    assert torch.equal(out[True][0], out[False][0])
+
+
 def test_backward_plain_rounds_dz_to_bf16_and_pads_vocab():
     r = np.random.default_rng(4)
     n, D, V = 64, 8, 130

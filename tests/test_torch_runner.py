@@ -383,15 +383,18 @@ def test_run_pipelined_rolls_out_on_a_snapshot(tmp_path, monkeypatch):
     assert any(not torch.equal(s, t) for s, t in zip(live, p0))
 
 
-@pytest.mark.parametrize("override, match", [
-    ("optimizer.name=adafactor", "later slice"),
-    ("lora.enabled=true", "A.3"),
+@pytest.mark.parametrize("override, kwargs, error, match", [
+    ("optimizer.name=sgd", {}, ValueError, "must be adamw"),
+    ("runner.seed=0", {"mesh": object()}, NotImplementedError, "A.9"),
 ])
-def test_unported_options_raise(override, match):
+def test_unported_options_raise(override, kwargs, error, match):
+    """What the runner still refuses: an optimizer other than adamw and
+    adafactor, and a mesh. (Adafactor and LoRA run: tests/test_torch_lora.py
+    and the optimizer's cases in tests/test_torch_training.py.)"""
     _, tdata = _datasets()
     cfg = tconfig.load_config(YAML, [override, "runner.log_dir=null"])
-    with pytest.raises(NotImplementedError, match=match):
-        ReasoningRunner(cfg, ByteTokenizer(), tdata, device="cpu")
+    with pytest.raises(error, match=match):
+        ReasoningRunner(cfg, ByteTokenizer(), tdata, device="cpu", **kwargs)
 
 
 def test_the_card_is_the_default(monkeypatch):
@@ -401,3 +404,31 @@ def test_the_card_is_the_default(monkeypatch):
         ReasoningRunner(tconfig.load_config(YAML, ["runner.log_dir=null"]), ByteTokenizer(), tdata)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main_grpo.main(["--config", YAML, "runner.max_steps=1", "runner.log_dir=null"])
+
+
+def test_adafactor_and_dots_run_and_resume_bitwise(tmp_path):
+    """main_grpo with optimizer.name=adafactor and remat="dots" (the tiny
+    yaml in bf16 at D=128, so that the [L, 128, 256] weights factor) takes
+    two steps with a checkpoint each; a resumed runner holds the state,
+    adafactor's factored and unfactored statistics included, bitwise, and
+    takes step 3."""
+    common = ["--config", YAML, "--device", "cpu", *BASE, "optimizer.name=adafactor",
+              "remat=dots", "model.dtype=bfloat16", f"runner.checkpoint_dir={tmp_path / 'ck'}",
+              "runner.save_interval=1", "model.hidden_size=128", "model.intermediate_size=256",
+              "model.max_seq_len=256"]
+    history = main_grpo.main([*common, "runner.max_steps=2"])
+    assert len(history) == 2 and all(np.isfinite(h["actor/loss"]) for h in history)
+    _, tdata = _datasets()
+    cfg = tconfig.load_config(YAML, common[4:])
+    assert cfg.remat == "dots" and cfg.optimizer.name == "adafactor"
+    r = ReasoningRunner(cfg, ByteTokenizer(), tdata, reward_fn=rule_reward, device="cpu")
+    assert r.global_step == 2
+    saved = torch.load(tmp_path / "ck" / "global_step_2" / "state.pt", weights_only=True)
+    flat = flatten(r.state)
+    assert sorted(flat) == sorted(saved)
+    assert any("/v_row/" in k and flat[k].numel() > 1 for k in flat)
+    for k, v in flat.items():
+        if isinstance(v, torch.Tensor):
+            assert v.dtype == saved[k].dtype and torch.equal(v, saved[k]), k
+    (m,) = r.run(3)
+    assert np.isfinite(m["actor/loss"]) and r.global_step == 3

@@ -60,7 +60,31 @@ OPT_CASES = {
         lr=1e-2, clip_grad=1.0, total_steps=5, schedule="cosine", master_weights=True)),
     # fp32 params, clipping off
     "fp32_noclip": (jnp.float32, dict(lr=3e-3, clip_grad=0.0)),
+    # adafactor (optax.adafactor as the JAX package calls it): fp32, constant lr
+    "adafactor_fp32": (jnp.float32, dict(name="adafactor", lr=1e-2, clip_grad=1.0)),
+    # fp32, weight decay (added after the lr step), warmup, clipping active
+    "adafactor_fp32_wd_warmup": (jnp.float32, dict(
+        name="adafactor", lr=1e-2, weight_decay=0.1, warmup_steps=2, clip_grad=0.5)),
+    # bf16 params against an f32 master copy (the parameter scale reads it)
+    "adafactor_bf16_master_wd": (jnp.bfloat16, dict(
+        name="adafactor", lr=1e-2, weight_decay=0.01, total_steps=5, schedule="cosine",
+        master_weights=True)),
+    # bf16 params and bf16 statistics, warmup
+    "adafactor_bf16_warmup": (jnp.bfloat16, dict(name="adafactor", lr=1e-2, warmup_steps=2)),
 }
+# adafactor's leaves: factored over the two largest dims ([2, 256, 384]:
+# rows of 256, columns of 384), unfactored where the second largest dim is
+# under 128 ([2, 256, 64]), vectors and a small matrix
+FACTORED_SHAPES = {"w": (2, 256, 384), "u": (2, 256, 64), "blocks": {"b": (3, 5), "c": (7,)}}
+
+
+def _factored_state(jstate):
+    """optax's FactoredState (count, v_row, v_col, v) inside a JAX state."""
+    from optax._src.factorized import FactoredState
+
+    (st,) = [x for x in jax.tree_util.tree_leaves(
+        jstate, is_leaf=lambda x: isinstance(x, FactoredState)) if isinstance(x, FactoredState)]
+    return st
 
 
 @pytest.mark.parametrize("case", sorted(OPT_CASES))
@@ -69,10 +93,12 @@ def test_optimizer_three_steps_match_optax(case, grad_dtype):
     """Three updates from the same params and gradients. fp32: params within
     1e-6; bf16 params: within one bf16 step of the parameter (the f32
     updates agree to 1e-6 before the cast, so a cast may round either way
-    only at a tie)."""
+    only at a tie). Adafactor's fp32 statistics within rtol=1e-5,
+    atol=1e-8."""
     dtype, fields = OPT_CASES[case]
     r = np.random.default_rng(0)
-    shapes = {"a": (4, 6), "blocks": {"b": (3, 5), "c": (7,)}}
+    factored = fields.get("name") == "adafactor"
+    shapes = FACTORED_SHAPES if factored else {"a": (4, 6), "blocks": {"b": (3, 5), "c": (7,)}}
     p0 = jax.tree_util.tree_map(lambda s: (r.normal(size=s) * 0.5).astype(np.float32), shapes,
                                 is_leaf=lambda x: isinstance(x, tuple))
     jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), p0)
@@ -95,15 +121,28 @@ def test_optimizer_three_steps_match_optax(case, grad_dtype):
         if dtype == jnp.float32:
             _assert_trees_close(tu, ju, rtol=1e-5, atol=1e-8)
             _assert_trees_close(tp, jp, rtol=1e-6, atol=1e-7)
+            if factored:
+                js = _factored_state(jstate)
+                ts = tstate["inner"] if "inner" in tstate else tstate
+                for key in ("v_row", "v_col", "v"):
+                    _assert_trees_close(ts[key], getattr(js, key), rtol=1e-5, atol=1e-8)
+                assert ts["count"] == int(js.count)
         else:
             _assert_trees_close(tp, jp, rtol=2 ** -7, atol=1e-6)
+    if factored:
+        ts = tstate["inner"] if "inner" in tstate else tstate
+        assert ts["v_row"]["w"].shape == (2, 256) and ts["v_col"]["w"].shape == (2, 384)
+        assert ts["v"]["u"].shape == (2, 256, 64) and ts["v"]["blocks"]["c"].shape == (7,)
+        assert ts["v"]["w"].shape == ts["v_row"]["u"].shape == (1,)
     jt = jax.tree_util.tree_leaves(jstate)
     assert sum(x.size for x in jt if hasattr(x, "size")) > 0
 
 
 def test_optimizer_rejects_adafactor_and_mesh():
-    with pytest.raises(NotImplementedError):
-        TS.make_optimizer(TS.OptimizerConfig(name="adafactor"))
+    """sgd and a mesh raise; adafactor is an optimizer of the port now (its
+    updates are held against optax by the cases above)."""
+    tx = TS.make_optimizer(TS.OptimizerConfig(name="adafactor"))
+    assert set(tx.init({"w": torch.zeros(256, 128)})) == {"count", "v_row", "v_col", "v"}
     with pytest.raises(ValueError):
         TS.make_optimizer(TS.OptimizerConfig(name="sgd"))
     with pytest.raises(NotImplementedError):
@@ -269,8 +308,70 @@ def test_forward_logits_and_remat_options():
     got = TM.forward_logits(tp, tcfg, torch.from_numpy(ids), remat=True, unroll_layers=True)
     want = JM.forward_logits(jp, jcfg, jnp.asarray(ids))
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        TM.forward_hidden(tp, tcfg, torch.from_numpy(ids), remat="dots")
+    got = TM.forward_logits(tp, tcfg, torch.from_numpy(ids), remat="dots")
+    np.testing.assert_allclose(_np(got), _np(JM.forward_logits(jp, jcfg, jnp.asarray(ids),
+                                                             remat="dots")), atol=1e-4)
+    with pytest.raises(ValueError):
+        TM.forward_hidden(tp, tcfg, torch.from_numpy(ids), remat="some")
+
+
+def _held_bytes(fn) -> int:
+    """Bytes that ``fn()`` leaves allocated on the CPU while its result
+    lives (torch.profiler's memory records: allocations less frees)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU], profile_memory=True) as prof:
+        out = fn()
+    del out
+    return sum(e.self_cpu_memory_usage for e in prof.key_averages())
+
+
+def test_remat_dots_grads_and_what_it_keeps():
+    """remat="dots" against remat=False: logits and the gradients of every
+    parameter within f32 atol=1e-6. What the forward keeps for the backward
+    lies between the two other forms: fewer bytes than remat=False (norms,
+    activations and attention are recomputed) and more than remat=True
+    (the projections' outputs are kept); the backward recomputes no matrix
+    product where True recomputes each projection. (A saved-tensors hook
+    outside the block sees only a non-reentrant checkpoint's inputs, so
+    the bytes are read from the profiler's memory records.)"""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    _, tcfg = _configs("float32")
+    params = TM.init_params(tcfg, 1, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(6).integers(0, tcfg.vocab_size, (2, 32)))
+    mask = torch.ones(2, 32, dtype=torch.bool)
+    mask[1, :5] = False
+
+    class CountMM(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.mm = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.mm += func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            return func(*args, **(kwargs or {}))
+
+    def forward(p, remat):
+        return TM.forward_logits(p, tcfg, ids, attention_mask=mask, remat=remat)
+
+    runs = {}
+    for remat in (False, True, "dots"):
+        alias = TS.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        logits = forward(alias, remat)
+        leaves = TS.tree_leaves(alias)
+        count = CountMM()
+        with count:
+            grads = torch.autograd.grad(logits.square().mean(), leaves)
+        runs[remat] = (logits.detach(), grads, count.mm)
+        forward(alias, remat)       # warm the allocator before measuring
+        runs[remat] += (_held_bytes(lambda: forward(alias, remat)),)
+    (l0, g0, mm0, b0), (_, _, mm1, b1), (l2, g2, mm2, b2) = (runs[k] for k in (False, True, "dots"))
+    np.testing.assert_allclose(_np(l2), _np(l0), rtol=0, atol=1e-6)
+    for a, b in zip(g2, g0):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0, atol=1e-6)
+    assert b1 < b2 < b0, (b0, b1, b2)
+    assert mm2 == mm0 < mm1, (mm0, mm1, mm2)
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
