@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``rlinf_tpu_torch``) on one GPU:
 the rollout serving paths (static, megakernel, continuous and paged
-engines), the GRPO training path, the runners and server mode.
+engines), the GRPO training path, the runners and server mode, HF
+checkpoints and the MoE model family.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -199,6 +200,33 @@ Then adafactor and selective recompute, LoRA and SFT:
    and depth, 64 rows a batch, 3 steps. Gates: T >= 128 (the attention
    kernels, not the plain path), finite loss, K1 and K5-K8 launched, a
    bitwise resume, a shadow step within ``SHADOW_BARS``.
+
+Then Hugging Face checkpoints and the MoE model family:
+
+23. hf_checkpoints: Qwen2.5-0.5B (D=896, 24 layers, H=14, Kv=2, tied,
+   ``model_type`` qwen2) and Qwen3-0.6B (D=1024, 28 layers, H=16, Kv=8,
+   Hd=128, qk-norm, tied, qwen3) written as bf16 HF checkpoints at their
+   published widths (random weights from --seed, ``params_to_hf_state_dict``
+   and the port's safetensors writer, ``config.json``, the tokenizer fixture
+   ``tests/fixtures/hf_tokenizer``); ``load_hf_pretrained`` must return the
+   written tensors bitwise (load seconds and peak reported). Then
+   ``main_grpo --model-path`` on the Qwen2.5 one at the runner phase's cut
+   for 2 steps (K1, K2 and K5-K8 launched and no other kernel, step-1 drift
+   under ``DRIFT_BAR``), ``main_sft --model-path`` on the Qwen3 one for 2
+   steps (K1 and K5-K8), one Qwen3 forward, kernels against plain
+   (``QWEN3_FORWARD_BARS``), and ``serve_openai --model`` on the Qwen2.5
+   one (a completion and a chat request; K2 alone). Also whether the
+   machine has ``transformers``, ``safetensors``, ``tokenizers`` and
+   ``jinja2`` (also in the ``device`` line).
+24. moe: ``main_grpo`` on grpo_math_qwen05b.yaml with the model of
+   ``LLMConfig.qwen3_moe_2b`` (``MOE_OVERRIDES``: 32 experts, top-2, expert
+   ffn 768, 24 layers, D=1024, Hd=64, G=4; full width and depth, byte
+   tokenizer) at the runner phase's cut: capacity routing for 2 steps and a
+   shadow check on its params (one microbatch's loss and gradients, kernels
+   against plain on the plain run's routing, ``MOE_SHADOW_BARS``; the free
+   runs' flipped choices reported), then dropless routing for 1 step. Gates: K1, K2 and K5-K8 launched and no other kernel, finite
+   metrics with ``actor/moe_aux_loss``; ``capacity_overflow_frac`` reported
+   at the rollout's decode shape and at a training microbatch.
 
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures (each with its timed ``variants`` of
@@ -4160,6 +4188,500 @@ def sft_phase(kerns, gpu, seed) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phases 23-24: Hugging Face checkpoints, the MoE model family
+# ---------------------------------------------------------------------------
+
+#: the tokenizer fixture (a Qwen2-style byte-level BPE with ChatML) that the
+#: checkpoints written here carry
+TOKENIZER_FIXTURE = "tests/fixtures/hf_tokenizer"
+#: the published widths of the two checkpoints phase 23 writes, as
+#: config.json holds them (random weights from --seed)
+HF_CHECKPOINTS = {
+    "qwen2_5_0_5b": ("qwen2_0_5b", {"model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"],
+                                    "max_position_embeddings": 32768}),
+    "qwen3_0_6b": ("qwen3_0_6b", {"model_type": "qwen3", "architectures": ["Qwen3ForCausalLM"],
+                                  "max_position_embeddings": 40960}),
+}
+HF_GRPO_REDUCED = {**{k: v for k, v in RUNNER_REDUCED.items()
+                      if not k.startswith(("runner.max_steps", "runner.save_interval"))},
+                   "runner.max_steps=2": "the yaml has 400"}
+HF_SFT_REDUCED = {**{k: v for k, v in SFT_REDUCED.items()
+                     if not k.startswith(("runner.max_steps", "runner.save_interval"))},
+                  "runner.max_steps=2": "the yaml has 400"}
+#: the Qwen3-0.6B forward, kernels against plain (K1 at Hd=128, G=2 with
+#: qk-norm): the logits' max-abs error over the plain run's max |logit|,
+#: and the log-softmax at random targets (SHADOW_BARS' logprob bar)
+QWEN3_FORWARD_BARS = {"logits_rel": 5e-2, "logprob_max_abs": 0.1}
+
+
+def hf_packages() -> dict:
+    """Whether this machine has the Hugging Face packages (found, not
+    imported: the port reads the files itself)."""
+    import importlib.util
+
+    return {m: importlib.util.find_spec(m) is not None
+            for m in ("transformers", "safetensors", "tokenizers", "jinja2")}
+
+
+def write_hf_checkpoint(path: Path, preset: str, extra: dict, seed: int):
+    """A bf16 HF checkpoint of ``LLMConfig.<preset>()`` at ``path``:
+    random weights from ``seed`` through ``params_to_hf_state_dict`` and the
+    port's safetensors writer (a tied model's ``lm_head.weight`` left out,
+    as published checkpoints leave it), its ``config.json`` and the
+    tokenizer fixture -> (cfg, params on the card, seconds)."""
+    import shutil
+
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.models.llm.hf_files import write_safetensors
+    from rlinf_tpu_torch.models.llm.hf_import import params_to_hf_state_dict
+    from rlinf_tpu_torch.models.llm.model import init_params
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(getattr(LLMConfig, preset)(),
+                              max_seq_len=extra["max_position_embeddings"])
+    params = init_params(cfg, seed, device="cuda")
+    sd = params_to_hf_state_dict(params, cfg)
+    if cfg.tie_word_embeddings:
+        sd.pop("lm_head.weight")
+    path.mkdir(parents=True, exist_ok=True)
+    write_safetensors(str(path / "model.safetensors"),
+                      {k: v.to(torch.bfloat16) for k, v in sd.items()}, {"format": "pt"})
+    del sd
+    config = {**extra, "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+              "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+              "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_eps,
+              "tie_word_embeddings": cfg.tie_word_embeddings, "torch_dtype": "bfloat16"}
+    if cfg.head_dim is not None:      # Qwen3's configs name it; Qwen2's do not
+        config["head_dim"] = cfg.head_dim
+    (path / "config.json").write_text(json.dumps(config, indent=2))
+    for f in (HERE / TOKENIZER_FIXTURE).iterdir():
+        shutil.copy(f, path / f.name)
+    return cfg, params, time.perf_counter() - t0
+
+
+def timed_load(path: Path) -> tuple:
+    """``load_hf_pretrained`` of ``path`` on the card -> (cfg, params,
+    seconds, peak GB of the load)."""
+    from rlinf_tpu_torch.models.llm.hf_import import load_hf_pretrained
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params = load_hf_pretrained(str(path), dtype="bfloat16", device="cuda")
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def qwen3_forward_check(kerns, cfg, params, seed) -> dict:
+    """One forward of the Qwen3-0.6B checkpoint (4 rows of 256 tokens, one
+    left-padded to 200) through the kernels and through their plain
+    versions: the logits' error and the logprobs at random targets."""
+    from rlinf_tpu_torch.models.llm.model import forward_hidden, lm_head_logits
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 230)
+    B, T = 4, 256
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device="cuda")
+    mask = torch.ones(B, T, dtype=torch.bool, device="cuda")
+    mask[1, :56] = False
+    targets = torch.randint(0, cfg.vocab_size, (B, T), generator=g, device="cuda")
+
+    def run():
+        with torch.inference_mode():
+            h, _ = forward_hidden(params, cfg, ids, attention_mask=mask, attn_impl="pallas")
+            logits = lm_head_logits(params, cfg, h)
+        return logits, torch.log_softmax(logits, -1).gather(-1, targets[..., None])[..., 0]
+
+    (lk, pk), secs, counts = run_counted(kerns, run)
+    with kernels_replaced(plain_only, _training_sites()):
+        lp_plain, pp = run()
+    valid = mask[..., None]
+    err = ((lk - lp_plain).abs() * valid).max().item()
+    out = {"rows": B, "T": T, "launches": {k: c for k, c in counts.items() if c},
+           "logits_max_abs_err": err, "logits_max_abs": lp_plain.abs().max().item(),
+           "logits_rel": err / max(lp_plain.abs().max().item(), 1e-30),
+           "logprob_max_abs": ((pk - pp).abs() * mask).max().item(),
+           "seconds": secs, "bars": QWEN3_FORWARD_BARS}
+    out["bad"] = [n for n, bar in QWEN3_FORWARD_BARS.items() if not out[n] < bar]
+    if counts["flash_attention_fwd"] != cfg.num_layers or sum(counts.values()) != cfg.num_layers:
+        out["bad"].append(f"launches {counts}")
+    return out
+
+
+def serve_hf_check(kerns, path: Path) -> dict:
+    """``serve_openai --model`` on the checkpoint: one completion and one chat
+    request over loopback; the engine decodes on K2 (its prefill runs the
+    plain attention, as in the JAX example)."""
+    from rlinf_tpu_torch import serve_openai
+
+    t0 = time.perf_counter()
+    server, http = serve_openai.build_server(serve_openai.parse_args(
+        ["--model", str(path), "--port", "0", "--max-new-tokens", "32"]))
+    start_s = time.perf_counter() - t0
+    try:
+        def run():
+            return [http_json(http.url + "/v1/completions",
+                              {"prompt": "Tom has 5 apples. He buys 3 more.", "max_tokens": 16}),
+                    http_json(http.url + "/v1/chat/completions",
+                              {"messages": [{"role": "user", "content": "How many apples?"}],
+                               "max_tokens": 16})]
+        answers, secs, counts = run_counted(kerns, run)
+        health = http_json(http.url + "/health")
+    finally:
+        http.stop()
+        server.stop()
+    out = {"start_s": start_s, "seconds": secs, "launches": {k: c for k, c in counts.items() if c},
+           "usage": [a["usage"] for a in answers],
+           "texts": [a["choices"][0].get("text", a["choices"][0].get("message", {}).get("content"))
+                     for a in answers], "health": health}
+    out["bad"] = []
+    if not (counts["decode_attention_bf16"] > 0 and sum(counts.values()) == counts["decode_attention_bf16"]):
+        out["bad"].append(f"launches {counts}")
+    if not all(1 <= a["usage"]["completion_tokens"] <= 16 for a in answers) or health["served"] != 2:
+        out["bad"].append("answers")
+    return out
+
+
+def hf_checkpoints_phase(kerns, gpu, seed) -> dict:
+    """Phase 23: Qwen2.5-0.5B and Qwen3-0.6B checkpoints written at their
+    published widths (bf16, random weights from ``seed``, the tokenizer
+    fixture), read back by ``load_hf_pretrained`` (gate: bitwise the written
+    tensors); ``main_grpo --model-path`` on the Qwen2.5 one at the runner
+    phase's cut for 2 steps (gates: K1, K2 and K5-K8 launched and no other
+    kernel, finite metrics, step-1 drift under ``DRIFT_BAR``);
+    ``main_sft --model-path`` on the Qwen3 one for 2 steps (gates: K1 and
+    K5-K8 launched, finite loss) and one Qwen3 forward, kernels against
+    plain (``QWEN3_FORWARD_BARS``); ``serve_openai --model`` on the Qwen2.5
+    one (gate: K2 alone launched, both requests answered)."""
+    import shutil
+    import tempfile
+
+    from rlinf_tpu_torch import main_grpo, main_sft
+    from rlinf_tpu_torch.data.gsm_synth import build_sft_examples
+    from rlinf_tpu_torch.data.tokenizers import HFTokenizer
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "hf_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    out = {"phase": "hf_checkpoints", "gpu": gpu, "hf_packages": hf_packages(), "checkpoints": {}}
+    bad, launches = [], dict.fromkeys(kerns, 0)
+    loaded = {}
+    for name, (preset, extra) in HF_CHECKPOINTS.items():
+        cfg, written, write_s = write_hf_checkpoint(work / name, preset, extra, seed)
+        lcfg, params, load_s, load_gb = timed_load(work / name)
+        differs = [k for k, a in (("embed", written["embed"]), ("final_norm", written["final_norm"]))
+                   if not torch.equal(params[k], a)]
+        differs += [f"blocks/{k}" for k, a in written["blocks"].items()
+                    if not torch.equal(params["blocks"][k], a)]
+        if set(params["blocks"]) != set(written["blocks"]) or "lm_head" in params:
+            differs.append("leaves")
+        if dataclasses.asdict(lcfg) != dataclasses.asdict(cfg):
+            differs.append(f"config {dataclasses.asdict(lcfg)}")
+        out["checkpoints"][name] = {
+            "bytes": (work / name / "model.safetensors").stat().st_size, "write_s": write_s,
+            "load_s": load_s, "load_peak_gb": load_gb, "differs_at": differs,
+            "params": sum(t.numel() for t in [params["embed"], params["final_norm"],
+                                               *params["blocks"].values()])}
+        bad += [f"{name} reload differs at {d}" for d in differs]
+        loaded[name] = (lcfg, params)
+        del written
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # main_grpo --model-path on Qwen2.5-0.5B
+    yaml = str(HERE / RUNNER_YAML)
+    q25 = str(work / "qwen2_5_0_5b")
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    with watching_runner(record):
+        history, secs, counts = run_counted(kerns, lambda: main_grpo.main(
+            ["--config", yaml, "--model-path", q25, *HF_GRPO_REDUCED, f"runner.seed={seed}",
+             f"runner.log_dir={work / 'grpo_logs'}", "runner.checkpoint_dir=null"]))
+    r1 = record["runner"]
+    drift = {"kernels": behaviour_drift(r1, record["result"], lp=record["lp"]),
+             "plain": record["drift_plain"], "bar": DRIFT_BAR}
+    out["main_grpo"] = {"model_path": "qwen2_5_0_5b", "reduced": HF_GRPO_REDUCED,
+                        "tokenizer": type(r1.tokenizer).__name__, "seconds": secs,
+                        "max_seq_len": r1.cfg.model.max_seq_len,
+                        "steps": [{k: h[k] for k in RUNNER_METRICS if k in h} for h in history],
+                        "launches": counts, "logprob_drift_step1": drift,
+                        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    bad += [f"main_grpo: {k} not launched" for k in RUNNER_KERNELS if not counts[k]]
+    bad += [f"main_grpo: {k} launched" for k, c in counts.items() if c and k not in RUNNER_KERNELS]
+    bad += [f"main_grpo: {b}" for b in finite_steps(history)]
+    if len(history) != 2 or not isinstance(r1.tokenizer, HFTokenizer):
+        bad.append("main_grpo: steps or tokenizer")
+    bad += [f"main_grpo drift {side} {k}" for side in ("kernels", "plain")
+            for k, b in DRIFT_BAR.items() if not drift[side][k] < b]
+    for k, c in counts.items():
+        launches[k] += c
+    record.clear()
+    del r1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # main_sft --model-path on Qwen3-0.6B, then its forward against plain
+    q3 = work / "qwen3_0_6b"
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "sft.jsonl"
+        data.write_text("\n".join(json.dumps({"prompt": e.prompt, "answer": e.answer})
+                                  for e in build_sft_examples(SFT_EXAMPLES, seed)))
+        rec = {}
+        torch.cuda.reset_peak_memory_stats()
+        with watching_sft(rec):
+            sft_hist, secs, counts = run_counted(kerns, lambda: main_sft.main(
+                ["--config", yaml, "--data-path", str(data), "--model-path", str(q3),
+                 *HF_SFT_REDUCED, f"runner.seed={seed}", f"runner.log_dir={tmp}/logs",
+                 "runner.checkpoint_dir=null"]))
+        T = [int(b["input_ids"].shape[1]) for b in rec["batches"]]
+        out["main_sft"] = {"model_path": "qwen3_0_6b", "reduced": HF_SFT_REDUCED, "seconds": secs,
+                           "seq_len": T, "steps": sft_hist, "launches": counts,
+                           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        bad += [f"main_sft: {k} not launched" for k in TRAIN_KERNELS if not counts[k]]
+        bad += [f"main_sft: {b}" for b in finite_steps(sft_hist)]
+        if len(sft_hist) != 2:
+            bad.append(f"main_sft: {len(sft_hist)} steps")
+        for k, c in counts.items():
+            launches[k] += c
+        del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd = qwen3_forward_check(kerns, *loaded["qwen3_0_6b"], seed)
+    out["qwen3_forward"] = fwd
+    bad += [f"qwen3 forward: {b}" for b in fwd["bad"]]
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    serve = serve_hf_check(kerns, work / "qwen2_5_0_5b")
+    out["serve_openai"] = serve
+    bad += [f"serve_openai: {b}" for b in serve["bad"]]
+    for k, c in serve["launches"].items():
+        launches[k] += c
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"HF checkpoint phase failed: {bad}")
+    return launches
+
+
+#: grpo_math_qwen05b.yaml's model section replaced by LLMConfig.qwen3_moe_2b's
+#: widths and depth (32 experts, top-2, expert ffn 768, 24 layers, D=1024)
+MOE_OVERRIDES = (
+    "model.vocab_size=151936", "model.hidden_size=1024", "model.intermediate_size=768",
+    "model.num_layers=24", "model.num_heads=16", "model.num_kv_heads=4", "model.head_dim=64",
+    "model.rope_theta=1e6", "model.tie_word_embeddings=true", "model.qkv_bias=false",
+    "model.qk_norm=true", "model.num_experts=32", "model.num_experts_per_token=2",
+)
+
+
+def capacity_overflow(runner, result, rows: int = 16) -> dict:
+    """``capacity_overflow_frac`` of every layer's MoE input on the run's
+    params: at the rollout's decode shape (one token of each of the 64 rows,
+    at the first response position, N = 64) and at a training microbatch
+    (``rows`` whole rows) -> per-layer fractions and their mean."""
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.ops.moe import capacity_of, capacity_overflow_frac
+
+    tb = build_train_batch(result, np.zeros(result.response_ids.shape, np.float32),
+                           pad_id=runner.cfg.sampling.pad_token_id)
+    ids = torch.as_tensor(tb.input_ids, device="cuda")
+    mask = torch.as_tensor(tb.attention_mask, device="cuda")
+    first = torch.as_tensor(np.asarray(result.prompt_lengths), device="cuda")
+    moe = runner.cfg.model.moe_config
+    seen = {"decode": [], "train": []}
+    orig = M.moe_layer
+
+    def recording(params, x, cfg):
+        rowsel = torch.arange(x.shape[0], device=x.device)
+        seen["decode"].append(float(capacity_overflow_frac(params, x[rowsel, first][:, None], moe)))
+        seen["train"].append(float(capacity_overflow_frac(params, x[:rows], moe)))
+        return orig(params, x, cfg)
+
+    M.moe_layer = recording
+    try:
+        with torch.inference_mode():
+            M.forward_hidden(runner._policy_params(), runner.cfg.model, ids, attention_mask=mask,
+                             attn_impl=runner.cfg.attn_impl)
+    finally:
+        M.moe_layer = orig
+    return {"decode_shape": f"N={ids.shape[0]} (one token a row)",
+            "train_shape": f"N={rows}x{ids.shape[1]}",
+            "decode_capacity": capacity_of(ids.shape[0], moe),
+            "decode_by_layer": seen["decode"], "train_by_layer": seen["train"],
+            "decode_mean": float(np.mean(seen["decode"])), "train_mean": float(np.mean(seen["train"]))}
+
+
+#: the MoE shadow check's bars, held with the routing pinned to the plain
+#: run's: SHADOW_BARS' loss and grad-norm bars, and a bar for the gradients'
+#: direction set as SHADOW_BARS' were, at 1.5x the reading on an H100
+#: (4.48% at seed 0; the dense runner's first moment reads 2.7-3.0%: each
+#: expert's gradient sums fewer tokens, so bf16 differences average out
+#: less). The whole optimizer step of ``shadow_step`` is not run: its
+#: copies of adamw's f32 moments (16 GB a copy at 2.0 B parameters, three
+#: copies) do not fit beside the run.
+MOE_SHADOW_BARS = {"loss_abs": SHADOW_BARS["loss_abs"],
+                   "grad_norm_rel": SHADOW_BARS["grad_norm_rel"],
+                   "grads_rel": 6.7e-2}
+
+
+@contextlib.contextmanager
+def recorded_routing(log: list, replay=None):
+    """Append every top-k expert choice of ``ops/moe._route`` to ``log``;
+    with ``replay`` (an earlier run's log), take its choices in call order in
+    place of this run's, the gates then the renormalised router
+    probabilities at those experts."""
+    from rlinf_tpu_torch.ops import moe as MOE
+
+    orig = MOE._route
+    it = iter(replay) if replay is not None else None
+
+    def route(params, tokens, moe):
+        probs, topk_probs, topk_idx = orig(params, tokens, moe)
+        if it is not None:
+            topk_idx = next(it)
+            topk_probs = probs.gather(-1, topk_idx)
+            topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+        log.append(topk_idx.detach().clone())
+        return probs, topk_probs, topk_idx
+
+    MOE._route = route
+    try:
+        yield
+    finally:
+        MOE._route = orig
+
+
+def moe_shadow(runner, result, kerns, seed, rows: int = 32) -> dict:
+    """One microbatch's loss and gradients (``microbatch_loss_with_moe``
+    through ``learner._grads``) on the runner's params, ``rows`` rows of the
+    run's rollout with seeded per-row advantages: with the plain versions of
+    the training kernels, with the kernels, and with the kernels on the plain
+    run's routing. A top-k choice that the kernels' rounding flips moves, on
+    the capacity path, every later claim on both experts, so the free runs
+    are reported (the flipped share, the gradients apart) and the pinned run
+    is held to ``MOE_SHADOW_BARS``."""
+    from rlinf_tpu_torch.data.io_struct import build_train_batch
+    from rlinf_tpu_torch.training.learner import _grads, microbatch_loss_with_moe
+
+    cfg = runner.cfg
+    r = np.random.default_rng(seed + 240)
+    adv = np.broadcast_to(r.normal(size=(result.batch_size, 1)),
+                          result.response_ids.shape).astype(np.float32)
+    tb = build_train_batch(result, adv, pad_id=cfg.sampling.pad_token_id).to_dict()
+    mb = {k: torch.as_tensor(np.asarray(v)[:rows], device="cuda") for k, v in tb.items()}
+    gv = mb["loss_mask"].float().sum().clamp_min(1.0)
+    params = runner._policy_params()
+    runs, routes = {}, {}
+    for mode in ("plain", "kernels", "pinned"):
+        def run():
+            return _grads(params, lambda p: microbatch_loss_with_moe(
+                p, cfg.model, cfg.loss, mb, gv, attn_impl=cfg.attn_impl, remat=cfg.remat))
+        routes[mode] = []
+        with (kernels_replaced(plain_only, _training_sites()) if mode == "plain"
+              else contextlib.nullcontext()), recorded_routing(
+                routes[mode], routes["plain"] if mode == "pinned" else None):
+            (g, loss, m), secs, counts = run_counted(kerns, run)
+        runs[mode] = dict(g=g, loss=float(loss), aux=float(m["actor/moe_aux_loss"]),
+                          counts=counts, seconds=secs, norm=tree_norm(g))
+    p = runs["plain"]
+
+    def apart(k):
+        return {"loss": k["loss"], "loss_abs": abs(k["loss"] - p["loss"]),
+                "moe_aux_loss": k["aux"], "grad_norm": k["norm"],
+                "grad_norm_rel": abs(k["norm"] - p["norm"]) / max(p["norm"], 1e-30),
+                "grads_rel": norm_rel(k["g"], p["g"]),
+                "moe_grads_rel": {n: norm_rel(k["g"]["blocks"][n], p["g"]["blocks"][n])
+                                  for n in ("moe_router", "moe_gate", "moe_up", "moe_down")},
+                "seconds": k["seconds"]}
+
+    flipped = sum(int((a != b).sum()) for a, b in zip(routes["kernels"], routes["plain"]))
+    out = {"rows": rows, "tokens": int(mb["attention_mask"].sum()),
+           "plain": {"loss": p["loss"], "moe_aux_loss": p["aux"], "grad_norm": p["norm"],
+                     "seconds": p["seconds"]},
+           "kernels_free": apart(runs["kernels"]), "kernels_pinned": apart(runs["pinned"]),
+           "route_calls": len(routes["plain"]),
+           "choices_flipped_share": flipped / max(sum(a.numel() for a in routes["plain"]), 1),
+           "kernel_launches": runs["pinned"]["counts"], "bars": MOE_SHADOW_BARS}
+    pinned = out["kernels_pinned"]
+    out["bad"] = [n for n, bar in MOE_SHADOW_BARS.items() if not pinned[n] < bar]
+    for mode in ("kernels", "pinned"):
+        if [n for n in TRAIN_KERNELS if runs[mode]["counts"][n]] != list(TRAIN_KERNELS):
+            out["bad"].append(f"{mode} launches {runs[mode]['counts']}")
+    if any(p["counts"].values()) or len(routes["pinned"]) != len(routes["plain"]):
+        out["bad"].append(f"plain launches {p['counts']} or route calls")
+    return out
+
+
+def moe_phase(kerns, gpu, peaks, seed) -> dict:
+    """Phase 24: ``main_grpo`` on grpo_math_qwen05b.yaml with the model of
+    ``LLMConfig.qwen3_moe_2b`` (``MOE_OVERRIDES``: full width and depth,
+    random weights from ``seed``, the byte tokenizer), cut as the runner
+    phase (``HF_GRPO_REDUCED``): capacity routing for 2 steps, then a
+    shadow check on its params (``moe_shadow``), then dropless routing for
+    1 step. Gates: K1, K2 and K5-K8 launched and no other kernel in each
+    run, finite metrics with ``actor/moe_aux_loss`` among them, the shadow
+    check within ``MOE_SHADOW_BARS``. Reported: ``capacity_overflow_frac`` at the rollout's
+    decode shape and at a training microbatch, every step's times."""
+    import shutil
+
+    from rlinf_tpu_torch import main_grpo
+    from rlinf_tpu_torch.training.train_state import tree_leaves
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "moe_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    yaml = str(HERE / RUNNER_YAML)
+    out = {"phase": "moe", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen3_moe_2b",
+           "overrides": list(MOE_OVERRIDES), "reduced": HF_GRPO_REDUCED}
+    bad, launches = [], dict.fromkeys(kerns, 0)
+    peak_tflops = peaks[1] / 1e12
+    reduced = [k for k in HF_GRPO_REDUCED if not k.startswith("runner.max_steps")]
+    for impl, steps in (("capacity", 2), ("dropless", 1)):
+        ov = [*MOE_OVERRIDES, f"model.moe_impl={impl}", *reduced,
+              f"runner.max_steps={steps}", f"runner.seed={seed}",
+              f"runner.log_dir={work / impl}", "runner.checkpoint_dir=null"]
+        record = {}
+        torch.cuda.reset_peak_memory_stats()
+        with watching_runner(record):
+            history, secs, counts = run_counted(kerns, lambda: main_grpo.main(["--config", yaml, *ov]))
+        r = record["runner"]
+        run = {"seconds": secs, "launches": counts,
+               "params": sum(t.numel() for t in tree_leaves(r.state.params)),
+               "steps": [{**{k: h[k] for k in (*RUNNER_METRICS, "actor/moe_aux_loss") if k in h},
+                          "mfu": h["perf/train_tflops_per_s"] / peak_tflops} for h in history],
+               "logprob_drift_step1": {"kernels": behaviour_drift(r, record["result"], lp=record["lp"]),
+                                       "plain": record["drift_plain"]},
+               "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "capacity_overflow": capacity_overflow(r, record["result"])}
+        bad += [f"{impl}: {k} not launched" for k in RUNNER_KERNELS if not counts[k]]
+        bad += [f"{impl}: {k} launched" for k, c in counts.items() if c and k not in RUNNER_KERNELS]
+        bad += [f"{impl}: {b}" for b in finite_steps(history)]
+        if len(history) != steps or not all("actor/moe_aux_loss" in h for h in history):
+            bad.append(f"{impl}: {len(history)} steps or no actor/moe_aux_loss")
+        for k, c in counts.items():
+            launches[k] += c
+        if impl == "capacity":
+            run["shadow"] = moe_shadow(r, record["result"], kerns, seed)
+            bad += [f"shadow: {b}" for b in run["shadow"]["bad"]]
+        out[impl] = run
+        record.clear()
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"MoE phase failed: {bad}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 17: head dims 16 and 32, f16 and f32
 # ---------------------------------------------------------------------------
 
@@ -4498,7 +5020,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     peak_name, peaks = card_peaks(name)
     emit({"phase": "device", "gpu": gpu, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "peaks_from": peak_name})
+          "cuda": torch.version.cuda, "peaks_from": peak_name, "hf_packages": hf_packages()})
 
     # 1. build
     emit({"phase": "build", "seconds": build()})
@@ -4783,6 +5305,13 @@ def main() -> int:
     # batch, LoRA through main_grpo, SFT through main_sft
     for counts in (adafactor_remat_phase(kerns, gpu, batch, adamw_state_bytes, args.seed),
                    lora_phase(kerns, gpu, args.seed), sft_phase(kerns, gpu, args.seed)):
+        for k, c in counts.items():
+            launches[k] += c
+
+    # 23-24. HF checkpoints through --model-path and --model, and the MoE
+    # model family through main_grpo
+    for counts in (hf_checkpoints_phase(kerns, gpu, args.seed),
+                   moe_phase(kerns, gpu, peaks, args.seed)):
         for k, c in counts.items():
             launches[k] += c
 

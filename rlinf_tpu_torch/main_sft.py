@@ -2,11 +2,11 @@
 
 The port's ``examples/sft/main_sft.py``: load the config, read a jsonl of
 prompt/answer rows (``answer`` or ``response``), build ``SFTRunner``, run.
-Positional overrides ``a.b=c`` follow ``--config``. The tokenizer is the
-byte tokenizer and the weights are random from ``runner.seed``:
-``--model-path`` (a Hugging Face checkpoint) waits for the port of
-``models/llm/hf_import.py`` (ROADMAP.md §A.4). The run is on the card
-unless ``--device cpu`` is given.
+Positional overrides ``a.b=c`` follow ``--config``. ``--model-path`` names a
+local Hugging Face checkpoint directory, whose config, tokenizer and weights
+the port reads itself (``main_grpo.load_model``); without it the tokenizer
+is the byte tokenizer and the weights are random from ``runner.seed``. The
+run is on the card unless ``--device cpu`` is given.
 
 Usage:
   python -m rlinf_tpu_torch.main_sft --config examples/reasoning/config/grpo_demo_tiny.yaml \\
@@ -23,7 +23,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Supervised fine-tuning on the port")
     parser.add_argument("--config", required=True)
     parser.add_argument("--model-path", default=None,
-                        help="local HF checkpoint dir (not ported yet: ROADMAP.md §A.4)")
+                        help="local HF checkpoint dir (Qwen2/Qwen3/Llama family)")
     parser.add_argument("--data-path", required=True,
                         help="jsonl with prompt + answer/response fields")
     parser.add_argument("--device", default="cuda",
@@ -39,16 +39,14 @@ def main(argv: Optional[Sequence[str]] = None) -> List[Dict[str, float]]:
 
     from rlinf_tpu_torch.config import load_config
     from rlinf_tpu_torch.data.datasets import PromptDataset
-    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.main_grpo import load_model
     from rlinf_tpu_torch.runners import SFTRunner
 
-    if args.model_path:
-        raise NotImplementedError(
-            "--model-path (Hugging Face checkpoints and tokenizers) comes with the port "
-            "of models/llm/hf_import.py (ROADMAP.md §A.4)")
     cfg = load_config(args.config, args.overrides)
+    cfg, tokenizer, init_override = load_model(cfg, args.model_path, args.device)
     dataset = PromptDataset.from_jsonl(args.data_path)
-    runner = SFTRunner(cfg, ByteTokenizer(), dataset, device=args.device)
+    runner = SFTRunner(cfg, tokenizer, dataset, init_params_override=init_override,
+                       device=args.device)
     try:
         return runner.run()
     finally:

@@ -1,7 +1,8 @@
-"""Decoder-only LLM: config, params, forward, packed KV-cache sampler."""
+"""Decoder-only LLM: config, params, forward, packed KV-cache sampler, HF import."""
 
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.convert import params_from_numpy
+from rlinf_tpu_torch.models.llm.hf_import import params_from_hf_state_dict
 from rlinf_tpu_torch.models.llm.model import (
     KVCache,
     decode_step_packed,
@@ -35,6 +36,7 @@ __all__ = [
     "lm_head_logits",
     "lm_head_weight",
     "packed_cache_from_stacked",
+    "params_from_hf_state_dict",
     "params_from_numpy",
     "prefill",
     "QTensor",

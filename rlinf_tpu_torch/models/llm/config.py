@@ -1,8 +1,11 @@
 """LLM architecture config (Qwen2/Llama-family decoder).
 
 The port's own copy of ``rlinf_tpu/models/llm/config.py``: same fields and
-presets, with ``compute_dtype`` as a ``torch.dtype``. MoE fields are kept so
-that one config describes both packages; the port's model raises on MoE.
+presets, with ``compute_dtype`` as a ``torch.dtype``. ``from_hf_config``
+reads a Hugging Face config object or a ``config.json`` dict; for a dict it
+fills each missing key with the default of transformers' config class for
+the ``model_type`` (``HF_CONFIG_DEFAULTS``), as loading the file through
+``AutoConfig`` would.
 """
 
 from __future__ import annotations
@@ -54,6 +57,18 @@ class LLMConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def moe_config(self):
+        from rlinf_tpu_torch.ops.moe import MoEConfig
+
+        return MoEConfig(
+            num_experts=self.num_experts,
+            num_experts_per_token=self.num_experts_per_token,
+            capacity_factor=self.moe_capacity_factor,
+            aux_loss_coef=self.moe_aux_loss_coef,
+            impl=self.moe_impl,
+        )
 
     def num_params(self) -> int:
         """Analytic parameter count (embedding counted once if tied)."""
@@ -144,3 +159,73 @@ class LLMConfig:
             num_layers=2, num_heads=4, num_kv_heads=2, max_seq_len=max_seq_len,
             rope_theta=1e4, tie_word_embeddings=True, dtype="float32",
         )
+
+    @staticmethod
+    def from_hf_config(hf_cfg) -> "LLMConfig":
+        """Build from a transformers config object or a ``config.json`` dict
+        (Qwen2/Qwen3/Llama families), with the JAX package's rules:
+        ``qkv_bias`` is ``"qwen2" in model_type``, ``qk_norm`` is ``"qwen3" in
+        model_type``, and ``rope_scaling`` is ignored."""
+        if isinstance(hf_cfg, dict):
+            hf_cfg = _HFConfigView(hf_cfg)
+        model_type = getattr(hf_cfg, "model_type", "")
+        return LLMConfig(
+            vocab_size=hf_cfg.vocab_size,
+            hidden_size=hf_cfg.hidden_size,
+            intermediate_size=hf_cfg.intermediate_size,
+            num_layers=hf_cfg.num_hidden_layers,
+            num_heads=hf_cfg.num_attention_heads,
+            num_kv_heads=getattr(hf_cfg, "num_key_value_heads", hf_cfg.num_attention_heads),
+            head_dim=getattr(hf_cfg, "head_dim", None),
+            rope_theta=getattr(hf_cfg, "rope_theta", 1e4),
+            rms_eps=getattr(hf_cfg, "rms_norm_eps", 1e-6),
+            max_seq_len=getattr(hf_cfg, "max_position_embeddings", 4096),
+            tie_word_embeddings=getattr(hf_cfg, "tie_word_embeddings", False),
+            qkv_bias=("qwen2" in model_type),
+            qk_norm=("qwen3" in model_type),
+        )
+
+
+#: the defaults of transformers' (4.57) ``Qwen2Config``, ``Qwen3Config`` and
+#: ``LlamaConfig`` for the keys ``from_hf_config`` reads. ``None`` for
+#: ``num_key_value_heads`` means "num_attention_heads" and for Llama's
+#: ``head_dim`` "hidden_size // num_attention_heads", as the classes resolve
+#: them; Qwen2's class has no ``head_dim`` unless the file gives one.
+HF_CONFIG_DEFAULTS = {
+    "qwen2": {
+        "vocab_size": 151936, "hidden_size": 4096, "intermediate_size": 22016,
+        "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+        "rope_theta": 10000.0, "rms_norm_eps": 1e-6, "max_position_embeddings": 32768,
+        "tie_word_embeddings": False,
+    },
+    "qwen3": {
+        "vocab_size": 151936, "hidden_size": 4096, "intermediate_size": 22016,
+        "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+        "head_dim": 128, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+        "max_position_embeddings": 32768, "tie_word_embeddings": False,
+    },
+    "llama": {
+        "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+        "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": None,
+        "head_dim": None, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+        "max_position_embeddings": 2048, "tie_word_embeddings": False,
+    },
+}
+
+
+class _HFConfigView:
+    """Attribute view of a ``config.json`` dict, resolved as the transformers
+    config class of its ``model_type`` would resolve it."""
+
+    def __init__(self, data: dict):
+        model_type = data.get("model_type")
+        if model_type not in HF_CONFIG_DEFAULTS:
+            raise ValueError(
+                f"config.json model_type {model_type!r} is not supported "
+                f"(supported: {sorted(HF_CONFIG_DEFAULTS)})")
+        merged = {**HF_CONFIG_DEFAULTS[model_type], **data}
+        if merged["num_key_value_heads"] is None:
+            merged["num_key_value_heads"] = merged["num_attention_heads"]
+        if model_type == "llama" and merged["head_dim"] is None:
+            merged["head_dim"] = merged["hidden_size"] // merged["num_attention_heads"]
+        self.__dict__.update(merged)

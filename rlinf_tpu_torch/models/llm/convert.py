@@ -1,8 +1,9 @@
 """JAX param tree (as numpy arrays) -> the port's dict of tensors.
 
 The port keeps the JAX package's key names and [D_in, D_out] layouts, so
-one random init (or one checkpoint) feeds both packages. A leaf is a numpy
-array (bfloat16 arrays from JAX arrive with the ``ml_dtypes`` bfloat16
+one random init (or one checkpoint) feeds both packages, the MoE leaves
+(``moe_router``, ``moe_gate``, ``moe_up``, ``moe_down``) as the dense ones.
+A leaf is a numpy array (bfloat16 arrays from JAX arrive with the ``ml_dtypes`` bfloat16
 dtype) or a quantized leaf with ``.q`` and ``.scale`` arrays, which becomes
 the port's ``QTensor``. ``cache_from_numpy`` does the same for the decode
 state: a stacked int8 cache, per-layer cache tuples or page pools.

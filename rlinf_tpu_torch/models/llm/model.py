@@ -1,4 +1,5 @@
-"""Decoder-only transformer (Qwen2/Llama family), plain functions on tensors.
+"""Decoder-only transformer (Qwen2/Qwen3/Llama family, dense or MoE), plain
+functions on tensors.
 
 Port of ``rlinf_tpu/models/llm/model.py``: the differentiable forward of
 training (with per-block rematerialization), prefill, and the packed (bf16
@@ -34,6 +35,7 @@ from rlinf_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_packed_xla,
     quantize_kv_token,
 )
+from rlinf_tpu_torch.ops.moe import moe_layer
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from rlinf_tpu_torch.utils.device import resolve_device
@@ -50,9 +52,10 @@ class KVCache(NamedTuple):
 
 def init_params(cfg: LLMConfig, seed: int, device="cuda") -> Params:
     """Random init matching the HF Qwen2 scheme (normal(0.02), ones norms),
-    drawn with numpy from ``seed`` so that it does not depend on the device."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
+    drawn with numpy from ``seed`` so that it does not depend on the device.
+    An MoE config draws the router and expert stacks (``moe_router`` [L, D,
+    E], ``moe_gate``/``moe_up`` [L, E, D, F], ``moe_down`` [L, E, F, D]) where
+    a dense one draws ``gate``/``up``/``down``."""
     device = resolve_device(device)
     dt = cfg.compute_dtype
     d, f, l = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -76,10 +79,17 @@ def init_params(cfg: LLMConfig, seed: int, device="cuda") -> Params:
         "wv": normal((l, d, kvd)),
         "wo": normal((l, qd, d)),
         "mlp_norm": ones((l, d)),
-        "gate": normal((l, d, f)),
-        "up": normal((l, d, f)),
-        "down": normal((l, f, d)),
     }
+    if cfg.is_moe:
+        e = cfg.num_experts
+        blocks["moe_router"] = normal((l, d, e))
+        blocks["moe_gate"] = normal((l, e, d, f))
+        blocks["moe_up"] = normal((l, e, d, f))
+        blocks["moe_down"] = normal((l, e, f, d))
+    else:
+        blocks["gate"] = normal((l, d, f))
+        blocks["up"] = normal((l, d, f))
+        blocks["down"] = normal((l, f, d))
     params: Params = {
         "embed": normal((cfg.vocab_size, d)),
         "blocks": blocks,
@@ -140,18 +150,28 @@ def _project_qkv(cfg: LLMConfig, layer: Params, h: torch.Tensor, B: int, S: int)
     return q, k, v
 
 
-def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params) -> torch.Tensor:
-    """Dense SwiGLU MLP, residual included."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
+def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Dense SwiGLU MLP or MoE block, residual included. Returns (x, aux):
+    the MoE layer's auxiliary loss, None for a dense MLP (the JAX package's
+    zero, not made on the device in every layer)."""
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    if cfg.is_moe:
+        moe_params = {
+            "router": layer["moe_router"],
+            "gate": layer["moe_gate"],
+            "up": layer["moe_up"],
+            "down": layer["moe_down"],
+        }
+        out, aux = moe_layer(moe_params, h, cfg.moe_config)
+        return x + out, aux
     if "wgu" in layer:
         gu = mm(h, layer["wgu"])
         f = gu.shape[-1] // 2
         gated = F.silu(gu[..., :f]) * gu[..., f:]
     else:
         gated = F.silu(mm(h, layer["gate"])) * mm(h, layer["up"])
-    return x + mm(gated, layer["down"])
+    return x + mm(gated, layer["down"]), None
 
 
 def _block(
@@ -163,8 +183,9 @@ def _block(
     positions: torch.Tensor,
     kv_valid_mask: Optional[torch.Tensor],
     attn_impl: str,
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """One transformer block. Returns (x_out, (k, v)) with k/v [B,S,K,D]."""
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], Optional[torch.Tensor]]:
+    """One transformer block. Returns (x_out, (k, v), moe aux or None) with
+    k/v [B,S,K,D]."""
     B, S, _ = x.shape
     h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
     q, k, v = _project_qkv(cfg, layer, h, B, S)
@@ -177,7 +198,8 @@ def _block(
         impl=attn_impl,
     )
     x = x + mm(attn.reshape(B, S, cfg.q_dim), layer["wo"])
-    return _mlp_or_moe(cfg, x, layer), (k, v)
+    x, aux = _mlp_or_moe(cfg, x, layer)
+    return x, (k, v), aux
 
 
 #: the products remat="dots" keeps: plain matrix products (the projections,
@@ -205,9 +227,12 @@ def forward_hidden(
     attn_impl: str = "xla",
     return_kv: bool = False,
     remat=False,
+    return_aux: bool = False,
     unroll_layers: bool = False,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Token ids [B, S] -> final hidden states [B, S, D] (pre-lm_head).
+):
+    """Token ids [B, S] -> (final hidden states [B, S, D] (pre-lm_head),
+    KVCache or None), and with ``return_aux`` the MoE auxiliary loss summed
+    over layers (f32 scalar, 0 for a dense model) as a third item.
 
     attention_mask: [B, S] bool, False = padding (left or right).
     remat: True or "full" recomputes each block in the backward
@@ -239,19 +264,26 @@ def forward_hidden(
         return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl)
 
     ks, vs = [], []
+    aux_sum = None
     for layer in _layers(params["blocks"], cfg.num_layers):
         if remat == "dots" and torch.is_grad_enabled():
-            x, (k, v) = checkpoint(block_fn, x, layer, use_reentrant=False,
-                                   context_fn=_save_dots_contexts)
+            x, (k, v), aux = checkpoint(block_fn, x, layer, use_reentrant=False,
+                                        context_fn=_save_dots_contexts)
         elif remat and torch.is_grad_enabled():
-            x, (k, v) = checkpoint(block_fn, x, layer, use_reentrant=False)
+            x, (k, v), aux = checkpoint(block_fn, x, layer, use_reentrant=False)
         else:
-            x, (k, v) = block_fn(x, layer)
+            x, (k, v), aux = block_fn(x, layer)
+        if aux is not None:
+            aux_sum = aux if aux_sum is None else aux_sum + aux
         if return_kv:
             ks.append(k)
             vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     cache = KVCache(k=torch.stack(ks), v=torch.stack(vs)) if return_kv else None
+    if return_aux:
+        if aux_sum is None:
+            aux_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        return x, cache, aux_sum
     return x, cache
 
 
@@ -418,7 +450,7 @@ def decode_step_packed(
             starts, lengths, cfg.num_kv_heads, impl,
         )
         x = x + mm(attn.reshape(B, 1, cfg.q_dim), layer["wo"])
-        x = _mlp_or_moe(cfg, x, layer)
+        x, _ = _mlp_or_moe(cfg, x, layer)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x[:, 0, :], kv_layers
 
@@ -486,6 +518,6 @@ def decode_step_packed_q8(
             attn = decode_attention_packed_q8_xla(
                 qh, kc, vc, ksc, vsc, starts, lengths, num_kv=cfg.num_kv_heads)
         x = x + mm(attn.reshape(B, 1, cfg.q_dim), layer["wo"])
-        x = _mlp_or_moe(cfg, x, layer)
+        x, _ = _mlp_or_moe(cfg, x, layer)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x[:, 0, :], kv_layers

@@ -65,7 +65,8 @@ def mm(x: torch.Tensor, w) -> torch.Tensor:
 
 
 # Matmul weights of the LLM param tree (norms, biases and the embedding
-# gather stay in the compute dtype).
+# gather stay in the compute dtype; an MoE model's router and expert stacks
+# ``moe_*`` stay bf16 too, as in the JAX package).
 _MATMUL_KEYS = ("wq", "wk", "wv", "wo", "gate", "up", "down", "lm_head")
 
 

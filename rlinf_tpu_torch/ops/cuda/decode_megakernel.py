@@ -141,9 +141,11 @@ def make_plan(cfg: LLMConfig, chunk_width: int = 2048) -> MegaPlan:
     Hd = cfg.head_dim_
     QD = cfg.num_heads * Hd
     KVD = cfg.num_kv_heads * Hd
+    if cfg.is_moe:
+        raise ValueError("decode_megakernel is dense-MLP only: an MoE model decodes on the "
+                         "per-layer kernels (use_mega=False)")
     assert QD == D, "megakernel requires num_heads*head_dim == hidden_size"
     assert not cfg.qk_norm, "megakernel does not support qk-norm models"
-    assert not cfg.is_moe, "megakernel is dense-MLP only"
     assert chunk_width >= D, (
         f"megakernel chunk_width {chunk_width} must be >= hidden {D}")
     CW = chunk_width

@@ -142,7 +142,7 @@ class PagedContinuousEngine(ContinuousBatchingEngine):
                                   write_pages[k_idx], write_offsets[k_idx])
                 attn = self._attend(q[:, 0], k_layers[i], v_layers[i], page_table, lengths)
                 x = x + attn.reshape(B, 1, c.q_dim) @ layer["wo"]
-                x = M._mlp_or_moe(c, x, layer)
+                x, _ = M._mlp_or_moe(c, x, layer)
             x = rms_norm(x, params["final_norm"], c.rms_eps)
             logits = (x[:, 0] @ w_lm).float()
             new_tok, lp = sample_from_logits(generator, logits, sp)

@@ -9,7 +9,8 @@ batch.
 
 Where the JAX package jits one function that donates the state, the port
 runs eagerly and updates the params and the optimizer state in place.
-The MoE auxiliary loss comes with the MoE slice.
+An MoE model's auxiliary loss joins the policy loss in
+``microbatch_loss_with_moe``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -108,20 +109,24 @@ def microbatch_loss_with_moe(
     params, cfg, loss_cfg, mb, global_valid_tokens, *, attn_impl, remat,
     unroll_layers=False,
 ):
-    """Shared microbatch loss (PPO-clip + entropy/KL). The MoE auxiliary loss
-    of the JAX package comes with the MoE slice (the port's model raises on
-    MoE configs)."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE training comes with the port's MoE slice")
-    hidden, _ = M.forward_hidden(
+    """Shared microbatch loss (PPO-clip + entropy/KL + MoE aux). An MoE
+    model adds its auxiliary loss summed over layers, weighted by this
+    microbatch's share of the valid tokens (``aux * local / global``), and
+    reports it as ``actor/moe_aux_loss``."""
+    hidden, _, moe_aux = M.forward_hidden(
         params, cfg, mb["input_ids"],
         attention_mask=mb["attention_mask"],
-        attn_impl=attn_impl, remat=remat, unroll_layers=unroll_layers,
+        attn_impl=attn_impl, remat=remat, return_aux=True, unroll_layers=unroll_layers,
     )
     lp, ent = linear_logprobs_and_entropy(
         params, cfg, hidden, mb["target_ids"], chunk_size=loss_cfg.logprob_chunk_size,
     )
-    return _token_level_loss(lp, ent, mb, loss_cfg, global_valid_tokens)
+    loss, metrics = _token_level_loss(lp, ent, mb, loss_cfg, global_valid_tokens)
+    if cfg.is_moe:
+        local = mb["loss_mask"].float().sum()
+        loss = loss + moe_aux * local / global_valid_tokens
+        metrics["actor/moe_aux_loss"] = moe_aux.detach()
+    return loss, metrics
 
 
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:

@@ -346,7 +346,7 @@ def test_serve_openai_flags_and_model_path():
     assert serve_openai.model_config("qwen2_1_5b").hidden_size == 1536
     with pytest.raises(ValueError, match="unknown LLMConfig preset"):
         serve_openai.model_config("nope")
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         serve_openai.main(["--device", "cpu", "--model", "/nowhere"])
 
 

@@ -200,5 +200,7 @@ def test_init_params_seeded_and_moe_rejected():
     assert torch.equal(a["blocks"]["wq"], b["blocks"]["wq"])
     assert a["blocks"]["wq"].shape == (tcfg.num_layers, tcfg.hidden_size, tcfg.q_dim)
     assert "lm_head" not in a and a["blocks"]["bq"].abs().sum() == 0
-    with pytest.raises(NotImplementedError):
-        TM.init_params(dataclasses.replace(tcfg, num_experts=4), 0, device="cpu")
+    moe = TM.init_params(dataclasses.replace(tcfg, num_experts=4), 0, device="cpu")["blocks"]
+    assert "gate" not in moe and moe["moe_gate"].shape == (
+        tcfg.num_layers, 4, tcfg.hidden_size, tcfg.intermediate_size)
+    assert moe["moe_router"].shape == (tcfg.num_layers, tcfg.hidden_size, 4)

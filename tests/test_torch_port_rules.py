@@ -14,6 +14,10 @@
   wrapper given a CUDA tensor goes to its kernel and raises where that
   cannot be built, it does not take the plain version.
 * A public ``device`` parameter defaults to ``"cuda"`` (or has no default).
+* Nothing of the port, ``chip_smoke.py`` or the port's scripts imports
+  ``transformers``, ``safetensors``, ``tokenizers``, ``orbax`` or ``regex``
+  (the card's machine has none of them), at any level: not in the source,
+  and not by importing every module of the port.
 """
 
 import ast
@@ -55,6 +59,34 @@ def test_no_jax_or_reference_imports(path):
     assert path.exists(), path
     bad = [m for m in _imported_modules(path) if m and _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+#: packages the card's machine lacks: the port reads HF files itself
+HF_PACKAGES = ("transformers", "safetensors", "tokenizers", "orbax", "regex")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_hf_package_imports(path):
+    bad = [m for m in _imported_modules(path) if m and m.split(".")[0] in HF_PACKAGES]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_the_port_loads_no_hf_package(tmp_path):
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PORT.rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {HF_PACKAGES!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
 
 
 def test_chip_smoke_imports_only_the_port():

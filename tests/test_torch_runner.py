@@ -311,7 +311,7 @@ def test_main_grpo_reads_a_jsonl_and_refuses_a_model_path(tmp_path):
                               "runner.rollout_batch_size=2", "runner.max_steps=1",
                               "runner.log_dir=null"])
     assert len(history) == 1 and history[0]["rollout/prompt_len_max"] <= len("3 + 1 =")
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         main_grpo.main(["--config", YAML, "--device", "cpu", "--model-path", str(tmp_path),
                         "runner.log_dir=null"])
 

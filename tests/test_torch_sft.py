@@ -149,7 +149,7 @@ def test_main_sft_runs_resumes_and_refuses_a_model_path(tmp_path):
     """main_sft on a jsonl of prompt/answer rows: two steps on the CPU with a
     checkpoint each and a metrics file; run again to step 3 it resumes at
     step 2 (the state bitwise the saved one) and takes one step; a
-    ``--model-path`` raises, pointing at ROADMAP.md §A.4."""
+    ``--model-path`` that holds no checkpoint raises."""
     data = tmp_path / "sft.jsonl"
     data.write_text("\n".join(json.dumps({"prompt": p, "answer": a}) for p, a in _examples()))
     common = ["--config", YAML, "--data-path", str(data), "--device", "cpu",
@@ -167,7 +167,7 @@ def test_main_sft_runs_resumes_and_refuses_a_model_path(tmp_path):
         assert torch.equal(v, saved[k]) if isinstance(v, torch.Tensor) else v == saved[k], k
     third = main_sft.main([*common, "runner.max_steps=3"])
     assert len(third) == 1 and np.isfinite(third[0]["sft/loss"])
-    with pytest.raises(NotImplementedError, match="A.4"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         main_sft.main([*common, "--model-path", str(tmp_path)])
 
 
