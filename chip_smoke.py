@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``rlinf_tpu_torch``) on one GPU:
 the rollout serving paths (static, megakernel, continuous and paged
 engines), the GRPO training path, the runners and server mode, HF
-checkpoints and the MoE model family.
+checkpoints, the MoE model family, the agent recipes and the
+AgentLightning runner.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -169,8 +170,9 @@ the small models' default runs, and PPO with a learned critic:
    HTTP requests; launch counts shown, K5, K6 and a decode kernel gated.
 19. critic: ppo_separate_critic.yaml as shipped (Hd=32, bf16) for 3 steps
    with ``critic_warmup_steps=1``; then grpo_math_qwen05b.yaml's model at
-   full width and depth as PPO with a learned critic (``CRITIC_OVERRIDES``,
-   cut as ``CRITIC_REDUCED``), once with a separate critic and once with
+   full width, 12 of its 24 layers (``CRITIC_CUT``), as PPO with a learned
+   critic (``CRITIC_OVERRIDES``, cut as ``CRITIC_REDUCED``), once with a
+   separate critic and once with
    the shared value head, 3 steps each. Gates: K1, K2 and K5-K8 launched,
    the critic's params moved, ``critic/*`` finite, and a shadow critic
    step and actor-critic step, kernels against plain on one batch, within
@@ -188,7 +190,8 @@ Then adafactor and selective recompute, LoRA and SFT:
    and backward under each, the two forms' gradients on one microbatch
    bitwise equal or within ``SHADOW_BARS``.
 21. lora: ``main_grpo`` on grpo_math_qwen05b.yaml in LoRA mode
-   (``LORA_OVERRIDES``, rank 16, the runner phase's cut) for 3 steps; then a
+   (``LORA_OVERRIDES``, rank 16, the runner phase's cut, 12 of the 24
+   layers: ``LORA_CUT``) for 3 steps; then a
    runner with ``text_rule`` rewards for 3 steps. Gates: the base params
    bitwise the init's, the adapters' b moved, every rollout's params
    bitwise the merge of its step, a shadow step within ``SHADOW_BARS``, a
@@ -220,13 +223,42 @@ Then Hugging Face checkpoints and the MoE model family:
    ``jinja2`` (also in the ``device`` line).
 24. moe: ``main_grpo`` on grpo_math_qwen05b.yaml with the model of
    ``LLMConfig.qwen3_moe_2b`` (``MOE_OVERRIDES``: 32 experts, top-2, expert
-   ffn 768, 24 layers, D=1024, Hd=64, G=4; full width and depth, byte
-   tokenizer) at the runner phase's cut: capacity routing for 2 steps and a
+   ffn 768, D=1024, Hd=64, G=4; full width, 12 of its 24 layers
+   (``MOE_CUT``), byte tokenizer) at the runner phase's cut: capacity routing for 2 steps and a
    shadow check on its params (one microbatch's loss and gradients, kernels
    against plain on the plain run's routing, ``MOE_SHADOW_BARS``; the free
    runs' flipped choices reported), then dropless routing for 1 step. Gates: K1, K2 and K5-K8 launched and no other kernel, finite
    metrics with ``actor/moe_aux_loss``; ``capacity_overflow_frac`` reported
    at the rollout's decode shape and at a training microbatch.
+
+Last, the agent recipes and the AgentLightning runner:
+
+25. agent_recipes: at grpo_math_qwen05b.yaml's model, full width and depth
+   (Qwen2.5-0.5B, random weights from --seed), cut as ``RECIPES_REDUCED``,
+   the launch counts zeroed before steps 1-5 and read after them: (1) a
+   jsonl of gsm_synth problems through ``create_rl_dataset(type="rstar2")``
+   on the tokenizer fixture with a chat template that renders tools,
+   templated and filtered by length (rows kept and dropped); (2)
+   ``SearchR1Recipe`` over a ``RetrievalServer`` (BM25 over 300 passages
+   made in code, on 127.0.0.1): 8 questions, a scripted search in turn 1,
+   the server's requests equal to the calls and its passage in every
+   rollout, EM and F1; (3) ``RStar2Recipe``'s loop, 8 conversations of 3
+   turns (the state carried from turn 1 to turn 2, an error and a timeout
+   turn), ``rstar2_reward``; then the forked ``SessionPythonTool`` in a
+   process that holds a CUDA context (state across calls in 8 sessions, a
+   timeout, an error); (4) ``WideSeekR1Recipe.run_team`` (2 searchers, 4
+   questions; failed turns from a scripted unknown tool) and
+   ``build_team_batch``, then one ``make_policy_train_step`` call on that
+   batch; (5) two ``AgentLightningRunner.run_step`` calls, 2 prompts x 4
+   tasks from step 1's dataset, an agent that calls ``complete`` twice a
+   task (prompts of 500+ tokens) and returns a reward for two tasks in
+   three (``batch_f1_rewards`` scores the rest), the second step under
+   ``StepProfiler`` (K1's and K2's launches read from its trace by their
+   source names), ``train_mfu`` against ``ChipSpec.h100()``. Gates: K1, K2
+   and K5-K8 launched in steps 1-5 and no other kernel; then (6) step 1's
+   batch through the train step from one state, kernels against plain
+   (``SHADOW_BARS``), and its logprob drift from the behaviour logprobs,
+   both ways (``DRIFT_BAR``). Also whether ``sympy`` imports.
 
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures (each with its timed ``variants`` of
@@ -3527,6 +3559,10 @@ CRITIC_REDUCED = {
     "runner.max_steps=3": "the yaml has 400",
     "runner.save_interval=3": "one checkpoint, at the last step (the yaml: every 50)",
 }
+#: the critic runs at half the model's depth (the runner phase runs all 24
+#: layers of the same model), so that the whole script stays well inside
+#: its time limit
+CRITIC_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
 CRITIC_KERNELS = ("flash_attention_fwd", "decode_attention_bf16", "linear_ce_fwd",
                   "linear_ce_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # the shadow steps: one critic step (separate) and one actor-critic step
@@ -3607,8 +3643,9 @@ def critic_phase(kerns, gpu, seed) -> dict:
     """Phase 19. (a) ppo_separate_critic.yaml as shipped (Hd=32, bf16, the
     continuous engine) through ``main_grpo.main`` for 3 steps with
     ``critic_warmup_steps=1``: step 1 skips the actor, steps 2 and 3 train
-    it. (b) grpo_math_qwen05b.yaml's model at full width and depth with
-    CRITIC_OVERRIDES and CRITIC_REDUCED, once with a separate critic and
+    it. (b) grpo_math_qwen05b.yaml's model at full width, 12 of its 24
+    layers (CRITIC_CUT), with CRITIC_OVERRIDES and CRITIC_REDUCED, once
+    with a separate critic and
     once with the shared value head: 3 steps each, then a shadow step
     (``critic_shadow``) on step 1's rollout. Gates: K1, K2 and K5-K8
     launched; the critic's params moved; ``critic/*`` metrics finite; the
@@ -3642,7 +3679,7 @@ def critic_phase(kerns, gpu, seed) -> dict:
         launches[k] += c
 
     for critic in ("separate", "shared"):
-        overrides = [*CRITIC_OVERRIDES, *CRITIC_REDUCED, f"algorithm.critic={critic}",
+        overrides = [*CRITIC_OVERRIDES, *CRITIC_REDUCED, *CRITIC_CUT, f"algorithm.critic={critic}",
                      f"runner.seed={seed}", f"runner.log_dir={work / critic / 'logs'}",
                      f"runner.checkpoint_dir={work / critic / 'ckpt'}"]
         record = {}
@@ -3661,7 +3698,7 @@ def critic_phase(kerns, gpu, seed) -> dict:
                                 {"v": init_value_head(r.cfg.model, r.cfg.runner.seed + 7,
                                                       device="cuda")})
         row = {"config": RUNNER_YAML, "critic": critic, "overrides": CRITIC_OVERRIDES,
-               "reduced": CRITIC_REDUCED, "layers": r.cfg.model.num_layers,
+               "reduced": {**CRITIC_REDUCED, **CRITIC_CUT}, "layers": r.cfg.model.num_layers,
                "rows": len(result.prompt_lengths), "seconds": secs, "launches": counts,
                "max_memory_allocated_gb": peak_gb, "critic_params_moved_share": moved,
                "critic_step_s": list(record["critic_step_s"]),
@@ -3842,6 +3879,10 @@ LORA_OVERRIDES = {
                                 "static minibatches",
 }
 LORA_HEAD_TARGETS = "lora.targets=[wq,wk,wv,wo,gate,up,down,lm_head]"
+#: the LoRA runs at half the model's depth (the runner phase runs all 24
+#: layers of the same model), so that the whole script stays well inside
+#: its time limit
+LORA_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
 
 
 @contextlib.contextmanager
@@ -3887,7 +3928,8 @@ def lora_minibatch(runner, result) -> dict:
 
 def lora_phase(kerns, gpu, seed) -> dict:
     """Phase 21. (a) ``main_grpo.main`` on grpo_math_qwen05b.yaml in LoRA
-    mode (LORA_OVERRIDES, the runner phase's RUNNER_REDUCED): 3 steps with
+    mode (LORA_OVERRIDES, the runner phase's RUNNER_REDUCED, 12 of the 24
+    layers: LORA_CUT): 3 steps with
     the math verifier. (b) A ReasoningRunner on the same config with
     ``text_rule`` rewards (non-zero advantages) for 3 steps, then the gates:
     the base params bitwise the init's, the adapters' b moved from 0, each
@@ -3914,9 +3956,9 @@ def lora_phase(kerns, gpu, seed) -> dict:
     work = HERE / "build" / "lora_smoke"
     shutil.rmtree(work, ignore_errors=True)
     yaml = str(HERE / RUNNER_YAML)
-    base_ov = [*LORA_OVERRIDES, *RUNNER_REDUCED, f"runner.seed={seed}"]
+    base_ov = [*LORA_OVERRIDES, *RUNNER_REDUCED, *LORA_CUT, f"runner.seed={seed}"]
     out = {"phase": "lora", "gpu": gpu, "config": RUNNER_YAML, "overrides": LORA_OVERRIDES,
-           "reduced": RUNNER_REDUCED}
+           "reduced": {**RUNNER_REDUCED, **LORA_CUT}}
     bad, launches = [], {k: 0 for k in kerns}
     steps_of = lambda history: [{k: v for k, v in h.items()
                                  if k.startswith(("time/", "actor/", "perf/"))} for h in history]
@@ -4469,10 +4511,13 @@ def hf_checkpoints_phase(kerns, gpu, seed) -> dict:
 
 
 #: grpo_math_qwen05b.yaml's model section replaced by LLMConfig.qwen3_moe_2b's
-#: widths and depth (32 experts, top-2, expert ffn 768, 24 layers, D=1024)
+#: widths (32 experts, top-2, expert ffn 768, D=1024) at the depth of MOE_CUT
+#: (the model has 24 layers)
+MOE_CUT = {"model.num_layers=12": "12 of qwen3_moe_2b's 24 layers, so that the whole script "
+                                  "stays well inside its time limit"}
 MOE_OVERRIDES = (
     "model.vocab_size=151936", "model.hidden_size=1024", "model.intermediate_size=768",
-    "model.num_layers=24", "model.num_heads=16", "model.num_kv_heads=4", "model.head_dim=64",
+    *MOE_CUT, "model.num_heads=16", "model.num_kv_heads=4", "model.head_dim=64",
     "model.rope_theta=1e6", "model.tie_word_embeddings=true", "model.qkv_bias=false",
     "model.qk_norm=true", "model.num_experts=32", "model.num_experts_per_token=2",
 )
@@ -4619,9 +4664,9 @@ def moe_shadow(runner, result, kerns, seed, rows: int = 32) -> dict:
 
 def moe_phase(kerns, gpu, peaks, seed) -> dict:
     """Phase 24: ``main_grpo`` on grpo_math_qwen05b.yaml with the model of
-    ``LLMConfig.qwen3_moe_2b`` (``MOE_OVERRIDES``: full width and depth,
-    random weights from ``seed``, the byte tokenizer), cut as the runner
-    phase (``HF_GRPO_REDUCED``): capacity routing for 2 steps, then a
+    ``LLMConfig.qwen3_moe_2b`` (``MOE_OVERRIDES``: full width, the depth of
+    ``MOE_CUT``, random weights from ``seed``, the byte tokenizer), cut as
+    the runner phase (``HF_GRPO_REDUCED``): capacity routing for 2 steps, then a
     shadow check on its params (``moe_shadow``), then dropless routing for
     1 step. Gates: K1, K2 and K5-K8 launched and no other kernel in each
     run, finite metrics with ``actor/moe_aux_loss`` among them, the shadow
@@ -4637,7 +4682,7 @@ def moe_phase(kerns, gpu, peaks, seed) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     yaml = str(HERE / RUNNER_YAML)
     out = {"phase": "moe", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen3_moe_2b",
-           "overrides": list(MOE_OVERRIDES), "reduced": HF_GRPO_REDUCED}
+           "overrides": list(MOE_OVERRIDES), "reduced": {**HF_GRPO_REDUCED, **MOE_CUT}}
     bad, launches = [], dict.fromkeys(kerns, 0)
     peak_tflops = peaks[1] / 1e12
     reduced = [k for k in HF_GRPO_REDUCED if not k.startswith("runner.max_steps")]
@@ -4679,6 +4724,506 @@ def moe_phase(kerns, gpu, peaks, seed) -> dict:
     if bad:
         raise AssertionError(f"MoE phase failed: {bad}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the agent recipes and the AgentLightning runner
+# ---------------------------------------------------------------------------
+
+#: the AgentLightning runner's traffic, cut to a short run of
+#: grpo_math_qwen05b.yaml: each override and why
+RECIPES_REDUCED = {
+    "runner.rollout_batch_size=2": "2 prompts x group_size 4 = 8 tasks a step "
+                                   "(the yaml: 64 prompts, 512 rows)",
+    "algorithm.group_size=4": "the yaml has 8",
+    "sampling.max_new_tokens=16": "a completion's budget (the yaml has 1024): a B=1 "
+                                  "completion is host-bound at 25-40 ms a decode step",
+    "runner.max_steps=2": "the yaml has 400",
+    "data.max_prompt_len=540": "drops the longer of the rStar2 dataset's templated prompts "
+                               "(the yaml: 512)",
+}
+#: the rStar2 dataset: gsm_synth problems, templated with the python tool's
+#: schema on the tokenizer fixture under RECIPES_TOOLS_TEMPLATE
+RECIPES_ROWS = 32
+#: a ChatML template that renders ``tools`` as Qwen2.5's does (a system turn
+#: listing each schema as JSON), cut to its tool block; the fixture's own
+#: template renders no tools
+RECIPES_TOOLS_TEMPLATE = (
+    "{%- if tools %}{{- '<|im_start|>system\\nYou are a helpful assistant.\\n\\n# Tools\\n<tools>' }}"
+    "{%- for tool in tools %}{{- '\\n' }}{{- tool | tojson }}{%- endfor %}"
+    "{{- '\\n</tools><|im_end|>\\n' }}"
+    "{%- elif messages[0]['role'] != 'system' %}"
+    "{{- '<|im_start|>system\\nYou are a helpful assistant.<|im_end|>\\n' }}{%- endif %}"
+    "{%- for message in messages %}"
+    "{{- '<|im_start|>' + message['role'] + '\\n' + message['content'] + '<|im_end|>\\n' }}"
+    "{%- endfor %}"
+    "{%- if add_generation_prompt %}{{- '<|im_start|>assistant\\n' }}{%- endif %}"
+)
+#: the retrieval corpus: passages made in code, one a country
+RECIPES_PASSAGES = 300
+#: the rStar2 conversations' second turns (the first assigns x = 7 (i + 1)):
+#: six read the carried state, one raises, one loops past the timeout
+RSTAR2_SECOND_TURNS = ["print(x)"] * 6 + ["1/0", "while True: pass"]
+#: K1 and K2 in a torch.profiler trace, by their __global__ names in
+#: csrc/flash_attention_fwd.cu and csrc/decode_attention.cu
+PROFILED_KERNELS = {"flash_attention_fwd": "flash_fwd_kernel",
+                    "decode_attention_bf16": "decode_bf16_split_kernel"}
+
+
+def recipes_corpus() -> dict:
+    return {f"country-{i:03d}": f"Country-{i:03d}'s capital is City{i}; its river is River{i} "
+                                f"and it has {i * 37 % 1000} towns."
+            for i in range(RECIPES_PASSAGES)}
+
+
+def scripted_calls(plan):
+    """A parse for random weights (which never write a tool tag): its k-th
+    use calls ``plan(k)`` -> (tool, args) or None; a call keeps the turn's
+    whole text."""
+    from rlinf_tpu_torch.algorithms.toolcall_parsers import ToolCall
+
+    seen = {"k": 0}
+
+    def parse(text):
+        k = seen["k"]
+        seen["k"] += 1
+        call = plan(k)
+        return None if call is None else ToolCall(tool=call[0], args=call[1], raw=text,
+                                                  end_pos=len(text))
+    return parse
+
+
+def recipes_dataset(work: Path, cfg, seed) -> tuple:
+    """Step 1: a jsonl of RECIPES_ROWS gsm_synth problems through
+    ``create_rl_dataset(type="rstar2")`` on the tokenizer fixture (its chat
+    template swapped for one that renders tools), templated and filtered by
+    length -> (dataset, tokenizer, figures)."""
+    import random
+    import shutil
+
+    from rlinf_tpu_torch.data.datasets import create_rl_dataset
+    from rlinf_tpu_torch.data.gsm_synth import make_problem
+    from rlinf_tpu_torch.data.hf_tokenizer import HFTokenizer
+
+    tok_dir = work / "tokenizer"
+    tok_dir.mkdir(parents=True)
+    for f in (HERE / TOKENIZER_FIXTURE).iterdir():
+        shutil.copy(f, tok_dir / f.name)
+    tcfg = json.loads((tok_dir / "tokenizer_config.json").read_text())
+    tcfg["chat_template"] = RECIPES_TOOLS_TEMPLATE
+    (tok_dir / "tokenizer_config.json").write_text(json.dumps(tcfg))
+    tok = HFTokenizer(str(tok_dir))
+    rng = random.Random(seed)
+    rows = []
+    for _ in range(RECIPES_ROWS):
+        q, _, a = make_problem(rng)
+        rows.append({"prompt": q, "question": q, "answer": a})
+    (work / "train.jsonl").write_text("".join(json.dumps(r) + "\n" for r in rows))
+    data_cfg = dataclasses.replace(cfg.data, type="rstar2", train_data_paths=str(work / "train.jsonl"),
+                                   apply_chat_template=True, filter_prompt_by_length=True)
+    t0 = time.perf_counter()
+    train, _ = create_rl_dataset(data_cfg, tok)
+    lens = [len(tok.encode(e.prompt, add_special_tokens=False)) for e in train.examples]
+    return train, tok, {"type": "rstar2", "rows": len(rows), "kept": len(train),
+                        "dropped_by_length": len(rows) - len(train),
+                        "max_prompt_len": data_cfg.max_prompt_len,
+                        "kept_prompt_tokens": {"min": min(lens), "max": max(lens)},
+                        "tools_in_every_prompt": all("python_code_with_standard_io" in e.prompt
+                                                     for e in train.examples),
+                        "answers_are_lists": all(isinstance(e.answer, list)
+                                                 for e in train.examples),
+                        "seconds": time.perf_counter() - t0}
+
+
+def searchr1_step(runner, params, gen) -> dict:
+    """Step 2: Search-R1 over a RetrievalServer (BM25 over RECIPES_PASSAGES
+    passages on 127.0.0.1): 8 questions, up to 3 turns, a scripted search in
+    each conversation's first turn."""
+    from rlinf_tpu_torch.agents.recipes import SearchR1Recipe
+    from rlinf_tpu_torch.agents.retrieval import RetrievalServer
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+
+    ids = [3, 41, 77, 120, 159, 201, 250, 299]
+    questions = [f"What is the capital of country-{i:03d}?" for i in ids]
+    answers = [f"City{i}" for i in ids]
+    server = RetrievalServer(recipes_corpus()).start()
+    served = {"requests": 0}
+    search = server.index.search
+
+    def counted(query, topk=3):
+        served["requests"] += 1
+        return search(query, topk=topk)
+
+    server.index.search = counted
+    tok = ByteTokenizer()
+    recipe = SearchR1Recipe(max_turns=3, max_total_len=1024)
+    try:
+        loop = recipe.make_loop(runner.engine, tok, {}, search_url=server.url)
+        loop.parse = scripted_calls(lambda k: ("search", questions[k]) if k < 8 else None)
+        t0 = time.perf_counter()
+        rolls = loop.run(params, [tok.encode(f"Question: {q}\n") for q in questions], gen)
+        secs = time.perf_counter() - t0
+    finally:
+        server.stop()
+    out = {"url_host": server.url.split("//")[1].split(":")[0], "passages": RECIPES_PASSAGES,
+           "conversations": len(rolls), "seconds": secs,
+           "tool_calls": sum(r.num_tool_calls for r in rolls),
+           "server_requests": served["requests"],
+           "turns": [r.num_turns for r in rolls],
+           "tokens": [len(r.token_ids) for r in rolls],
+           "results_in_rollouts": sum(f"Doc 1: Country-{i:03d}'s capital is City{i}" in r.final_text
+                                      for i, r in zip(ids, rolls)),
+           "em": SearchR1Recipe(reward_metric="em").batch_rewards(rolls, answers),
+           "f1": SearchR1Recipe(reward_metric="f1").batch_rewards(rolls, answers)}
+    out["bad"] = [] if (out["tool_calls"] == out["server_requests"] == 8
+                        and out["results_in_rollouts"] == 8
+                        and all(t == 2 for t in out["turns"])) else ["search-r1"]
+    return out
+
+
+def rstar2_step(runner, params, gen) -> dict:
+    """Step 3: rStar2's loop and its Python tool over 8 conversations of 3
+    turns (a scripted call in turns 1 and 2: x = 7 (i + 1), then
+    RSTAR2_SECOND_TURNS), scored by ``rstar2_reward``; then the forked
+    ``SessionPythonTool`` (this process holds a CUDA context): state across
+    calls in 8 sessions, a timeout, an error."""
+    from rlinf_tpu_torch.agents.recipes import RStar2Recipe
+    from rlinf_tpu_torch.agents.rstar2 import SessionPythonTool
+    from rlinf_tpu_torch.algorithms.rewards.rstar2_score import rstar2_reward
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+
+    if not torch.cuda.is_initialized():
+        raise AssertionError("the rStar2 step must run after CUDA is initialised")
+    tok = ByteTokenizer()
+    recipe = RStar2Recipe(max_turns=3, max_total_len=512, timeout_s=1.0)
+    loop = recipe.make_loop(runner.engine, tok)
+    n = len(RSTAR2_SECOND_TURNS)
+
+    def plan(k):
+        if k < n:
+            return "python", f"x = {7 * (k + 1)}"
+        return ("python", RSTAR2_SECOND_TURNS[k - n]) if k < 2 * n else None
+
+    loop.parse = scripted_calls(plan)
+    t0 = time.perf_counter()
+    rolls = loop.run(params, [tok.encode(f"Compute {i + 1} * 7 with python.\n")
+                              for i in range(n)], gen)
+    secs = time.perf_counter() - t0
+    answers = [str(7 * (i + 1)) for i in range(n)]
+    carried = ["<result>(no output)</result>" in r.final_text
+               and f"<result>{a}</result>" in r.final_text for r, a in zip(rolls[:6], answers)]
+    out = {"conversations": len(rolls), "seconds": secs, "turns": [r.num_turns for r in rolls],
+           "turn_errors": [r.turn_errors for r in rolls], "state_carried": carried,
+           "error_turn": "<result>error: ZeroDivisionError" in rolls[6].final_text,
+           "timeout_turn": "<result>error: execution timed out</result>" in rolls[7].final_text,
+           "rstar2_reward": [rstar2_reward(r.final_text, a) for r, a in zip(rolls, answers)],
+           "recipe_reward": recipe.batch_rewards(rolls, answers)}
+    tool = SessionPythonTool(timeout_s=2.0)
+    t0 = time.perf_counter()
+    first = [tool(f"x = {i} * 6", session=i) for i in range(n)]
+    second = [tool("x + 1", session=i) for i in range(n)]
+    fork_s = (time.perf_counter() - t0) / (2 * n)
+    timeout = tool("while True: pass", session=0)
+    error = tool("1/0", session=1)
+    after = tool("x", session=0)
+    out["session_tool"] = {"start_method": "fork", "cuda_initialized": torch.cuda.is_initialized(),
+                           "first": first, "second": second, "timeout": timeout,
+                           "error": error, "after_timeout": after, "seconds_a_call": fork_s}
+    bad = []
+    if not (all(carried) and out["error_turn"] and out["timeout_turn"]
+            and out["turns"] == [3] * n):
+        bad.append("rstar2 loop")
+    if not (first == [""] * n and second == [str(6 * i + 1) for i in range(n)]
+            and timeout == "error: timeout" and error.startswith("error: ZeroDivisionError")
+            and after == "0"):
+        bad.append("session tool")
+    out["bad"] = bad
+    return out
+
+
+def wideseek_step(runner, params, gen, kerns) -> dict:
+    """Step 4: ``WideSeekR1Recipe.run_team`` with 2 searchers over 4
+    questions (a scripted search in each searcher's first turn, every third
+    one of an unknown tool: a failed turn), ``build_team_batch`` with 2
+    teams a question, then one ``make_policy_train_step`` call on that
+    batch from a copy of the runner's state (its launches read as the
+    difference of the counts, which go on counting for the phase)."""
+    from rlinf_tpu_torch.agents import agent_loop
+    from rlinf_tpu_torch.agents.recipes import WideSeekR1Recipe
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+
+    ids = [12, 12, 140, 140]
+    questions = [f"What is the capital of country-{i:03d}?" for i in ids]
+    answers = [f"City{i}" for i in ids]
+    recipe = WideSeekR1Recipe(num_searchers=2, max_total_len=1024)
+    # parses 0-3 are the planners' (one turn: no call); 4-11 the searchers'
+    # first turns, two a question
+    parse = scripted_calls(lambda k: ("nope" if k % 3 == 2 else "search",
+                                      f"capital of country-{ids[(k - 4) // 2 % 4]:03d}"))
+    real = agent_loop.get_toolcall_parser
+    agent_loop.get_toolcall_parser = lambda name: parse
+    try:
+        t0 = time.perf_counter()
+        team = recipe.run_team(runner.engine, ByteTokenizer(), params, questions,
+                               recipes_corpus(), gen)
+        team_s = time.perf_counter() - t0
+    finally:
+        agent_loop.get_toolcall_parser = real
+    batch, roles, metrics = recipe.build_team_batch(team, answers, group_size=2,
+                                                    pad_id=runner.cfg.sampling.pad_token_id)
+    batch_dict = {k: torch.as_tensor(v).to("cuda") for k, v in batch.to_dict().items()}
+    state = clone_tree(runner.state)
+    before = {name: kern.launches for name, kern in kerns.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = runner.train_step(state, batch_dict)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {name: kern.launches - before[name] for name, kern in kerns.items()}
+    m = {k: float(v) for k, v in m.items()}
+    out = {"questions": len(questions), "rows": {r: roles.count(r) for r in dict.fromkeys(roles)},
+           "run_team_seconds": team_s, "metrics": metrics, "batch_shape": list(batch.input_ids.shape),
+           "searcher_results": sum("<result>" in r.final_text for r in team["searcher"]),
+           "searcher_turn_errors": sum(sum(r.turn_errors) for r in team["searcher"]),
+           "train_step": {"seconds": secs, "launches": counts,
+                          **{k: m[k] for k in ("actor/loss", "actor/grad_norm") if k in m}}}
+    del state
+    bad = [k for k in TRAIN_KERNELS if not counts[k]]
+    if not (out["rows"] == {"planner": 4, "searcher": 8, "summarizer": 4}
+            and metrics["agent/failed_turns_masked"] > 0 and out["searcher_results"] > 0):
+        bad.append("team")
+    bad += [k for k in ("actor/loss", "actor/grad_norm") if not np.isfinite(m.get(k, np.nan))]
+    out["bad"] = bad
+    return out
+
+
+@contextlib.contextmanager
+def watching_train_steps(runner, record: dict):
+    """Keep the runner's first train step's batch and a copy of the state
+    it started from, and every step's batch shape."""
+    real = runner.train_step
+
+    def step(state, batch):
+        if "batch" not in record:
+            record["batch"], record["state"] = batch, clone_tree(state)
+        record.setdefault("shapes", []).append(tuple(batch["input_ids"].shape))
+        return real(state, batch)
+
+    runner.train_step = step
+    try:
+        yield
+    finally:
+        runner.train_step = real
+
+
+def recipes_shadow(runner, record: dict, kerns) -> dict:
+    """Step 6: the runner's first batch, with every training kernel replaced
+    by its plain version and then with the kernels: its logprobs on the
+    params that rolled it out, and their drift from the engine's behaviour
+    logprobs (``DRIFT_BAR``); a train step on it from the runner's last
+    state, both ways from one copy (``SHADOW_BARS``). The last state, not
+    the first: the yaml's warmup gives the first update a learning rate of
+    0, which would leave the updates' bar nothing to compare."""
+    from rlinf_tpu_torch.training.learner import make_logprob_fn
+
+    batch, start, params1 = record["batch"], clone_tree(runner.state), record["state"].params
+    mask = batch["loss_mask"].bool()
+    old = batch["old_logprobs"].float()
+    logprob_fn = make_logprob_fn(runner.cfg.model, attn_impl=runner.cfg.attn_impl, device="cuda")
+    runs = {}
+    for mode in ("plain", "kernels"):
+        state, updates = clone_tree(start), []
+        with (kernels_replaced(plain_only, _training_sites()) if mode == "plain"
+              else contextlib.nullcontext()):
+            lp = logprob_fn(params1, batch)[0].float()
+            with summing_updates(updates):
+                (state, m), secs, counts = run_counted(kerns, lambda: runner.train_step(state, batch))
+        d = (lp - old).abs()[mask]
+        runs[mode] = dict(m={k: float(v) for k, v in m.items()}, state=state, lp=lp,
+                          updates=updates[0], counts=counts, seconds=secs,
+                          drift={"mean_abs": d.mean().item(), "max_abs": d.max().item(),
+                                 "tokens": int(mask.sum())})
+        del state
+    k, p = runs["kernels"], runs["plain"]
+    out = {"rows": int(batch["input_ids"].shape[0]), "T": int(batch["input_ids"].shape[1]),
+           "logprob_max_abs": (k["lp"] - p["lp"]).abs()[mask].max().item(),
+           "loss": [k["m"]["actor/loss"], p["m"]["actor/loss"]],
+           "loss_abs": abs(k["m"]["actor/loss"] - p["m"]["actor/loss"]),
+           "grad_norm": [k["m"]["actor/grad_norm"], p["m"]["actor/grad_norm"]],
+           "grad_norm_rel": abs(k["m"]["actor/grad_norm"] - p["m"]["actor/grad_norm"])
+                            / max(p["m"]["actor/grad_norm"], 1e-30),
+           "first_moment_rel": norm_rel(k["state"].opt_state["mu"], p["state"].opt_state["mu"]),
+           "update_rel": norm_rel(k["updates"], p["updates"]),
+           "update_norm": [tree_norm(k["updates"]), tree_norm(p["updates"])],
+           "seconds": [k["seconds"], p["seconds"]], "kernel_launches": k["counts"],
+           "logprob_drift_step1": {"kernels": k["drift"], "plain": p["drift"], "bar": DRIFT_BAR},
+           "bars": SHADOW_BARS}
+    bad = [n for n, bar in SHADOW_BARS.items() if not out[n] < bar]
+    bad += [f"drift {side} {n}" for side in ("kernels", "plain")
+            for n, bar in DRIFT_BAR.items() if not out["logprob_drift_step1"][side][n] < bar]
+    if [n for n in TRAIN_KERNELS if k["counts"][n]] != list(TRAIN_KERNELS) or any(
+            p["counts"].values()):
+        bad.append(f"launches {k['counts']} / plain {p['counts']}")
+    if not (p["m"]["actor/grad_norm"] > 0 and min(out["update_norm"]) > 0):
+        bad.append("zero gradient or update")
+    out["bad"] = bad
+    return out
+
+
+#: a kernel's record in a torch.profiler (Kineto) Chrome trace: its name
+#: and its device duration in us
+TRACE_KERNEL = re.compile(rb'"cat": "kernel",\s*"name": "([^"]*)".*?"dur": ([0-9.eE+-]+)', re.S)
+
+
+def traced_kernels(path: str) -> dict:
+    """K1's and K2's launches and device ms in a Chrome trace file, by their
+    source names, and the kernels it holds. The file is scanned as bytes:
+    the profile's ``key_averages()`` would first build a Python event for
+    each of the trace's hundreds of thousands of records."""
+    import mmap
+
+    out = {name: {"kernel": src, "launches_traced": 0, "device_ms": 0.0}
+           for name, src in PROFILED_KERNELS.items()}
+    total = 0
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+        for m in TRACE_KERNEL.finditer(mm):
+            total += 1
+            for name, src in PROFILED_KERNELS.items():
+                if src.encode() in m.group(1):
+                    out[name]["launches_traced"] += 1
+                    out[name]["device_ms"] += float(m.group(2)) / 1e3
+    out["kernels_traced"] = total
+    return out
+
+
+def agent_recipes_phase(kerns, gpu, seed) -> dict:
+    """Phase 25: the agent recipes and the AgentLightning runner at
+    Qwen2.5-0.5B's full width and depth (grpo_math_qwen05b.yaml, random
+    weights from ``seed``), steps 1-5 with the launch counts zeroed before
+    them and read after, then the kernels-against-plain step -> launches."""
+    import shutil
+
+    from rlinf_tpu_torch.algorithms.rewards.qa_metrics import batch_f1_rewards
+    from rlinf_tpu_torch.config import load_config
+    from rlinf_tpu_torch.runners.agentlightning_runner import AgentLightningRunner
+    from rlinf_tpu_torch.utils.flops import ChipSpec, train_mfu
+    from rlinf_tpu_torch.utils.profiler import ProfilerConfig, StepProfiler
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "agent_recipes"
+    shutil.rmtree(work, ignore_errors=True)
+    cfg = load_config(str(HERE / RUNNER_YAML), [*RECIPES_REDUCED, f"runner.seed={seed}",
+                                                "runner.log_dir=null", "runner.checkpoint_dir=null"])
+    try:
+        import sympy  # noqa: F401  (the math verifier's symbolic rung)
+        has_sympy = True
+    except ImportError:
+        has_sympy = False
+    out = {"phase": "agent_recipes", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
+           "reduced": RECIPES_REDUCED, "sympy": has_sympy}
+    for kern in kerns.values():
+        kern.launches = 0
+    torch.cuda.synchronize()
+    t_main = time.perf_counter()
+
+    # 1. the rStar2 dataset, and the runner (its engine and params serve
+    # every recipe)
+    data, hf_tok, out["dataset"] = recipes_dataset(work, cfg, seed)
+    calls = []
+
+    def agent_fn(complete, task):
+        """The user's agent: two completions a task (a templated prompt of
+        500+ tokens, then a check), a reward for two tasks in three, None
+        for the third (the fallback reward_fn scores it)."""
+        n = len(calls)
+        a = complete(task.prompt)
+        b = complete("Check the answer to: " + task.meta["question"])
+        calls.append((len(a), len(b)))
+        return None if n % 3 == 2 else float(n % 2)
+
+    def fallback(texts, answers):
+        # the dataset's answers are lists (the reference's coercion)
+        return batch_f1_rewards(texts, [a[0] if isinstance(a, list) else a for a in answers])
+
+    runner = AgentLightningRunner(cfg, hf_tok, data, agent_fn, reward_fn=fallback, device="cuda")
+    out["runner"] = {"layers": runner.cfg.model.num_layers, "attn_impl": runner.cfg.attn_impl,
+                     "entry": "rlinf_tpu_torch.runners.agentlightning_runner."
+                              "AgentLightningRunner.run_step"}
+    gen = torch.Generator().manual_seed(seed)
+    params = runner.state.params
+
+    # 2-4. Search-R1, rStar2, WideSeek-R1 on the runner's engine and params
+    out["searchr1"] = searchr1_step(runner, params, gen)
+    out["rstar2"] = rstar2_step(runner, params, gen)
+    out["wideseek"] = wideseek_step(runner, params, gen, kerns)
+
+    # 5. two runner steps, the second under the StepProfiler
+    record = {}
+    prof = StepProfiler(ProfilerConfig(enabled=True, output_dir=str(work / "profile"),
+                                       start_step=1, num_steps=1))
+    steps = []
+    chip = ChipSpec.h100()
+    with watching_train_steps(runner, record):
+        for i in range(2):
+            prof.step_start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = runner.run_step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prof.step_end()
+            stop_s = time.perf_counter() - t0
+            B, T = record["shapes"][i]
+            steps.append({**{k: h[k] for k in sorted(h) if k.startswith(("agent/", "time/", "actor/"))},
+                          "wall_s": wall, "profiled": i == 1, "batch_shape": [B, T],
+                          "train_mfu_h100": train_mfu(runner.cfg.model, chip, B, T,
+                                                      h["time/training"])})
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    main_counts = {name: kern.launches for name, kern in kerns.items()}
+    t0 = time.perf_counter()
+    trace = traced_kernels(prof.trace_path)
+    out["agentlightning"] = {"steps": steps, "tasks_a_step": len(calls) // 2,
+                             "completions": 2 * len(calls),
+                             "trace": {"file": Path(prof.trace_path).name,
+                                       "megabytes": Path(prof.trace_path).stat().st_size / 1e6,
+                                       "stop_and_write_s": stop_s,
+                                       "read_s": time.perf_counter() - t0, **trace}}
+    out["launches"] = main_counts
+    out["main_seconds"] = main_s
+
+    # 6. the first runner step's batch again, kernels against plain
+    t0 = time.perf_counter()
+    out["shadow"] = recipes_shadow(runner, record, kerns)
+    out["shadow"].update(optimizer_step_from=runner.global_step,
+                         seconds_all=time.perf_counter() - t0)
+    del record, prof
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    bad = [f"{k}: {b}" for k in ("searchr1", "rstar2", "wideseek", "shadow") for b in out[k]["bad"]]
+    bad += [f"{k} not launched" for k in RUNNER_KERNELS if not main_counts[k]]
+    bad += [f"{k} launched" for k, c in main_counts.items() if c and k not in RUNNER_KERNELS]
+    ds = out["dataset"]
+    if not (0 < ds["kept"] < ds["rows"] and ds["tools_in_every_prompt"]
+            and ds["kept_prompt_tokens"]["min"] >= 128):
+        bad.append(f"dataset {ds}")
+    al = out["agentlightning"]
+    if not (len(steps) == 2 and al["tasks_a_step"] == 8
+            and all(s["agent/llm_calls_mean"] == 2.0 for s in steps)
+            and all(s["agent/external_reward_rate"] < 1.0 for s in steps)
+            and all(np.isfinite(s["actor/loss"]) and np.isfinite(s["actor/grad_norm"])
+                    for s in steps)):
+        bad.append("agentlightning steps")
+    if not all(v["launches_traced"] > 0 for k, v in al["trace"].items() if k in PROFILED_KERNELS):
+        bad.append(f"trace {al['trace']}")
+    del runner, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"agent_recipes phase failed: {bad}")
+    return main_counts
 
 
 # ---------------------------------------------------------------------------
@@ -5314,6 +5859,11 @@ def main() -> int:
                    moe_phase(kerns, gpu, peaks, args.seed)):
         for k, c in counts.items():
             launches[k] += c
+
+    # 25. the agent recipes (Search-R1, rStar2, WideSeek-R1) and the
+    # AgentLightning runner
+    for k, c in agent_recipes_phase(kerns, gpu, args.seed).items():
+        launches[k] += c
 
     results += new_results
     for r in results:

@@ -1,7 +1,8 @@
-"""Name -> function registries for advantage estimators and policy losses.
+"""Name -> function registries for advantage estimators, policy losses and
+reward functions.
 
 The port's copy of ``rlinf_tpu/algorithms/registry.py``: configs select
-estimators and losses by the same names in both packages.
+estimators, losses and rewards by the same names in both packages.
 """
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from typing import Callable, Dict
 
 _ADVANTAGE_REGISTRY: Dict[str, Callable] = {}
 _POLICY_LOSS_REGISTRY: Dict[str, Callable] = {}
+_REWARD_REGISTRY: Dict[str, Callable] = {}
 
 
 def register_advantage(name: str):
@@ -47,4 +49,21 @@ def get_policy_loss_fn(name: str) -> Callable:
     except KeyError:
         raise KeyError(
             f"Unknown policy loss {name!r}; have {sorted(_POLICY_LOSS_REGISTRY)}"
+        ) from None
+
+
+def register_reward(name: str):
+    def deco(fn):
+        _REWARD_REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def get_reward_fn(name: str) -> Callable:
+    try:
+        return _REWARD_REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"Unknown reward fn {name!r}; have {sorted(_REWARD_REGISTRY)}"
         ) from None

@@ -544,15 +544,20 @@ class HFTokenizer:
             text = clean_up_tokenization(text)
         return text
 
-    def apply_chat_template(self, messages, add_generation_prompt: bool = True) -> List[int]:
-        """The ids (no special tokens added) of ``messages`` rendered with the
-        chat template in transformers' jinja environment."""
+    def apply_chat_template(self, messages, add_generation_prompt: bool = True, *,
+                            tools=None, tokenize: bool = True):
+        """``messages`` rendered with the chat template in transformers'
+        jinja environment: the ids (no special tokens added), or with
+        ``tokenize=False`` the text. ``tools`` is a list of JSON schemas
+        (dicts) that the template renders, as transformers passes them."""
         if not self.chat_template:
             raise ValueError("the tokenizer has no chat_template")
+        if tools is not None and not all(isinstance(t, dict) for t in tools):
+            raise ValueError("tools must be JSON schemas (dicts)")
         text = _compile_template(self.chat_template).render(
-            messages=messages, tools=None, documents=None,
+            messages=messages, tools=None if tools is None else list(tools), documents=None,
             add_generation_prompt=add_generation_prompt, **self.special_tokens_map)
-        return self.encode(text, add_special_tokens=False)
+        return self.encode(text, add_special_tokens=False) if tokenize else text
 
 
 def clean_up_tokenization(text: str) -> str:

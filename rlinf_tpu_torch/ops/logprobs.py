@@ -5,8 +5,8 @@ chunked plain path never holds more than [B, chunk, V] logits and
 recomputes each chunk in the backward (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` there). On a CUDA device the dispatcher takes the fused
 kernels K5/K6 (``ops/cuda/linear_ce.py``), which hold no [rows, V] logits
-in the forward at all. ``vocab_parallel_logprobs_and_entropy`` comes with
-the parallel slice.
+in the forward at all. ``vocab_parallel_logprobs_and_entropy`` (a
+tensor-parallel reduction over a mesh) comes with the parallel slice.
 """
 
 from __future__ import annotations
@@ -34,6 +34,13 @@ def logprobs_and_entropy_from_logits(
     probs = torch.softmax(logits, dim=-1)
     entropy = lse - (probs * logits).sum(-1)
     return target_logit - lse, entropy
+
+
+def token_logprobs_from_logits(
+    logits: torch.Tensor, target_ids: torch.Tensor, temperature: float = 1.0
+) -> torch.Tensor:
+    """The logprob of ``target_ids`` in float32, on the logits' device."""
+    return logprobs_and_entropy_from_logits(logits, target_ids, temperature)[0]
 
 
 def fused_linear_logprobs_and_entropy(

@@ -1,9 +1,8 @@
-"""Metric logging (console and jsonl) and the rollout statistics.
+"""Metric logging: console + jsonl + TensorBoard/wandb/swanlab backends,
+and the rollout statistics.
 
 The port's own copy of ``rlinf_tpu/utils/metrics.py``. A metric may be a
-Python number, a numpy scalar or a tensor on any device. The JAX package's
-TensorBoard, wandb and swanlab backends are not ported: no field of the
-port's config selects one yet.
+Python number, a numpy scalar or a tensor on any device.
 """
 
 from __future__ import annotations
@@ -11,7 +10,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,16 +24,77 @@ def _scalar(v) -> float:
 
 
 class MetricLogger:
-    """Writes each step's scalars to ``<log_dir>/metrics.jsonl`` (when
-    ``log_dir`` is set) and to the console every ``print_every`` steps."""
+    """Multiplexing metric logger.
 
-    def __init__(self, log_dir: Optional[str] = None, print_every: int = 1):
+    ``backends``: any of "tensorboard", "wandb", "swanlab" (reference
+    ``runner.logger.logger_backends``). Each backend is import-gated: a
+    missing package logs a one-line warning (TensorBoard: nothing) and is
+    skipped, so headless machines run identically. jsonl + console are
+    always on when ``log_dir`` is set.
+    """
+
+    supported_backends = ("tensorboard", "wandb", "swanlab")
+
+    def __init__(
+        self,
+        log_dir: Optional[str] = None,
+        use_tensorboard: bool = False,
+        print_every: int = 1,
+        backends: Sequence[str] = (),
+        project_name: str = "rlinf_tpu",
+        experiment_name: str = "default",
+        config: Optional[Dict] = None,
+    ):
         self.log_dir = log_dir
         self.print_every = print_every
         self._jsonl = None
+        self._tb = None
+        self._wandb = None
+        self._swanlab = None
+        backends = list(backends)
+        if use_tensorboard and "tensorboard" not in backends:
+            backends.append("tensorboard")
+        unknown = set(backends) - set(self.supported_backends)
+        if unknown:
+            raise ValueError(
+                f"Unsupported logger backend(s): {sorted(unknown)}; "
+                f"supported: {self.supported_backends}"
+            )
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+            if "tensorboard" in backends:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+
+                    self._tb = SummaryWriter(log_dir)
+                except Exception:
+                    self._tb = None
+            if "wandb" in backends:
+                try:
+                    import wandb
+
+                    wandb.init(
+                        project=project_name, name=experiment_name,
+                        config=config or {},
+                        dir=os.path.join(log_dir, "wandb"),
+                    )
+                    self._wandb = wandb
+                except Exception as e:  # noqa: BLE001
+                    print(f"[metrics] wandb backend unavailable: {e}")
+            if "swanlab" in backends:
+                try:
+                    import swanlab
+
+                    swanlab.init(
+                        project=project_name,
+                        experiment_name=experiment_name,
+                        config=config or {},
+                        logdir=os.path.join(log_dir, "swanlab"),
+                    )
+                    self._swanlab = swanlab
+                except Exception as e:  # noqa: BLE001
+                    print(f"[metrics] swanlab backend unavailable: {e}")
 
     def log(self, metrics: Dict, step: int):
         scalars = {}
@@ -48,6 +108,13 @@ class MetricLogger:
                 json.dumps({"step": step, "time": time.time(), **scalars}) + "\n"
             )
             self._jsonl.flush()
+        if self._tb:
+            for k, v in scalars.items():
+                self._tb.add_scalar(k, v, step)
+        if self._wandb:
+            self._wandb.log(scalars, step=step)
+        if self._swanlab:
+            self._swanlab.log(scalars, step=step)
         if self.print_every and step % self.print_every == 0:
             parts = " ".join(f"{k}={v:.4g}" for k, v in sorted(scalars.items()))
             print(f"[step {step}] {parts}", flush=True)
@@ -55,6 +122,12 @@ class MetricLogger:
     def close(self):
         if self._jsonl:
             self._jsonl.close()
+        if self._tb:
+            self._tb.close()
+        if self._wandb:
+            self._wandb.finish()
+        if self._swanlab:
+            self._swanlab.finish()
 
 
 def rollout_metrics(

@@ -547,6 +547,72 @@ def test_serving_and_agent_modules_are_held_by_the_rules(rel):
     test_public_device_parameters_default_to_the_card(path)
 
 
+def test_chip_smoke_reads_k1_and_k2_from_a_step_trace_by_the_source_names(tmp_path):
+    """Phase 25 counts K1's and K2's launches in a StepProfiler trace by
+    kernel name: each name is a __global__ kernel of its source, and the
+    trace reader counts a Kineto-style file's kernel records by them (and
+    no runtime record)."""
+    import json
+
+    cs = _chip_smoke()
+    sources = {"flash_attention_fwd": "flash_attention_fwd.cu",
+               "decode_attention_bf16": "decode_attention.cu"}
+    assert set(cs.PROFILED_KERNELS) == set(sources)
+    for name, kernel in cs.PROFILED_KERNELS.items():
+        cu = (PORT / "csrc" / sources[name]).read_text()
+        assert re.search(rf"__global__ void (?:__launch_bounds__\([^)]*\) )?{kernel}\(", cu), kernel
+
+    def ev(cat, name, dur):
+        return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 7, "ts": 1.5, "dur": dur,
+                "args": {"grid": [1, 2, 3], "external id": 9}}
+
+    events = [ev("kernel", "void (anonymous namespace)::flash_fwd_kernel<64, false>(A)", 10.5),
+              ev("cuda_runtime", "cudaLaunchKernel flash_fwd_kernel", 3.0),
+              ev("kernel", "void (anonymous namespace)::decode_bf16_split_kernel<64>(A)", 2.0),
+              ev("kernel", "void (anonymous namespace)::decode_bf16_split_kernel<64>(A)", 4.25),
+              ev("kernel", "void at::native::elementwise_kernel<128, 4>(int)", 1.0)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"schemaVersion": 1, "traceEvents": events}, indent=4))
+    got = cs.traced_kernels(str(path))
+    assert got["kernels_traced"] == 4
+    assert got["flash_attention_fwd"]["launches_traced"] == 1
+    assert got["flash_attention_fwd"]["device_ms"] == pytest.approx(0.0105)
+    assert got["decode_attention_bf16"]["launches_traced"] == 2
+    assert got["decode_attention_bf16"]["device_ms"] == pytest.approx(0.00625)
+
+
+# the agent-recipe slice and the small LLM-side modules, as the JAX package
+# names them
+RECIPE_AND_SMALL_MODULES = (
+    "algorithms/rewards/qa_metrics.py", "algorithms/rewards/rstar2_score.py",
+    "algorithms/registry.py", "algorithms/loss_scales.py", "data/datasets.py",
+    "data/down_sampling.py", "data/priority_store.py", "agents/retrieval.py",
+    "agents/rstar2.py", "agents/recipes.py", "runners/agentlightning_runner.py",
+    "models/__init__.py", "ops/__init__.py", "data/__init__.py", "ops/logprobs.py",
+    "utils/flops.py", "utils/profiler.py", "utils/parity.py", "utils/metrics.py")
+
+
+@pytest.mark.parametrize("rel", RECIPE_AND_SMALL_MODULES)
+def test_recipe_and_small_modules_are_held_by_the_rules(rel):
+    """Each module exists, is among the files the import and device rules
+    walk, imports no JAX, nothing of the JAX package and no HF package, and
+    its public ``device`` parameters default to the card."""
+    path = PORT / rel
+    assert path in FILES and path in sorted(PORT.rglob("*.py"))
+    test_no_jax_or_reference_imports(path)
+    test_no_hf_package_imports(path)
+    test_public_device_parameters_default_to_the_card(path)
+
+
+def test_agentlightning_runner_takes_the_card_by_default():
+    """The runner's ``device`` is the card unless the caller asks for the CPU."""
+    import inspect
+
+    from rlinf_tpu_torch.runners.agentlightning_runner import AgentLightningRunner
+
+    assert inspect.signature(AgentLightningRunner).parameters["device"].default == "cuda"
+
+
 @pytest.mark.parametrize("module", ["main_agent_grpo", "serve_openai"])
 def test_new_entry_points_run_on_the_card_by_default(module):
     import importlib
