@@ -138,14 +138,14 @@ Then server mode and agentic rollout:
    (``--preset qwen2_1_5b``: bf16, 32 slots, K2 alone) answers 8 HTTP
    requests and ``APIRewardClient`` scores 8 payloads against it.
 15. coding_online: ``CodingOnlineRunner`` on grpo_math_qwen05b.yaml with
-   the decoupled loss at full width and depth, the runner phase's traffic
-   (``CODING_REDUCED``), 64 coding tasks with I/O tests, 3 overlapped
+   the decoupled loss at full width, 12 of the 24 layers (``CODING_CUT``),
+   the runner phase's traffic (``CODING_REDUCED``), 64 coding tasks with I/O tests, 3 overlapped
    online steps; rewards from the code-execution verifier plus
    ``text_rule``. Gates: the verifier scored every response; param version
    4, lag <= 2; finite metrics; params moved; K1, K2 and K5-K8 launched and
    no other kernel.
-16. agent: ``AgentRunner`` at Qwen2.5-0.5B's widths and depth
-   (``AGENT_REDUCED``): ``CalculatorTool``, a scripted call in each
+16. agent: ``AgentRunner`` at Qwen2.5-0.5B's widths, 12 of its 24 layers
+   (``AGENT_CUT``, ``AGENT_REDUCED``): ``CalculatorTool``, a scripted call in each
    conversation's first turn, 2 turns, 64 conversations, 2 steps,
    ``agent_rule`` rewards. Gates: every conversation has its two turns,
    the observation tokens masked off with logprob 0; params moved; K1, K2
@@ -170,7 +170,7 @@ the small models' default runs, and PPO with a learned critic:
    HTTP requests; launch counts shown, K5, K6 and a decode kernel gated.
 19. critic: ppo_separate_critic.yaml as shipped (Hd=32, bf16) for 3 steps
    with ``critic_warmup_steps=1``; then grpo_math_qwen05b.yaml's model at
-   full width, 12 of its 24 layers (``CRITIC_CUT``), as PPO with a learned
+   full width, 6 of its 24 layers (``CRITIC_CUT``), as PPO with a learned
    critic (``CRITIC_OVERRIDES``, cut as ``CRITIC_REDUCED``), once with a
    separate critic and once with
    the shared value head, 3 steps each. Gates: K1, K2 and K5-K8 launched,
@@ -190,7 +190,7 @@ Then adafactor and selective recompute, LoRA and SFT:
    and backward under each, the two forms' gradients on one microbatch
    bitwise equal or within ``SHADOW_BARS``.
 21. lora: ``main_grpo`` on grpo_math_qwen05b.yaml in LoRA mode
-   (``LORA_OVERRIDES``, rank 16, the runner phase's cut, 12 of the 24
+   (``LORA_OVERRIDES``, rank 16, the runner phase's cut, 6 of the 24
    layers: ``LORA_CUT``) for 3 steps; then a
    runner with ``text_rule`` rewards for 3 steps. Gates: the base params
    bitwise the init's, the adapters' b moved, every rollout's params
@@ -223,7 +223,7 @@ Then Hugging Face checkpoints and the MoE model family:
    ``jinja2`` (also in the ``device`` line).
 24. moe: ``main_grpo`` on grpo_math_qwen05b.yaml with the model of
    ``LLMConfig.qwen3_moe_2b`` (``MOE_OVERRIDES``: 32 experts, top-2, expert
-   ffn 768, D=1024, Hd=64, G=4; full width, 12 of its 24 layers
+   ffn 768, D=1024, Hd=64, G=4; full width, 4 of its 24 layers
    (``MOE_CUT``), byte tokenizer) at the runner phase's cut: capacity routing for 2 steps and a
    shadow check on its params (one microbatch's loss and gradients, kernels
    against plain on the plain run's routing, ``MOE_SHADOW_BARS``; the free
@@ -233,7 +233,8 @@ Then Hugging Face checkpoints and the MoE model family:
 
 Last, the agent recipes and the AgentLightning runner:
 
-25. agent_recipes: at grpo_math_qwen05b.yaml's model, full width and depth
+25. agent_recipes: at grpo_math_qwen05b.yaml's model, full width, 8 of its
+   24 layers (``RECIPES_CUT``)
    (Qwen2.5-0.5B, random weights from --seed), cut as ``RECIPES_REDUCED``,
    the launch counts zeroed before steps 1-5 and read after them: (1) a
    jsonl of gsm_synth problems through ``create_rl_dataset(type="rstar2")``
@@ -260,6 +261,29 @@ Last, the agent recipes and the AgentLightning runner:
    (``SHADOW_BARS``), and its logprob drift from the behaviour logprobs,
    both ways (``DRIFT_BAR``). Also whether ``sympy`` imports.
 
+Last, the mesh, across processes:
+
+26. mesh_drill: ``python -m rlinf_tpu_torch.multiprocess_runner_drill
+   --device cuda --num-processes 4 --model qwen2_0_5b`` at DRILL_CUT's
+   depth: 4 ranks that share the one card over gloo, grpo_math_qwen05b.yaml's
+   model (Qwen2.5-0.5B's widths, bf16, random weights). Phase A: 3 GRPO
+   steps of ``ReasoningRunner(mesh=)`` on a data=1 x fsdp=2 x tensor=2 mesh
+   (a checkpoint at step 2), step 1 held against a world-1 runner on the
+   same rollout and weights (loss and grad norm within the drill's
+   ``TOLERANCE``); B: new processes resume from the checkpoint to step 5;
+   C: ``DisaggregatedReasoningRunner`` with the actor on ranks {0, 2} and the
+   rollout on {1, 3}, 2 steps, the rollout's weights equal to the actor's
+   after each sync. Before the drill, in this process, K1, K7 + K8, K2 and
+   K3 are held against their plain versions at a rank's local shapes (a
+   tensor=2 shard's 7 query heads on 1 kv head, Hd 64, 8 rows of 24
+   tokens, ``drill_local_kernels``) at the bars of phases 2 and 4. Gates
+   (the drill's and this phase's): those checks; losses bitwise
+   equal across ranks in A, B and C; B resumed from A; every rank's
+   launches in A and B show K1, K2, K4, K5, K6, K7 and K8. Reported: each
+   rank's step seconds, the weight sync's seconds and bytes, all-reduces
+   per step, each rank's peak memory. These are times of gloo between
+   processes that share one card: they say nothing of NCCL on several.
+
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures (each with its timed ``variants`` of
 phase 17), and ``{"ok": true, "device": ...}``.
@@ -274,7 +298,9 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -1326,14 +1352,14 @@ def ragged_rows(B, T, left):
     return valid, pos
 
 
-def flash_fwd_ragged(randn) -> dict:
-    """K1 against its plain version at RAGGED_ATTENTION, at the main
-    check's bar (o and lse max-abs error < 2e-2); the row with no valid key
-    must give exactly 0."""
+def flash_fwd_ragged(randn, cases=RAGGED_ATTENTION) -> dict:
+    """K1 against its plain version at ``cases``, at the main check's bar
+    (o and lse max-abs error < 2e-2); the row with no valid key must give
+    exactly 0."""
     from rlinf_tpu_torch.ops.cuda import flash_attention as FA
 
     out = {}
-    for B, T, H, Kv, Hd, left in RAGGED_ATTENTION:
+    for B, T, H, Kv, Hd, left in cases:
         valid, pos = ragged_rows(B, T, left)
         vu8 = valid.to(torch.uint8)
         q, k, v = randn(B, T, H, Hd), randn(B, T, Kv, Hd), randn(B, T, Kv, Hd)
@@ -1350,12 +1376,12 @@ def flash_fwd_ragged(randn) -> dict:
     return out
 
 
-def flash_bwd_ragged(randn) -> dict:
-    """K7 + K8 against their plain version at RAGGED_ATTENTION, at the main
+def flash_bwd_ragged(randn, cases=RAGGED_ATTENTION) -> dict:
+    """K7 + K8 against their plain version at ``cases``, at the main
     check's bar (relative error < 2e-2 on dq, dk, dv); the gradients of the
     row with no valid key must be exactly zero."""
     out = {}
-    for B, T, H, Kv, Hd, left in RAGGED_ATTENTION:
+    for B, T, H, Kv, Hd, left in cases:
         valid, pos = ragged_rows(B, T, left)
         args = flash_bwd_inputs(randn, pos, valid, H, Kv, Hd)
         got, errs, _ = flash_bwd_errors(args)
@@ -2822,6 +2848,11 @@ SWAP_PROMPT, SWAP_NEW = 640, 16
 #: phase 4's bars: greedy token agreement, and the logprob error over the
 #: tokens up to each row's first difference
 SWAP_BARS = {"agree": 0.95, "lp_max_abs": 0.15}
+#: phases 15 and 16 run the model at half its depth (the runner phase runs
+#: all 24 layers of the same model), so that the whole script stays inside
+#: its time limit with phase 26
+CODING_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
+AGENT_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
 #: the coding phase: the runner phase's traffic cut, the loss online RL needs
 CODING_REDUCED = {**{k: v for k, v in RUNNER_REDUCED.items() if "save_interval" not in k},
                   "loss.loss_type=decoupled": "online RL trains against live-swapped "
@@ -3233,7 +3264,7 @@ def coding_online_phase(kerns, gpu, seed):
         ex = CV.batch_code_rewards(texts, answers, timeout_s=2.0, partial_credit=True)
         return [0.5 * e + 0.5 * t for e, t in zip(ex, text_rule(texts, answers))]
 
-    overrides = [*CODING_REDUCED, f"runner.seed={seed}", "runner.log_dir=null",
+    overrides = [*CODING_REDUCED, *CODING_CUT, f"runner.seed={seed}", "runner.log_dir=null",
                  "runner.checkpoint_dir=null"]
     t0 = time.perf_counter()
     runner = CodingOnlineRunner(load_config(str(HERE / RUNNER_YAML), overrides), ByteTokenizer(),
@@ -3250,7 +3281,7 @@ def coding_online_phase(kerns, gpu, seed):
     online = ("online/param_version", "online/version_lag")
     steps = [{k: h[k] for k in (*RUNNER_METRICS, *online) if k in h} for h in history]
     out = {"phase": "coding_online", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
-           "layers": runner.cfg.model.num_layers, "reduced": CODING_REDUCED,
+           "layers": runner.cfg.model.num_layers, "reduced": {**CODING_REDUCED, **CODING_CUT},
            "entry": "rlinf_tpu_torch.runners.CodingOnlineRunner.run", "tasks": len(tasks),
            "attn_impl": runner.cfg.attn_impl, "recompute_logprobs": runner.recompute_logprobs,
            "runner_build_s": build_s, "seconds": secs, "steps": steps, "verifier": calls,
@@ -3339,7 +3370,7 @@ def agent_phase(kerns, gpu, seed):
     from rlinf_tpu_torch.runners.agent_runner import AgentRunner
     from rlinf_tpu_torch.runners.eval_runner import evaluate_reasoning
 
-    overrides = [*AGENT_REDUCED, f"runner.seed={seed}", "runner.log_dir=null",
+    overrides = [*AGENT_REDUCED, *AGENT_CUT, f"runner.seed={seed}", "runner.log_dir=null",
                  "runner.checkpoint_dir=null"]
     loop_cfg = AgentLoopConfig(max_turns=2, max_total_len=512)
     runner = AgentRunner(load_config(str(HERE / RUNNER_YAML), overrides), ByteTokenizer(),
@@ -3360,7 +3391,7 @@ def agent_phase(kerns, gpu, seed):
             "actor/grad_norm", "actor/approx_kl", "agent/reward_mean", "agent/num_turns_mean",
             "agent/tool_calls_mean")
     out = {"phase": "agent", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
-           "layers": runner.cfg.model.num_layers, "reduced": AGENT_REDUCED,
+           "layers": runner.cfg.model.num_layers, "reduced": {**AGENT_REDUCED, **AGENT_CUT},
            "entry": "rlinf_tpu_torch.runners.AgentRunner.run", "attn_impl": runner.cfg.attn_impl,
            "conversations": [len(r) for r in record], "seconds": secs,
            "tokens_per_conversation": {"min": min(lens), "mean": float(np.mean(lens)),
@@ -3562,7 +3593,8 @@ CRITIC_REDUCED = {
 #: the critic runs at half the model's depth (the runner phase runs all 24
 #: layers of the same model), so that the whole script stays well inside
 #: its time limit
-CRITIC_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
+CRITIC_CUT = {"model.num_layers=6": "6 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                     "(12 until phase 26 came)"}
 CRITIC_KERNELS = ("flash_attention_fwd", "decode_attention_bf16", "linear_ce_fwd",
                   "linear_ce_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # the shadow steps: one critic step (separate) and one actor-critic step
@@ -3882,7 +3914,8 @@ LORA_HEAD_TARGETS = "lora.targets=[wq,wk,wv,wo,gate,up,down,lm_head]"
 #: the LoRA runs at half the model's depth (the runner phase runs all 24
 #: layers of the same model), so that the whole script stays well inside
 #: its time limit
-LORA_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
+LORA_CUT = {"model.num_layers=6": "6 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                   "(12 until phase 26 came)"}
 
 
 @contextlib.contextmanager
@@ -4513,8 +4546,8 @@ def hf_checkpoints_phase(kerns, gpu, seed) -> dict:
 #: grpo_math_qwen05b.yaml's model section replaced by LLMConfig.qwen3_moe_2b's
 #: widths (32 experts, top-2, expert ffn 768, D=1024) at the depth of MOE_CUT
 #: (the model has 24 layers)
-MOE_CUT = {"model.num_layers=12": "12 of qwen3_moe_2b's 24 layers, so that the whole script "
-                                  "stays well inside its time limit"}
+MOE_CUT = {"model.num_layers=4": "4 of qwen3_moe_2b's 24 layers, so that the whole script "
+                                 "stays inside its time limit (12 until phase 26 came)"}
 MOE_OVERRIDES = (
     "model.vocab_size=151936", "model.hidden_size=1024", "model.intermediate_size=768",
     *MOE_CUT, "model.num_heads=16", "model.num_kv_heads=4", "model.head_dim=64",
@@ -4730,6 +4763,10 @@ def moe_phase(kerns, gpu, peaks, seed) -> dict:
 # Phase 25: the agent recipes and the AgentLightning runner
 # ---------------------------------------------------------------------------
 
+#: phase 25 runs the model at a third of its depth (the runner phase runs
+#: all 24 layers of the same model), so that the whole script stays inside
+#: its time limit with phase 26
+RECIPES_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
 #: the AgentLightning runner's traffic, cut to a short run of
 #: grpo_math_qwen05b.yaml: each override and why
 RECIPES_REDUCED = {
@@ -5112,7 +5149,8 @@ def agent_recipes_phase(kerns, gpu, seed) -> dict:
     t_phase = time.perf_counter()
     work = HERE / "build" / "agent_recipes"
     shutil.rmtree(work, ignore_errors=True)
-    cfg = load_config(str(HERE / RUNNER_YAML), [*RECIPES_REDUCED, f"runner.seed={seed}",
+    cfg = load_config(str(HERE / RUNNER_YAML), [*RECIPES_REDUCED, *RECIPES_CUT,
+                                                f"runner.seed={seed}",
                                                 "runner.log_dir=null", "runner.checkpoint_dir=null"])
     try:
         import sympy  # noqa: F401  (the math verifier's symbolic rung)
@@ -5120,7 +5158,7 @@ def agent_recipes_phase(kerns, gpu, seed) -> dict:
     except ImportError:
         has_sympy = False
     out = {"phase": "agent_recipes", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
-           "reduced": RECIPES_REDUCED, "sympy": has_sympy}
+           "reduced": {**RECIPES_REDUCED, **RECIPES_CUT}, "sympy": has_sympy}
     for kern in kerns.values():
         kern.launches = 0
     torch.cuda.synchronize()
@@ -5535,6 +5573,110 @@ def variant_checks(peaks, seed) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: the mesh across processes (the multi-process runner drill)
+# ---------------------------------------------------------------------------
+
+#: phase 26 runs grpo_math_qwen05b.yaml's model (LLMConfig.qwen2_0_5b) at
+#: its full widths and this depth: four processes share the card, and every
+#: collective is a gloo all-reduce through the host
+DRILL_CUT = {"--num-layers=2": "2 of Qwen2.5-0.5B's 24 layers: the script's time limit (at 4 "
+                               "layers the phase took 127-143 s and whole runs 1,030-1,140 s)"}
+#: the kernels every rank of the collocated phases (A, B) must launch: K2
+#: is the static engine's bf16 cache (the drill's rollout.kv_quant is none)
+DRILL_KERNELS = ("flash_attention_fwd", "decode_attention_bf16", "fused_lmhead_sample",
+                 "linear_ce_fwd", "linear_ce_bwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
+
+
+def drill_local_kernels(seed) -> dict:
+    """K1, K7 + K8, K2 and K3 against their plain versions at the local
+    shapes a rank of the drill gives them: the heads of a tensor=2 shard of
+    Qwen2.5-0.5B (7 query heads on 1 kv head, Hd 64), a batch rank's rows of
+    the drill's rollout, its prompt bucket plus its new tokens. The bars are
+    the main checks' (phases 2 and 4); each case has a row with nothing
+    valid, which must give exactly 0."""
+    from rlinf_tpu_torch.multiprocess_runner_drill import mesh_config, trainer_config
+
+    cfg = trainer_config({"device": "cuda", "model": "qwen2_0_5b"}, None, 1)
+    mesh, m = mesh_config(4), cfg.model
+    H, Kv, Hd = m.num_heads // mesh.tensor, m.num_kv_heads // mesh.tensor, m.head_dim_
+    B = cfg.runner.rollout_batch_size * cfg.algorithm.group_size // (4 // mesh.tensor)
+    T = cfg.rollout.prompt_bucket + cfg.sampling.max_new_tokens
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+    attention = ((B, T, H, Kv, Hd, True),)               # left-padded prompts
+    # decode intervals [start, length) in a cache of T slots; the last row empty
+    starts = [int(x) for x in np.random.default_rng(seed).integers(0, T // 2, B - 1)] + [T]
+    lengths = [min(st + 1 + 2 * i, T) for i, st in enumerate(starts[:-1])] + [T]
+    decode = ((B, T, H, Kv, Hd, starts, lengths),)
+    return {"shapes": f"q[{B},{T},{H},{Hd}] k/v[{B},{T},{Kv},{Hd}] bf16",
+            "K1": flash_fwd_ragged(randn, attention), "K7_K8": flash_bwd_ragged(randn, attention),
+            "K2": decode_ragged(randn, decode, q8=False), "K3": decode_ragged(randn, decode, q8=True)}
+
+
+def mesh_drill_phase(kerns, gpu, seed) -> dict:
+    """Phase 26 (see the module docstring). Returns the launches of every
+    rank of phases A, B and C, summed."""
+    from rlinf_tpu_torch.config import load_config
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+
+    t_phase = time.perf_counter()
+    # the kernels at the ranks' shapes first, in this process (these
+    # launches are the checks', not the main path's: the drill counts its own)
+    local = drill_local_kernels(seed)
+    yaml_model = load_config(str(HERE / RUNNER_YAML), []).model
+    preset = LLMConfig.qwen2_0_5b()
+    if dataclasses.replace(yaml_model, max_seq_len=preset.max_seq_len) != preset:
+        raise AssertionError(f"qwen2_0_5b {preset} is not {RUNNER_YAML}'s model {yaml_model}")
+    work = HERE / "build" / "mesh_drill"
+    work.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, "-m", "rlinf_tpu_torch.multiprocess_runner_drill",
+           "--device", "cuda", "--num-processes", "4", "--model", "qwen2_0_5b",
+           *DRILL_CUT, "--workdir", str(work)]
+    # its own process group, so that a timeout ends the ranks it spawned too
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("the multi-process drill did not end within 600 s")
+    if proc.returncode != 0:
+        print(stdout[-4000:], stderr[-8000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"the multi-process drill failed (rc {proc.returncode})")
+    summary = json.loads([ln for ln in stdout.splitlines() if ln.startswith("{")][-1])
+    if not summary.get("ok"):
+        raise AssertionError(f"the drill reported failure: {summary}")
+    launches = dict.fromkeys(kerns, 0)
+    missing = {}
+    for phase in ("launches_a", "launches_b"):
+        for rank, counts in summary[phase].items():
+            lacking = [k for k in DRILL_KERNELS if counts.get(k, 0) == 0]
+            if lacking:
+                missing[f"{phase}/{rank}"] = lacking
+            for k, c in counts.items():
+                launches[k] += c
+    for rank, (_role, counts) in summary["launches_c"].items():
+        for k, c in counts.items():
+            launches[k] += c
+    out = {"phase": "mesh_drill", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
+           "reduced": DRILL_CUT, "transport": "gloo, 4 processes on one card",
+           "command": " ".join(cmd[1:]), "local_kernel_checks": local,
+           **{k: v for k, v in summary.items()
+                                           if not k.startswith("launches_")},
+           "launches": {k: summary[k] for k in ("launches_a", "launches_b", "launches_c")},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    if missing:
+        raise AssertionError(f"ranks that did not launch a kernel of the mesh path: {missing}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5863,6 +6005,13 @@ def main() -> int:
     # 25. the agent recipes (Search-R1, rStar2, WideSeek-R1) and the
     # AgentLightning runner
     for k, c in agent_recipes_phase(kerns, gpu, args.seed).items():
+        launches[k] += c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 26. the mesh: ReasoningRunner(mesh=) and the disaggregated runner,
+    # 4 processes on the card
+    for k, c in mesh_drill_phase(kerns, gpu, args.seed).items():
         launches[k] += c
 
     results += new_results

@@ -3,9 +3,11 @@
 Port of ``rlinf_tpu/config.py``: ``TrainerConfig`` and its groups, YAML
 loading with ``a.b=c`` overrides and the cross-field validators, so that one
 YAML file drives both packages. ``LoRAConfig`` lives in
-``models/llm/lora.py``, as in the JAX package. ``MeshConfig`` is the JAX
-package's fields only: the port has no mesh yet (a YAML's mesh block is
-validated and otherwise unused on one device).
+``models/llm/lora.py``, as in the JAX package. ``MeshConfig`` lives in
+``parallel/mesh.py`` (re-exported here): the mesh block of a YAML is
+validated here; the runners take a built mesh (``ReasoningRunner(mesh=)``),
+and ``main_grpo`` builds none, as in the JAX package. The expert and
+context axes wait for ROADMAP.md §A.9b.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Dict, Optional
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.lora import LoRAConfig
 from rlinf_tpu_torch.models.llm.sampler import SamplingParams
+from rlinf_tpu_torch.parallel.mesh import MeshConfig
 from rlinf_tpu_torch.training.learner import PolicyLossConfig
 from rlinf_tpu_torch.training.train_state import OptimizerConfig
 
@@ -89,17 +92,6 @@ class DataConfig:
     data_size: Optional[int] = None
     process_workers: int = 1
     process_batch_size: int = 256
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshConfig:
-    """Sizes of each logical axis; -1 absorbs the remaining devices."""
-
-    data: int = -1
-    fsdp: int = 1
-    tensor: int = 1
-    context: int = 1
-    expert: int = 1
 
 
 @dataclasses.dataclass(frozen=True)

@@ -182,3 +182,12 @@ def build_train_batch(
         old_logprobs=old_logprobs,
         advantages=advantages,
     )
+
+
+def split_for_dp(batch: TrainBatch, num_shards: int) -> List[TrainBatch]:
+    """Even DP split: shard i is rows [i B/n, (i + 1) B/n) of every field
+    (the row blocks the mesh's batch axes give the ranks, in order)."""
+    assert batch.input_ids.shape[0] % num_shards == 0
+    names = [f.name for f in dataclasses.fields(batch) if getattr(batch, f.name) is not None]
+    parts = zip(*(np.split(getattr(batch, n), num_shards) for n in names))
+    return [TrainBatch(**dict(zip(names, arrs))) for arrs in parts]

@@ -9,10 +9,22 @@ stacked along a leading [L, ...] axis and matmul weights are [D_in, D_out]
 (``convert.params_from_numpy`` turns a JAX param tree into this dict).
 Layers run as a Python loop where JAX used ``lax.scan``. All matmuls run in
 the config compute dtype with fp32 softmax/norm statistics.
+
+Under an active mesh (``parallel.mesh.use_mesh``) each leaf is this rank's
+block under ``partition_rules()`` and the forward is Megatron's: the
+column-parallel ``wq/wk/wv/gate/up`` give the rank's heads and columns
+(``local_config``), the row-parallel ``wo/down`` are followed by an
+all-reduce over the tensor axis, and the vocab-sharded ``embed`` is looked
+up with a mask and summed. An fsdp-sharded leaf is gathered one layer at a
+time before use, and its gradient reduce-scattered (``_gather_layer``);
+which dims a leaf's block splits is read from ``param_layout``.
+The lm-head kernels take the whole operand (``full_output_params``). The
+expert and context axes wait for ring attention and expert parallelism.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -38,9 +50,207 @@ from rlinf_tpu_torch.ops.cuda.decode_attention import (
 from rlinf_tpu_torch.ops.moe import moe_layer
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from rlinf_tpu_torch.parallel import collectives as C
+from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, current_mesh
+from rlinf_tpu_torch.parallel.sharding import P, Layout, sharded_axes
 from rlinf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, object]
+
+
+# ---------------------------------------------------------------------------
+# Partition rules and the mesh
+# ---------------------------------------------------------------------------
+
+def partition_rules():
+    """Megatron-style TP + fsdp sharding for the stacked-layer layout (the
+    JAX package's table)."""
+    t, f = Ax.TENSOR, Ax.FSDP
+    return [
+        (r"embed", P(t, f)),                 # vocab-sharded embedding table
+        (r"blocks/wq", P(None, f, t)),       # column parallel [L, D, H*Hd]
+        (r"blocks/wk", P(None, f, t)),
+        (r"blocks/wv", P(None, f, t)),
+        (r"blocks/bq", P(None, t)),
+        (r"blocks/bk", P(None, t)),
+        (r"blocks/bv", P(None, t)),
+        (r"blocks/wo", P(None, t, f)),       # row parallel [L, H*Hd, D]
+        (r"blocks/gate", P(None, f, t)),
+        (r"blocks/up", P(None, f, t)),
+        (r"blocks/down", P(None, t, f)),
+        (r"blocks/moe_router", P(None, f, None)),
+        (r"blocks/moe_gate", P(None, Ax.EXPERT, f, t)),
+        (r"blocks/moe_up", P(None, Ax.EXPERT, f, t)),
+        (r"blocks/moe_down", P(None, Ax.EXPERT, t, f)),
+        (r"blocks/attn_norm", P(None, None)),
+        (r"blocks/mlp_norm", P(None, None)),
+        (r"blocks/(q|k)_norm", P(None, None)),
+        (r"final_norm", P()),
+        (r"lm_head", P(f, t)),               # [D, V] vocab-sharded output
+    ]
+
+
+def check_mesh(cfg: LLMConfig, mesh) -> None:
+    """Raise unless the port's sharded forward takes ``cfg`` on ``mesh``:
+    the tensor axis must divide the heads, the kv heads and the MLP width
+    (the blocks are split by whole heads and columns); the expert and
+    context axes, and an MoE model under tensor or fsdp sharding, wait for
+    expert parallelism and ring attention (ROADMAP.md §A.9b)."""
+    if mesh is None:
+        return
+    for axis in (Ax.EXPERT, Ax.CONTEXT):
+        if mesh.size(axis) > 1:
+            raise NotImplementedError(
+                f"mesh.{axis} > 1 waits for the port's expert parallelism and ring "
+                "attention (ROADMAP.md §A.9b)")
+    tp, fsdp = mesh.size(Ax.TENSOR), mesh.size(Ax.FSDP)
+    if cfg.is_moe and (tp > 1 or fsdp > 1):
+        raise NotImplementedError(
+            "an MoE model under tensor or fsdp sharding waits for expert parallelism "
+            "(ROADMAP.md §A.9b); shard it over data only")
+    for name in ("num_heads", "num_kv_heads", "intermediate_size"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"model.{name} ({getattr(cfg, name)}) not divisible by "
+                             f"mesh.tensor ({tp})")
+
+
+def local_config(cfg: LLMConfig, mesh=None) -> LLMConfig:
+    """The config of this rank's shard: heads, kv heads and MLP width over
+    the tensor axis (``cfg`` itself without one)."""
+    tp = mesh.size(Ax.TENSOR) if mesh is not None else 1
+    if tp == 1:
+        return cfg
+    check_mesh(cfg, mesh)
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+        head_dim=cfg.head_dim_, intermediate_size=cfg.intermediate_size // tp)
+
+
+def _groups():
+    """(mesh, tensor group, fsdp group) of the active mesh, or Nones."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None, None, None
+    return mesh, mesh.get_group(Ax.TENSOR), mesh.get_group(Ax.FSDP)
+
+
+@functools.lru_cache(maxsize=16)
+def param_layout(cfg: LLMConfig, mesh) -> Layout:
+    """The layout of ``cfg``'s params on ``mesh``: each leaf's spec under
+    ``partition_rules()``, resolved against the full shapes (made on the
+    meta device). The sharded forward reads from it which dims of a leaf's
+    block to gather; the train step and the checkpoints resolve the same
+    rules (``training.sharded_step.model_layout``)."""
+    return Layout.from_rules(mesh, partition_rules(), init_params(cfg, 0, device="meta"))
+
+
+def _split_dims(cfg: LLMConfig, mesh, path: str, w, axis: str, lead: int = 0):
+    """The dims of ``w`` that ``axis`` splits, where ``w`` is this rank's
+    block of the leaf at ``path`` with its first ``lead`` dims taken off
+    (a layer of a stacked leaf: ``lead=1``); none where ``w`` is not that
+    block (a leaf already gathered, a quantized weight)."""
+    lay = param_layout(cfg, mesh)
+    if not torch.is_tensor(w) or path not in lay.specs or \
+            tuple(w.shape) != lay.local_shapes[path][lead:]:
+        return ()
+    return tuple(d - lead for d, a in enumerate(lay.specs[path])
+                 if a is not None and axis in sharded_axes((a,)) and d >= lead)
+
+
+def _gather_layer(layer: Params, cfg: LLMConfig, mesh, fsdp) -> Params:
+    """One layer's fsdp-sharded leaves gathered whole (their gradient is
+    reduce-scattered back over fsdp)."""
+    if fsdp is None:
+        return layer
+    out = dict(layer)
+    for k, w in layer.items():
+        for d in _split_dims(cfg, mesh, f"blocks/{k}", w, Ax.FSDP, lead=1):
+            out[k] = C.all_gather(out[k], d, fsdp, backward="reduce_scatter")
+    return out
+
+
+def embed_tokens(params: Params, cfg: LLMConfig, ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the compute dtype. A vocab-sharded table (this
+    rank holds rows [lo, lo + V/tp)) is looked up with a mask and summed
+    over the tensor axis; an fsdp-sharded one is gathered first."""
+    w = params["embed"]
+    mesh, tp, fsdp = _groups()
+    ids = ids.long()
+    if mesh is None:
+        return w[ids].to(cfg.compute_dtype)
+    vocab_split = _split_dims(cfg, mesh, "embed", w, Ax.TENSOR)
+    for d in _split_dims(cfg, mesh, "embed", w, Ax.FSDP):
+        w = C.all_gather(w, d, fsdp, backward="reduce_scatter")
+    if not vocab_split:
+        return w[ids].to(cfg.compute_dtype)
+    v_local = w.shape[0]
+    local = ids - mesh.axis_index(Ax.TENSOR) * v_local
+    inside = (local >= 0) & (local < v_local)
+    x = w[local.clamp(0, v_local - 1)] * inside[..., None].to(w.dtype)
+    return C.all_reduce(x, tp).to(cfg.compute_dtype)
+
+
+def _gather_whole(w, cfg: LLMConfig, mesh, path: str, autograd: bool):
+    """The leaf at ``path`` gathered whole from this rank's block: with
+    autograd, its gradient is reduce-scattered over fsdp (the ranks' rows
+    are different terms of the loss) and sliced over the tensor axis
+    (every tensor rank computes the same loss)."""
+    fsdp_dims = _split_dims(cfg, mesh, path, w, Ax.FSDP)
+    tp_dims = _split_dims(cfg, mesh, path, w, Ax.TENSOR)
+    for d in fsdp_dims:
+        g = mesh.get_group(Ax.FSDP)
+        w = (C.all_gather(w, d, g, backward="reduce_scatter") if autograd
+             else C.gather_tensor(w, d, g))
+    for d in tp_dims:
+        g = mesh.get_group(Ax.TENSOR)
+        w = C.all_gather(w, d, g, backward="split") if autograd else C.gather_tensor(w, d, g)
+    return w
+
+
+def full_output_params(params: Params, cfg: LLMConfig) -> Params:
+    """``params`` with the lm head (``lm_head``, or the tied ``embed``)
+    gathered whole, for the kernels that take the whole operand (K4, K5,
+    K6)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return params
+    key = "lm_head" if "lm_head" in params else "embed"
+    return {**params, key: _gather_whole(params[key], cfg, mesh, key, autograd=True)}
+
+
+def rollout_params(params: Params, cfg: LLMConfig) -> Params:
+    """The weights generation reads under the active mesh: the block
+    weights gathered over fsdp (tensor-parallel blocks stay this rank's),
+    the embedding and the lm head whole (K4 samples from the whole head).
+    Without a mesh, ``params`` itself."""
+    mesh, _, fsdp = _groups()
+    if mesh is None:
+        return params
+    with torch.no_grad():
+        out = dict(params)
+        for key in ("embed", "lm_head"):
+            if key in out:
+                out[key] = _gather_whole(out[key], cfg, mesh, key, autograd=False)
+        blocks = dict(params["blocks"])
+        for k, w in params["blocks"].items():
+            for d in _split_dims(cfg, mesh, f"blocks/{k}", w, Ax.FSDP):
+                blocks[k] = C.gather_tensor(blocks[k], d, fsdp)
+        out["blocks"] = blocks
+    return out
+
+
+def shard_params_from_numpy(tree, cfg: LLMConfig, mesh, device="cuda") -> Params:
+    """The JAX package's params as numpy (``jax.device_get``) -> this
+    rank's blocks under ``partition_rules()``, on ``device``: both
+    packages then compute from the same weights."""
+    from rlinf_tpu_torch.models.llm.convert import params_from_numpy
+    from rlinf_tpu_torch.parallel.sharding import match_partition_rules, shard_pytree
+
+    full = params_from_numpy(tree, cfg, device=device)
+    if mesh is None:
+        return full
+    check_mesh(cfg, mesh)
+    return shard_pytree(full, match_partition_rules(partition_rules(), full), mesh)
 
 
 class KVCache(NamedTuple):
@@ -63,6 +273,8 @@ def init_params(cfg: LLMConfig, seed: int, device="cuda") -> Params:
     rng = np.random.default_rng(seed)
 
     def normal(shape):
+        if device.type == "meta":       # shapes only (the sharding layout)
+            return torch.empty(shape, dtype=dt, device=device)
         a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
         return a.to(device=device).to(dt) * 0.02
 
@@ -150,12 +362,13 @@ def _project_qkv(cfg: LLMConfig, layer: Params, h: torch.Tensor, B: int, S: int)
     return q, k, v
 
 
-def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params
+def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params, tp=None
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Dense SwiGLU MLP or MoE block, residual included. Returns (x, aux):
     the MoE layer's auxiliary loss, None for a dense MLP (the JAX package's
-    zero, not made on the device in every layer)."""
-    h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
+    zero, not made on the device in every layer). ``tp``: the tensor
+    group, whose ranks hold the MLP's columns (the down projection's rows)."""
+    h = C.copy_to(rms_norm(x, layer["mlp_norm"], cfg.rms_eps), tp)
     if cfg.is_moe:
         moe_params = {
             "router": layer["moe_router"],
@@ -171,7 +384,7 @@ def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params
         gated = F.silu(gu[..., :f]) * gu[..., f:]
     else:
         gated = F.silu(mm(h, layer["gate"])) * mm(h, layer["up"])
-    return x + mm(gated, layer["down"]), None
+    return x + C.all_reduce(mm(gated, layer["down"]), tp), None
 
 
 def _block(
@@ -185,10 +398,13 @@ def _block(
     attn_impl: str,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], Optional[torch.Tensor]]:
     """One transformer block. Returns (x_out, (k, v), moe aux or None) with
-    k/v [B,S,K,D]."""
+    k/v [B,S,K,D] (this rank's kv heads under a tensor axis)."""
     B, S, _ = x.shape
-    h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-    q, k, v = _project_qkv(cfg, layer, h, B, S)
+    mesh, tp, fsdp = _groups()
+    lc = local_config(cfg, mesh)
+    layer = _gather_layer(layer, cfg, mesh, fsdp)
+    h = C.copy_to(rms_norm(x, layer["attn_norm"], cfg.rms_eps), tp)
+    q, k, v = _project_qkv(lc, layer, h, B, S)
     q, k = apply_rope(q, k, cos, sin, positions)
     attn = causal_attention(
         q, k, v,
@@ -197,8 +413,8 @@ def _block(
         kv_valid_mask=kv_valid_mask,
         impl=attn_impl,
     )
-    x = x + mm(attn.reshape(B, S, cfg.q_dim), layer["wo"])
-    x, aux = _mlp_or_moe(cfg, x, layer)
+    x = x + C.all_reduce(mm(attn.reshape(B, S, lc.q_dim), layer["wo"]), tp)
+    x, aux = _mlp_or_moe(cfg, x, layer, tp)
     return x, (k, v), aux
 
 
@@ -258,7 +474,7 @@ def forward_hidden(
             positions = torch.arange(S, device=dev).expand(B, S)
 
     cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, dev)
-    x = params["embed"][input_ids.long()].to(cfg.compute_dtype)
+    x = embed_tokens(params, cfg, input_ids)
 
     def block_fn(x, layer):
         return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl)
@@ -288,6 +504,7 @@ def forward_hidden(
 
 
 def lm_head_weight(params: Params, cfg: LLMConfig):
+    params = full_output_params(params, cfg)
     if "lm_head" in params:
         return params["lm_head"]
     return params["embed"].T
@@ -366,7 +583,7 @@ PackedKVLayers = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
 def init_kv_cache_packed(cfg: LLMConfig, batch: int, max_len: int, device="cuda") -> PackedKVLayers:
     """Tuple of per-layer (k, v), each [B, S_max, Kv*Hd]."""
     device = resolve_device(device)
-    shape = (batch, max_len, cfg.kv_dim)
+    shape = (batch, max_len, local_config(cfg, current_mesh()).kv_dim)
     dt = cfg.compute_dtype
     return tuple(
         (torch.zeros(shape, dtype=dt, device=device),
@@ -408,7 +625,7 @@ def _decode_inputs(params, cfg, token_ids, write_pos):
     B = token_ids.shape[0]
     dev = token_ids.device
     cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, dev)
-    x = params["embed"][token_ids.long()][:, None, :].to(cfg.compute_dtype)
+    x = embed_tokens(params, cfg, token_ids)[:, None, :]
     uniform_slot = not torch.is_tensor(write_pos) or write_pos.ndim == 0
     rows = None if uniform_slot else torch.arange(B, device=dev)
     if not uniform_slot:
@@ -436,21 +653,24 @@ def decode_step_packed(
     """
     B = token_ids.shape[0]
     impl = attn_impl or default_decode_attn_impl(token_ids.device)
-    kd = cfg.kv_dim
+    mesh, tp, fsdp = _groups()
+    lc = local_config(cfg, mesh)
+    kd = lc.kv_dim
     x, cos, sin, rows, write_pos = _decode_inputs(params, cfg, token_ids, write_pos)
     pos = positions[:, None]
     for (kc, vc), layer in zip(kv_layers, _layers(params["blocks"], len(kv_layers))):
+        layer = _gather_layer(layer, cfg, mesh, fsdp)
         h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        q, k, v = _project_qkv(cfg, layer, h, B, 1)
+        q, k, v = _project_qkv(lc, layer, h, B, 1)
         q, k = apply_rope(q, k, cos, sin, pos)
         _write_slot(kc, write_pos, rows, k.reshape(B, kd))
         _write_slot(vc, write_pos, rows, v.reshape(B, kd))
         attn = _packed_decode_attn(
-            q.reshape(B, cfg.num_heads, cfg.head_dim_), kc, vc,
-            starts, lengths, cfg.num_kv_heads, impl,
+            q.reshape(B, lc.num_heads, lc.head_dim_), kc, vc,
+            starts, lengths, lc.num_kv_heads, impl,
         )
-        x = x + mm(attn.reshape(B, 1, cfg.q_dim), layer["wo"])
-        x, _ = _mlp_or_moe(cfg, x, layer)
+        x = x + C.all_reduce(mm(attn.reshape(B, 1, lc.q_dim), layer["wo"]), tp)
+        x, _ = _mlp_or_moe(cfg, x, layer, tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x[:, 0, :], kv_layers
 
@@ -465,7 +685,7 @@ PackedKVQ8Layers = Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.T
 def init_kv_cache_packed_q8(cfg: LLMConfig, batch: int, max_len: int, device="cuda") -> PackedKVQ8Layers:
     """Per-layer (k int8 [B,S,KD], v int8, k_scale f32 [B,S], v_scale)."""
     device = resolve_device(device)
-    shape = (batch, max_len, cfg.kv_dim)
+    shape = (batch, max_len, local_config(cfg, current_mesh()).kv_dim)
     return tuple(
         (torch.zeros(shape, dtype=torch.int8, device=device),
          torch.zeros(shape, dtype=torch.int8, device=device),
@@ -497,12 +717,15 @@ def decode_step_packed_q8(
     folds the scales into score/prob rows (no wide dequantization)."""
     B = token_ids.shape[0]
     impl = attn_impl or default_decode_attn_impl(token_ids.device)
-    kd = cfg.kv_dim
+    mesh, tp, fsdp = _groups()
+    lc = local_config(cfg, mesh)
+    kd = lc.kv_dim
     x, cos, sin, rows, write_pos = _decode_inputs(params, cfg, token_ids, write_pos)
     pos = positions[:, None]
     for (kc, vc, ksc, vsc), layer in zip(kv_layers, _layers(params["blocks"], len(kv_layers))):
+        layer = _gather_layer(layer, cfg, mesh, fsdp)
         h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
-        q, k, v = _project_qkv(cfg, layer, h, B, 1)
+        q, k, v = _project_qkv(lc, layer, h, B, 1)
         q, k = apply_rope(q, k, cos, sin, pos)
         kq, ks = quantize_packed_kv(k.reshape(B, kd))
         vq, vs = quantize_packed_kv(v.reshape(B, kd))
@@ -510,14 +733,14 @@ def decode_step_packed_q8(
         _write_slot(vc, write_pos, rows, vq)
         _write_slot(ksc, write_pos, rows, ks)
         _write_slot(vsc, write_pos, rows, vs)
-        qh = q.reshape(B, cfg.num_heads, cfg.head_dim_)
+        qh = q.reshape(B, lc.num_heads, lc.head_dim_)
         if impl == "pallas":
             attn = decode_attention_packed_q8(
-                qh, kc, vc, ksc, vsc, starts, lengths, num_kv=cfg.num_kv_heads)
+                qh, kc, vc, ksc, vsc, starts, lengths, num_kv=lc.num_kv_heads)
         else:
             attn = decode_attention_packed_q8_xla(
-                qh, kc, vc, ksc, vsc, starts, lengths, num_kv=cfg.num_kv_heads)
-        x = x + mm(attn.reshape(B, 1, cfg.q_dim), layer["wo"])
-        x, _ = _mlp_or_moe(cfg, x, layer)
+                qh, kc, vc, ksc, vsc, starts, lengths, num_kv=lc.num_kv_heads)
+        x = x + C.all_reduce(mm(attn.reshape(B, 1, lc.q_dim), layer["wo"]), tp)
+        x, _ = _mlp_or_moe(cfg, x, layer, tp)
     x = rms_norm(x, params["final_norm"], cfg.rms_eps)
     return x[:, 0, :], kv_layers

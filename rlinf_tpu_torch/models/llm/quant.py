@@ -38,13 +38,19 @@ class QTensor(NamedTuple):
         return self.q.ndim
 
 
-def quantize_tensor(w: torch.Tensor) -> QTensor:
+def quantize_tensor(w: torch.Tensor, reduce_group=None) -> QTensor:
     """Symmetric per-output-channel (last axis) int8 quantization.
 
     Both outputs are contiguous, also for a transposed view such as
-    ``embed.T``: the sampler kernel reads ``q`` as a dense [D, V] array."""
+    ``embed.T``: the sampler kernel reads ``q`` as a dense [D, V] array.
+    ``reduce_group``: the ranks that hold the other rows of a
+    row-parallel weight; the absmax is reduced over them (MAX), so the
+    scale is the whole weight's, as XLA reduces over the whole dim."""
+    from rlinf_tpu_torch.parallel import collectives as C
+
     wf = w.float().contiguous()
-    s = (wf.abs().amax(dim=-2, keepdim=True) / 127.0).clamp_min(1e-12)
+    amax = C.all_reduce_(wf.abs().amax(dim=-2, keepdim=True), "max", reduce_group)
+    s = (amax / 127.0).clamp_min(1e-12)
     q = torch.round(wf / s).clamp(-127, 127).to(torch.int8)
     return QTensor(q=q, scale=s)
 
@@ -78,7 +84,17 @@ def quantize_params(params: dict, *, fuse: bool = True) -> dict:
     projection. ``fuse`` (default) emits ``wqkv`` = concat(wq, wk, wv) and
     ``wgu`` = concat(gate, up) along the output axis in place of the parts;
     per-output-channel scales make the fusion exact.
+
+    Under an active mesh with a tensor axis the row-parallel ``wo`` and
+    ``down`` blocks hold a slice of the reduced dim: their absmax is
+    reduced over the tensor group first. The column-parallel blocks reduce
+    over a whole dim already (fused, they hold this rank's q, k, v columns
+    in that order).
     """
+    from rlinf_tpu_torch.parallel.mesh import current_mesh
+
+    mesh = current_mesh()
+    tp = mesh.get_group("tensor") if mesh is not None else None
     out = dict(params)
     blocks = dict(params["blocks"])
     if fuse and all(k in blocks for k in ("wq", "wk", "wv")):
@@ -89,7 +105,7 @@ def quantize_params(params: dict, *, fuse: bool = True) -> dict:
             [blocks.pop("gate"), blocks.pop("up")], dim=-1))
     for k in list(blocks.keys()):
         if k in _MATMUL_KEYS:
-            blocks[k] = quantize_tensor(blocks[k])
+            blocks[k] = quantize_tensor(blocks[k], tp if k in ("wo", "down") else None)
     out["blocks"] = blocks
     if "lm_head" in params:
         out["lm_head"] = quantize_tensor(params["lm_head"])

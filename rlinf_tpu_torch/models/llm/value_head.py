@@ -2,8 +2,8 @@
 
 Port of ``rlinf_tpu/models/llm/value_head.py``. The critic either shares
 the trunk with the actor (one params dict with a ``value_head`` leaf) or
-is a params dict of its own (``training/critic.py``). The head's sharding
-rule (``value_partition_rules``) comes with the parallel slice.
+is a params dict of its own (``training/critic.py``). Under a mesh the head
+is replicated (``value_partition_rules``).
 """
 
 from __future__ import annotations
@@ -53,3 +53,10 @@ def forward_values(
         attn_impl=attn_impl, remat=remat,
     )
     return values_from_hidden(params, hidden)
+
+
+def value_partition_rules():
+    """The value head's rule: replicated (it is [D, 1])."""
+    from rlinf_tpu_torch.parallel.sharding import P
+
+    return [(r"value_head", P())]

@@ -54,8 +54,10 @@ def causal_attention(
         )
     if impl == "ring":
         # Context parallelism needs a mesh with a context axis of size > 1;
-        # without one the JAX package takes the plain path below, and the
-        # port has no mesh yet.
+        # without one the JAX package takes the plain path below. The port's
+        # mesh (parallel/mesh.py) takes data, fsdp and tensor axes; a
+        # context axis > 1 raises (models/llm/model.py check_mesh) until
+        # ring attention is ported (ROADMAP.md §A.9b).
         impl = "xla"
     if impl != "xla":
         raise ValueError(

@@ -5,8 +5,13 @@ chunked plain path never holds more than [B, chunk, V] logits and
 recomputes each chunk in the backward (``torch.utils.checkpoint``, as
 ``jax.checkpoint`` there). On a CUDA device the dispatcher takes the fused
 kernels K5/K6 (``ops/cuda/linear_ce.py``), which hold no [rows, V] logits
-in the forward at all. ``vocab_parallel_logprobs_and_entropy`` (a
-tensor-parallel reduction over a mesh) comes with the parallel slice.
+in the forward at all. Under a mesh the dispatcher gathers the
+vocab-sharded lm head whole and launches the kernels on it, as the JAX
+package runs its Pallas kernel on a gathered operand (a per-shard K5 whose
+statistics merge across ranks is later work, ROADMAP.md §B).
+``vocab_parallel_logprobs_and_entropy`` is the explicit tensor-parallel
+form over a vocab-sharded head: per-shard max and sum of exponentials,
+reduced over the tensor axis.
 """
 
 from __future__ import annotations
@@ -100,9 +105,10 @@ def linear_logprobs_and_entropy(
     impl="pallas" takes the fused path on any device (on the CPU its plain
     version runs).
     """
-    from rlinf_tpu_torch.models.llm.model import lm_head_weight
+    from rlinf_tpu_torch.models.llm.model import full_output_params, lm_head_weight
     from rlinf_tpu_torch.models.llm.quant import QTensor
 
+    params = full_output_params(params, cfg)
     if impl == "pallas" or (impl == "auto" and hidden.is_cuda):
         from rlinf_tpu_torch.ops.cuda.linear_ce import fused_linear_ce
 
@@ -115,3 +121,40 @@ def linear_logprobs_and_entropy(
     w = lm_head_weight(params, cfg)
     return fused_linear_logprobs_and_entropy(
         hidden, w, target_ids, chunk_size=chunk_size, temperature=temperature)
+
+
+def vocab_parallel_logprobs_and_entropy(
+    hidden: torch.Tensor,
+    lm_head: torch.Tensor,
+    target_ids: torch.Tensor,
+    *,
+    mesh,
+    vocab_axis: str,
+    temperature: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tensor-parallel logprob/entropy over a vocab-sharded lm head.
+
+    hidden: [B, S, D] (the same on every rank of ``vocab_axis``); lm_head:
+    this rank's [D, V/tp] block (columns [lo, lo + V/tp)); target_ids:
+    [B, S]. Per-shard max and sum of exponentials are reduced across the
+    axis (all-reduce MAX, then SUM: the JAX package's ``pmax``/``psum``),
+    and the target logit comes from the shard that owns it. Forward only
+    (no autograd through the reductions)."""
+    from rlinf_tpu_torch.parallel import collectives as C
+
+    group = mesh.get_group(vocab_axis)
+    v_local = lm_head.shape[1]
+    lo = mesh.axis_index(vocab_axis) * v_local
+    logits = hidden.float() @ lm_head.float()
+    if temperature != 1.0:
+        logits = logits / temperature
+    gmax = C.all_reduce_(logits.amax(dim=-1), "max", group)
+    shifted = logits - gmax[..., None]
+    e = torch.exp(shifted)
+    ids = target_ids.long()
+    in_shard = (ids >= lo) & (ids < lo + v_local)
+    tgt = logits.gather(-1, (ids - lo).clamp(0, v_local - 1)[..., None])[..., 0]
+    stats = torch.stack([e.sum(-1), torch.where(in_shard, tgt, 0.0), (e * logits).sum(-1)])
+    gsumexp, target_logit, probs_sum = C.all_reduce_(stats, "sum", group).unbind(0)
+    lse = torch.log(gsumexp) + gmax
+    return target_logit - lse, lse - probs_sum / gsumexp

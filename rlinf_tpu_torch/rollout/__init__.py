@@ -4,7 +4,9 @@ Port of ``rlinf_tpu/rollout/__init__.py``: static batch generation,
 continuous slot-pool batching, or paged-KV continuous batching. "auto"
 knobs resolve on the DEVICE the engine runs on: int8 weights and the
 hand-written kernels on CUDA, no quantization and the plain versions on
-the CPU. Only sharded rollout (``mesh=``) is not ported.
+the CPU. Under a mesh "auto" resolves to the static engine, whose
+``rollout(mesh=)`` splits the prompts over the batch axes; the continuous
+and paged engines refuse a mesh, as in the JAX package.
 """
 
 import torch
@@ -61,10 +63,11 @@ def build_rollout_engine(cfg, mesh=None, device="cuda"):
     the JAX package.
     """
     device = resolve_device(device)
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded rollout (mesh=...) comes with the port's parallel slice")
     engine, quant, decode_attn = resolve_rollout_paths(cfg, mesh=mesh, device=device)
+    if mesh is not None and engine != "static":
+        raise NotImplementedError(
+            f"rollout.engine={engine!r} under a mesh: the continuous and paged engines "
+            "run on one device, as in the JAX package; use engine=static (or auto)")
     if engine == "static":
         return RolloutEngine(
             cfg.model, cfg.sampling,

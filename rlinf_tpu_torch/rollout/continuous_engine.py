@@ -516,7 +516,8 @@ class ContinuousBatchingEngine:
         The slot pool is single-program."""
         if mesh is not None:
             raise NotImplementedError(
-                "sharded rollout (mesh=...) comes with the port's parallel slice")
+                "the continuous engine runs on one device, as in the JAX package: "
+                "under a mesh use the static engine (rollout.engine=static or auto)")
         return self.generate(params, request, generator)
 
     def _pack_results(self, request, results_tokens, results_lps) -> RolloutResult:

@@ -22,7 +22,17 @@ read ``_policy_params()``, the adapters merged into the base (the engine
 re-quantizes the merged weights at each rollout); ``lora.path`` restores
 an adapter checkpoint, and the checkpoints hold the adapter state only.
 LoRA refuses a critic (the config's validator) and the token budget, as
-the JAX runner does. A mesh raises (ROADMAP.md §A.9).
+the JAX runner does.
+
+Under ``mesh=`` (a ``parallel.mesh.Mesh``; every rank of the world runs
+the same script with the same seeds) the train state holds this rank's
+blocks under ``partition_rules()``, the rollout splits the prompts over the
+batch axes and returns the global result on every rank, every rank scores
+and assembles the whole batch, and each train step keeps its rows and
+reduces across the mesh. The checkpoints hold the single-card layout
+(gathered on save, cut on restore), and ``rescale(new_mesh)`` re-shards the
+live state. LoRA and the token-budget microbatches do not take a mesh yet
+(ROADMAP.md §A.9b).
 
 Randomness: two seeded ``torch.Generator``s on the host, one for the
 rollout's per-call sampling seeds (the engines draw their device noise from
@@ -39,13 +49,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from rlinf_tpu_torch.algorithms import get_advantage_fn
 from rlinf_tpu_torch.algorithms.rewards.math_verifier import batch_math_rewards
 from rlinf_tpu_torch.config import TrainerConfig, resolve_attn_impl
 from rlinf_tpu_torch.data.datasets import PromptDataset, StatefulBatchIterator
 from rlinf_tpu_torch.data.io_struct import RolloutRequest, RolloutResult, build_train_batch
-from rlinf_tpu_torch.models.llm import init_params
+from rlinf_tpu_torch.models.llm import init_params, model as M
 from rlinf_tpu_torch.rollout import build_rollout_engine, resolve_recompute_logprobs
 from rlinf_tpu_torch.training.learner import (
     make_actor_critic_train_step,
@@ -78,10 +89,10 @@ class ReasoningRunner:
         port's dict of tensors on ``device``) in place of a random init;
         ``reward_fn(texts, answers)`` scores the decoded responses (default:
         the math verifier)."""
-        if mesh is not None:
+        if mesh is not None and (cfg.lora.enabled or cfg.loss.max_tokens_per_mb > 0):
             raise NotImplementedError(
-                "ReasoningRunner(mesh=...) comes with the port's parallel slice "
-                "(ROADMAP.md §A.9)")
+                "ReasoningRunner(mesh=...) with lora.enabled or loss.max_tokens_per_mb > 0 "
+                "is not ported yet (ROADMAP.md §A.9b)")
         if cfg.lora.enabled and cfg.loss.max_tokens_per_mb > 0:
             raise NotImplementedError(
                 "lora.enabled with dynamic token-budget microbatching "
@@ -90,13 +101,20 @@ class ReasoningRunner:
         cfg = dataclasses.replace(cfg, attn_impl=resolve_attn_impl(cfg, dev))
         self.cfg = cfg
         self.device = dev
+        self.mesh = mesh
+        M.check_mesh(cfg.model, mesh)
         self.tokenizer = tokenizer
         self.reward_fn = reward_fn or batch_math_rewards
         self.timers = Timers()
-        self.logger = MetricLogger(cfg.runner.log_dir)
+        # under a mesh every rank holds the same metrics: the first writes
+        # and prints them
+        writes = mesh is None or (dist.get_rank() if dist.is_initialized() else 0) == mesh.ranks[0]
+        self.logger = (MetricLogger(cfg.runner.log_dir) if writes
+                       else MetricLogger(None, print_every=0))
 
         # continuous slot-pool batching unless cfg.rollout names another
-        self.engine = build_rollout_engine(cfg, device=dev)
+        # (the static engine under a mesh)
+        self.engine = build_rollout_engine(cfg, mesh=mesh, device=dev)
         self.tx = make_optimizer(cfg.optimizer)
         self.with_critic = cfg.algorithm.adv_type == "gae"
         self.separate_critic = self.with_critic and cfg.algorithm.critic == "separate"
@@ -104,15 +122,14 @@ class ReasoningRunner:
         seed = cfg.runner.seed
         if self.with_critic and not self.separate_critic:
             # a value head on the shared trunk
-            from rlinf_tpu_torch.models.llm.value_head import forward_values
+            from rlinf_tpu_torch.training.critic import make_critic_value_fn
 
             self.train_step = make_actor_critic_train_step(
                 cfg.model, cfg.loss, self.tx,
-                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, mesh=mesh, device=dev,
             )
-            self._value_fn = torch.no_grad()(
-                lambda params, ids, mask: forward_values(
-                    params, cfg.model, ids, mask, attn_impl=cfg.attn_impl))
+            self._value_fn = make_critic_value_fn(
+                cfg.model, attn_impl=cfg.attn_impl, mesh=mesh, device=dev)
         elif cfg.lora.enabled:
             # train only the adapters; the frozen base params are an argument
             from rlinf_tpu_torch.training.lora_learner import make_lora_policy_train_step
@@ -127,7 +144,7 @@ class ReasoningRunner:
             self.train_step = make_policy_train_step(
                 cfg.model, cfg.loss, self.tx,
                 num_microbatches=cfg.num_microbatches,
-                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, mesh=mesh, device=dev,
             )
         if self.separate_critic:
             # the critic is its own model + optimizer + warmup schedule; the
@@ -148,13 +165,14 @@ class ReasoningRunner:
             self.critic_tx = make_optimizer(opt)
             self.critic_step = make_critic_train_step(
                 cfg.model, self.critic_cfg, self.critic_tx,
-                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, mesh=mesh, device=dev,
             )
             self.critic_state = create_train_state(
                 lambda: init_critic_params(cfg.model, seed + 104729, device=dev),
-                self.critic_tx,
+                self.critic_tx, mesh=mesh, partition_rules=self._rules(True),
             )
-            raw_value_fn = make_critic_value_fn(cfg.model, attn_impl=cfg.attn_impl, device=dev)
+            raw_value_fn = make_critic_value_fn(cfg.model, attn_impl=cfg.attn_impl,
+                                                mesh=mesh, device=dev)
             self._value_fn = lambda _actor_params, ids, mask: raw_value_fn(
                 self.critic_state.params, ids, mask)
         if cfg.loss.max_tokens_per_mb > 0:
@@ -175,6 +193,7 @@ class ReasoningRunner:
                 chunk_size=cfg.loss.logprob_chunk_size,
                 attn_impl=cfg.attn_impl,
                 temperature=cfg.sampling.temperature,
+                mesh=mesh,
                 device=dev,
             )
             if self.recompute_logprobs
@@ -209,18 +228,22 @@ class ReasoningRunner:
             self._merge = torch.no_grad()(lambda base, lora: merge_lora(base, lora, cfg.lora))
         else:
             self.base_params = None
-            self.state = create_train_state(lambda: init_fn(seed), self.tx)
+            self.state = create_train_state(
+                lambda: init_fn(seed), self.tx, mesh=mesh,
+                partition_rules=self._rules(self.with_critic and not self.separate_critic))
 
         self.iterator = StatefulBatchIterator(
             dataset, cfg.runner.rollout_batch_size, seed=seed
         )
         self.ckpt = (
-            CheckpointManager(cfg.runner.checkpoint_dir)
+            CheckpointManager(cfg.runner.checkpoint_dir, layout=self._layout(
+                self.with_critic and not self.separate_critic))
             if cfg.runner.checkpoint_dir
             else None
         )
         self.critic_ckpt = (
-            CheckpointManager(cfg.runner.checkpoint_dir + "_critic")
+            CheckpointManager(cfg.runner.checkpoint_dir + "_critic",
+                              layout=self._layout(True))
             if cfg.runner.checkpoint_dir and self.separate_critic
             else None
         )
@@ -238,9 +261,55 @@ class ReasoningRunner:
                         self.critic_state = cstate
 
     # ------------------------------------------------------------------
+    def _rules(self, value_head: bool):
+        """The partition rules of the actor's (or a critic's) params."""
+        from rlinf_tpu_torch.models.llm.value_head import value_partition_rules
+
+        return (value_partition_rules() if value_head else []) + M.partition_rules()
+
+    def _layout(self, value_head: bool):
+        """The sharding layout of the actor's (or a critic's) state on the
+        runner's mesh (None without one): what the checkpoints read."""
+        from rlinf_tpu_torch.training.sharded_step import model_layout
+
+        if self.mesh is None:
+            return None
+        return model_layout(self.cfg.model, self.mesh, self._rules(value_head), value_head)
+
     def rescale(self, new_mesh):
-        raise NotImplementedError(
-            "ReasoningRunner.rescale comes with the port's parallel slice (ROADMAP.md §A.9)")
+        """Online parallel-strategy switch: re-shard the live train state
+        onto ``new_mesh`` (every rank gathers each leaf whole and keeps its
+        new block) and rebuild the mesh-bound step functions. Training
+        resumes on the next step."""
+        from rlinf_tpu_torch.training.train_state import rescale_train_state
+
+        if self.base_params is not None or self.separate_critic:
+            raise NotImplementedError(
+                "rescale with LoRA or a separate critic is not ported yet (ROADMAP.md §A.9b)")
+        shared = self.with_critic
+        M.check_mesh(self.cfg.model, new_mesh)
+        self.state = rescale_train_state(self.state, new_mesh, self._rules(shared),
+                                         old_layout=self._layout(shared))
+        self.mesh = new_mesh
+        cfg, dev = self.cfg, self.device
+        if shared:
+            from rlinf_tpu_torch.training.critic import make_critic_value_fn
+
+            self.train_step = make_actor_critic_train_step(
+                cfg.model, cfg.loss, self.tx, remat=cfg.remat, attn_impl=cfg.attn_impl,
+                mesh=new_mesh, device=dev)
+            self._value_fn = make_critic_value_fn(
+                cfg.model, attn_impl=cfg.attn_impl, mesh=new_mesh, device=dev)
+        else:
+            self.train_step = make_policy_train_step(
+                cfg.model, cfg.loss, self.tx, num_microbatches=cfg.num_microbatches,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, mesh=new_mesh, device=dev)
+        if self.logprob_fn is not None:
+            self.logprob_fn = make_logprob_fn(
+                cfg.model, chunk_size=cfg.loss.logprob_chunk_size, attn_impl=cfg.attn_impl,
+                temperature=cfg.sampling.temperature, mesh=new_mesh, device=dev)
+        if self.ckpt is not None:
+            self.ckpt.layout = self._layout(shared)
 
     def _permutation(self, n: int) -> np.ndarray:
         return torch.randperm(n, generator=self._perm_gen).numpy()
@@ -475,7 +544,7 @@ class ReasoningRunner:
     def _rollout_phase(self, params):
         examples = self.iterator.next_batch()
         request = self._make_request(examples)
-        return self.engine.rollout(params, request, self._sample_gen)
+        return self.engine.rollout(params, request, self._sample_gen, mesh=self.mesh)
 
     def _timed_rollout(self, params):
         t0 = time.perf_counter()
@@ -491,7 +560,12 @@ class ReasoningRunner:
         clone taken before the next update. The worker's rollout seconds are
         recorded as ``time/rollout`` of the step that trains on it. The
         kernels are built before the worker starts; on one device both
-        threads queue their work on the same stream."""
+        threads queue their work on the same stream.
+
+        Under a mesh the two phases run in turn, with the same one-step
+        staleness (batch N+1 from the params before the update on N):
+        collectives from two threads would meet in another order on each
+        rank."""
         import concurrent.futures
 
         if self.device.type == "cuda":
@@ -501,6 +575,17 @@ class ReasoningRunner:
         n = max_steps or self.cfg.runner.max_steps
         history: List[Dict[str, float]] = []
         snapshot = lambda: tree_map(lambda t: t.clone(), self._policy_params())
+        if self.mesh is not None:
+            pending = self._timed_rollout(snapshot())
+            while self.global_step < n:
+                (result, rollout_s), snap = pending, None
+                if self.global_step + 1 < n:
+                    snap = snapshot()
+                self.timers.record("rollout", rollout_s)
+                history.append(self._train_on_result(result))
+                if snap is not None:
+                    pending = self._timed_rollout(snap)
+            return history
         pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
         try:
             future = pool.submit(self._timed_rollout, snapshot())

@@ -9,6 +9,10 @@ first actor update. The shared-trunk value head is
 
 Where the JAX package jits a step that donates the state, the port runs
 eagerly and updates the critic's params and optimizer state in place.
+Under ``mesh=`` the step takes the global batch and keeps this rank's rows
+(``training/sharded_step.py``); the critic's masked-mean loss is weighted
+by the rank's share of the valid tokens, so the ranks' losses add up to
+the global one. The value fn returns the global values on every rank.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.value_head import add_value_head, forward_values
 from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
+from rlinf_tpu_torch.training.sharded_step import MeshStep
 from rlinf_tpu_torch.training.train_state import Optimizer, TrainState, apply_updates
 from rlinf_tpu_torch.utils.device import resolve_device
 
@@ -45,15 +50,23 @@ def init_critic_params(cfg: LLMConfig, seed: int, device="cuda") -> Dict:
     return add_value_head(M.init_params(cfg, seed, device), cfg, seed + 1, device)
 
 
-def make_critic_value_fn(cfg: LLMConfig, *, attn_impl: str = "xla", device="cuda"):
-    """fp32 token values [B, T] from the critic's own trunk, without grad."""
+def make_critic_value_fn(cfg: LLMConfig, *, attn_impl: str = "xla", mesh=None,
+                         device="cuda"):
+    """fp32 token values [B, T] from the critic's own trunk (or a shared
+    trunk's value head), without grad."""
+    from rlinf_tpu_torch.parallel.distributed import fetch_global
+
     dev = resolve_device(device)
-    check_on_card(cfg, dev, attn_impl=attn_impl)
+    ms = MeshStep(cfg, mesh, value_head=True)
+    check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
     @torch.no_grad()
     def value_fn(params, input_ids, attention_mask):
-        return forward_values(params, cfg, torch.as_tensor(input_ids, device=dev),
-                              torch.as_tensor(attention_mask, device=dev), attn_impl=attn_impl)
+        with ms.active():
+            rows = ms.rows({"ids": input_ids, "mask": attention_mask})
+            v = forward_values(params, cfg, torch.as_tensor(rows["ids"], device=dev),
+                               torch.as_tensor(rows["mask"], device=dev), attn_impl=attn_impl)
+            return v if mesh is None else fetch_global(v, mesh)
 
     return value_fn
 
@@ -73,28 +86,33 @@ def make_critic_train_step(
     (``apply_updates``), as the JAX package's tree map does."""
     from rlinf_tpu_torch.training.learner import _grads, _to_device, optax_global_norm
 
-    if mesh is not None:
-        raise NotImplementedError("make_critic_train_step(mesh=...) comes with the parallel slice")
     dev = resolve_device(device)
-    check_on_card(cfg, dev, attn_impl=attn_impl)
+    ms = MeshStep(cfg, mesh, value_head=True)
+    check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
-    def loss_fn(batch):
+    def loss_fn(batch, share):
         def fn(params):
             values = forward_values(params, cfg, batch["input_ids"], batch["attention_mask"],
                                     attn_impl=attn_impl, remat=remat)
-            return compute_ppo_critic_loss(
+            loss, metrics = compute_ppo_critic_loss(
                 values=values, returns=batch["returns"], prev_values=batch["prev_values"],
                 value_clip=critic_cfg.value_clip, huber_delta=critic_cfg.huber_delta,
                 loss_mask=batch["loss_mask"])
+            return (loss if share is None else loss * share), metrics
         return fn
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        batch = _to_device(batch, dev)
-        grads, _, metrics = _grads(state.params, loss_fn(batch))
-        updates, new_opt = tx.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, updates)
-        metrics = dict(metrics)
-        metrics["critic/grad_norm"] = optax_global_norm(grads)
+        with ms.active():
+            batch = _to_device(ms.rows(batch), dev)
+            share = None
+            if mesh is not None:
+                local = batch["loss_mask"].float().sum()
+                share = local.clamp_min(1.0) / ms.valid(local).clamp_min(1.0)
+            grads, _, metrics = _grads(state.params, loss_fn(batch, share))
+            updates, new_opt, grad_norm = ms.update(tx, grads, state, optax_global_norm)
+            apply_updates(state.params, updates)
+            metrics = ms.metrics(dict(metrics), batch["loss_mask"].sum())
+            metrics["critic/grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, new_opt), metrics
 
     return train_step

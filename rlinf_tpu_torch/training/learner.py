@@ -9,6 +9,9 @@ batch.
 
 Where the JAX package jits one function that donates the state, the port
 runs eagerly and updates the params and the optimizer state in place.
+Under ``mesh=`` a step takes the GLOBAL batch, keeps this rank's rows and
+reduces across the mesh as ``training/sharded_step.py`` says; the logprob
+recompute returns the global result on every rank.
 An MoE model's auxiliary loss joins the policy loss in
 ``microbatch_loss_with_moe``, as in the JAX package.
 """
@@ -31,6 +34,7 @@ from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
 from rlinf_tpu_torch.ops.logprobs import linear_logprobs_and_entropy
+from rlinf_tpu_torch.training.sharded_step import MeshStep
 from rlinf_tpu_torch.training.train_state import (
     Optimizer, TrainState, apply_updates, tree_leaves, tree_map,
 )
@@ -185,10 +189,9 @@ def make_policy_train_step(
     f32). The params and the optimizer state in ``state`` are updated in
     place; the returned state holds the same tensors.
     """
-    if mesh is not None:
-        raise NotImplementedError("make_policy_train_step(mesh=...) comes with the parallel slice")
     dev = resolve_device(device)
-    check_on_card(cfg, dev, attn_impl=attn_impl)
+    ms = MeshStep(cfg, mesh)
+    check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
     acc_dt = grad_acc_dtype or torch.float32
 
     def loss_of(mb, global_valid):
@@ -197,8 +200,12 @@ def make_policy_train_step(
             attn_impl=attn_impl, remat=remat, unroll_layers=unroll_layers)
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        batch = _to_device(batch, dev)
-        global_valid = batch["loss_mask"].float().sum().clamp_min(1.0)
+        with ms.active():
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Dict[str, Any]):
+        batch = _to_device(ms.rows(batch), dev)
+        global_valid = ms.valid(batch["loss_mask"].float().sum()).clamp_min(1.0)
         if num_microbatches == 1:
             grads, loss, metrics = _grads(state.params, loss_of(batch, global_valid))
         else:
@@ -215,12 +222,12 @@ def make_policy_train_step(
             # sums are already globally normalized; metrics averaged over mbs
             metrics = {k: torch.stack([m[k] for m in metrics_list]).mean()
                        for k in metrics_list[0]}
-        grad_norm = optax_global_norm(grads)
-        updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
+        updates, new_opt_state, grad_norm = ms.update(tx, grads, state, optax_global_norm)
         del grads
         apply_updates(state.params, updates)
         metrics = dict(metrics)
         metrics["actor/loss"] = loss
+        metrics = ms.metrics(metrics, batch["loss_mask"].sum())
         metrics["actor/grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, new_opt_state), metrics
 
@@ -275,19 +282,22 @@ def make_actor_critic_train_step(
     value_coef: float = 1.0,
     remat=True,
     attn_impl: str = "xla",
+    mesh=None,
     device="cuda",
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict]]:
     """PPO actor-critic step for LLMs with a shared trunk and value head:
     one forward gives the actor's logprobs and entropy (K5/K6 on the card)
     and the values; the loss is the actor's + ``value_coef`` x the
     critic's. The batch adds ``returns`` and ``prev_values`` (fp32,
-    aligned with target_ids)."""
+    aligned with target_ids). Under ``mesh`` as ``make_policy_train_step``:
+    both losses are token sums over the global count of valid tokens."""
     from rlinf_tpu_torch.models.llm.value_head import values_from_hidden
 
     dev = resolve_device(device)
-    check_on_card(cfg, dev, attn_impl=attn_impl)
+    ms = MeshStep(cfg, mesh, value_head=True)
+    check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
-    def loss_of(batch):
+    def loss_of(batch, global_valid):
         def fn(params):
             hidden, _ = M.forward_hidden(
                 params, cfg, batch["input_ids"], attention_mask=batch["attention_mask"],
@@ -298,26 +308,32 @@ def make_actor_critic_train_step(
                 chunk_size=loss_cfg.logprob_chunk_size,
             )
             values = values_from_hidden(params, hidden)
-            global_valid = batch["loss_mask"].float().sum().clamp_min(1.0)
             actor_loss, metrics = _token_level_loss(lp, ent, batch, loss_cfg, global_valid)
             critic_loss, cmetrics = compute_ppo_critic_loss(
                 values=values, returns=batch["returns"], prev_values=batch["prev_values"],
                 value_clip=value_clip, huber_delta=huber_delta, loss_mask=batch["loss_mask"],
             )
+            if mesh is not None:
+                # the critic's masked mean over the global tokens: this
+                # rank's share, summed over the ranks
+                local = batch["loss_mask"].float().sum().clamp_min(1.0)
+                critic_loss = critic_loss * local / global_valid
             metrics.update(cmetrics)
             return actor_loss + value_coef * critic_loss, metrics
         return fn
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        batch = _to_device(batch, dev)
-        grads, loss, metrics = _grads(state.params, loss_of(batch))
-        grad_norm = optax_global_norm(grads)
-        updates, new_opt = tx.update(grads, state.opt_state, state.params)
-        del grads
-        apply_updates(state.params, updates)
-        metrics = dict(metrics)
-        metrics["actor/loss"] = loss
-        metrics["actor/grad_norm"] = grad_norm
+        with ms.active():
+            batch = _to_device(ms.rows(batch), dev)
+            global_valid = ms.valid(batch["loss_mask"].float().sum()).clamp_min(1.0)
+            grads, loss, metrics = _grads(state.params, loss_of(batch, global_valid))
+            updates, new_opt, grad_norm = ms.update(tx, grads, state, optax_global_norm)
+            del grads
+            apply_updates(state.params, updates)
+            metrics = dict(metrics)
+            metrics["actor/loss"] = loss
+            metrics = ms.metrics(metrics, batch["loss_mask"].sum())
+            metrics["actor/grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, new_opt), metrics
 
     return train_step
@@ -329,24 +345,34 @@ def make_logprob_fn(
     chunk_size: int = 512,
     attn_impl: str = "xla",
     temperature: float = 1.0,
+    mesh=None,
     device="cuda",
 ) -> Callable[[Any, Dict[str, Any]], Tuple[torch.Tensor, torch.Tensor]]:
     """Forward-only logprob (+entropy) recompute, for old/ref/proximal
     logprobs. Unlike the train step's loss, it passes ``temperature`` to
-    the lm-head (as the JAX package does; the two agree at 1.0)."""
+    the lm-head (as the JAX package does; the two agree at 1.0). Under
+    ``mesh`` each rank computes its rows of the global batch and every rank
+    gets the global result."""
+    from rlinf_tpu_torch.parallel.distributed import fetch_global
+
     dev = resolve_device(device)
-    check_on_card(cfg, dev, attn_impl=attn_impl)
+    ms = MeshStep(cfg, mesh)
+    check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
     @torch.no_grad()
     def logprob_fn(params, batch):
-        batch = _to_device(batch, dev)
-        hidden, _ = M.forward_hidden(
-            params, cfg, batch["input_ids"],
-            attention_mask=batch["attention_mask"], attn_impl=attn_impl,
-        )
-        return linear_logprobs_and_entropy(
-            params, cfg, hidden, batch["target_ids"], chunk_size=chunk_size,
-            temperature=temperature,
-        )
+        with ms.active():
+            batch = _to_device(ms.rows(batch), dev)
+            hidden, _ = M.forward_hidden(
+                params, cfg, batch["input_ids"],
+                attention_mask=batch["attention_mask"], attn_impl=attn_impl,
+            )
+            lp, ent = linear_logprobs_and_entropy(
+                params, cfg, hidden, batch["target_ids"], chunk_size=chunk_size,
+                temperature=temperature,
+            )
+            if mesh is None:
+                return lp, ent
+            return fetch_global(lp, mesh), fetch_global(ent, mesh)
 
     return logprob_fn

@@ -21,7 +21,15 @@ bf16 parameters, f32 against the f32 master copy), then the dtype of the
 arithmetic that updates them (bf16 moments updated with f32 gradients
 become f32, as in optax; adafactor casts its statistics back to the
 parameter's dtype). ``torch.optim.AdamW`` rounds in another order and is
-not used. ``create_train_state`` takes no mesh yet.
+not used.
+
+Under a mesh the params are this rank's blocks (``create_train_state(mesh=,
+partition_rules=)``) and the optimizer state is made from them, so it is
+sharded like the params (the JAX package's ``_opt_state_specs``). adamw is
+elementwise, so it runs on the blocks as they are; its global-norm clip
+reads the norm the train step reduced across the mesh (``update(...,
+grad_norm=)``). adafactor's factored statistics reduce over whole rows and
+columns: it takes a mesh that shards no leaf (data only).
 """
 
 from __future__ import annotations
@@ -156,9 +164,11 @@ class Optimizer:
     the state passed in is consumed.
     """
 
-    def __init__(self, init: Callable, update: Callable):
+    def __init__(self, init: Callable, update: Callable, elementwise: bool = True):
         self.init = init
         self.update = update
+        #: False where the update of an element reads others (adafactor)
+        self.elementwise = elementwise
 
 
 def _store(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
@@ -169,10 +179,15 @@ def _store(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     return old
 
 
-def _global_clip(grads, clip: float) -> Callable:
+def _global_clip(grads, clip: float, grad_norm=None) -> Callable:
     """optax.clip_by_global_norm(clip) (or identity at clip <= 0) as a
-    function of one leaf: g / ||grads|| * clip where the norm reaches clip."""
-    g_norm = global_norm(grads) if clip > 0 else None
+    function of one leaf: g / ||grads|| * clip where the norm reaches clip.
+    ``grad_norm``: the norm of the whole (sharded) gradient, where
+    ``grads`` holds this rank's blocks."""
+    if clip <= 0:
+        g_norm = None
+    else:
+        g_norm = global_norm(grads) if grad_norm is None else grad_norm
     if g_norm is None or bool(g_norm < clip):
         return lambda g: g
     return lambda g: (g / g_norm.to(g.dtype)) * clip
@@ -193,12 +208,12 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
         }
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, grad_norm=None):
         count = state["count"]
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** (count + 1)
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** (count + 1)
         step_size = -lr(count) if callable(lr) else -lr
-        clipped = _global_clip(grads, clip)
+        clipped = _global_clip(grads, clip, grad_norm)
 
         def leaf(g, mu, nu, p):
             g = clipped(g)
@@ -284,12 +299,12 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, grad_norm=None):
         count = state["count"]
         t = torch.tensor(count + 1, dtype=torch.float32)
         decay = 1.0 - t ** (-exponent)          # f32, as optax's _decay_rate_pow
         step = lr(count) if callable(lr) else None
-        clipped = _global_clip(grads, clip)
+        clipped = _global_clip(grads, clip, grad_norm)
 
         def leaf(g, v_row, v_col, v, p):
             g = clipped(g)
@@ -330,7 +345,7 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
                                     for i in range(4))
         return updates, {"count": count + 1, "v_row": v_row, "v_col": v_col, "v": v}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=False)
 
 
 def with_master_weights(inner: Optimizer) -> Optimizer:
@@ -344,9 +359,10 @@ def with_master_weights(inner: Optimizer) -> Optimizer:
         return {"inner": inner.init(master), "master": master}
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, grad_norm=None):
         grads32 = tree_map(lambda g: g.float(), grads)
-        updates32, inner_state = inner.update(grads32, state["inner"], state["master"])
+        updates32, inner_state = inner.update(grads32, state["inner"], state["master"],
+                                              grad_norm=grad_norm)
 
         def leaf(m, u, p):
             m.add_(u)                          # new master, in place
@@ -355,7 +371,7 @@ def with_master_weights(inner: Optimizer) -> Optimizer:
         emitted = tree_map(leaf, state["master"], updates32, params)
         return emitted, {"inner": inner_state, "master": state["master"]}
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, elementwise=inner.elementwise)
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
@@ -370,13 +386,48 @@ def create_train_state(
     init_params_fn: Callable[[], Any],
     tx: Optimizer,
     mesh=None,
+    partition_rules=None,
 ) -> TrainState:
-    """Params from ``init_params_fn()`` and the optimizer state for them."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "create_train_state(mesh=...) comes with the port's parallel slice")
+    """Params from ``init_params_fn()`` and the optimizer state for them.
+
+    Under ``mesh`` the full params are cut into this rank's blocks under
+    ``partition_rules`` and the optimizer state is made from the blocks:
+    each moment is sharded like its parameter."""
     params = init_params_fn()
+    if mesh is not None:
+        from rlinf_tpu_torch.parallel.sharding import Layout
+
+        layout = Layout.from_rules(mesh, partition_rules, params)
+        _check_optimizer_on_mesh(tx, layout)
+        params = layout.shard(params)
     return TrainState(0, params, tx.init(params))
+
+
+def _check_optimizer_on_mesh(tx: Optimizer, layout) -> None:
+    if getattr(tx, "elementwise", True):
+        return
+    if any(layout.specs[p] for p in layout.specs):
+        raise NotImplementedError(
+            "adafactor reduces over whole rows and columns: under a mesh that shards "
+            "the params (tensor or fsdp > 1) use adamw (ROADMAP.md §A.9b)")
+
+
+def rescale_train_state(state: TrainState, new_mesh, partition_rules, *,
+                        old_layout=None) -> TrainState:
+    """Re-shard a live TrainState (params and optimizer state) onto
+    ``new_mesh`` under the same rules: the online parallel-strategy switch.
+    Every rank gathers each leaf whole under ``old_layout`` (the blocks'
+    layout; None: the leaves are whole already) and keeps its block of the
+    new mesh (None: the whole leaves, as on one card)."""
+    from rlinf_tpu_torch.parallel.sharding import Layout
+
+    params, opt_state = state.params, state.opt_state
+    if old_layout is not None:
+        params, opt_state = old_layout.gather(params), old_layout.gather(opt_state)
+    if new_mesh is not None:
+        new = Layout.from_rules(new_mesh, partition_rules, params)
+        params, opt_state = new.shard(params), new.shard(opt_state)
+    return TrainState(state.step, params, opt_state)
 
 
 def apply_updates(params, updates) -> None:

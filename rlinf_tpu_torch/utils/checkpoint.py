@@ -17,6 +17,13 @@ them (bf16 moments updated with f32 gradients become f32, as in optax),
 so a template built before any step is narrower there. These
 checkpoints are not orbax checkpoints: the JAX package cannot read them,
 nor the port the JAX package's.
+
+A manager given a ``layout`` (``parallel.sharding.Layout``: the specs of
+a sharded state's leaves on its mesh) saves and restores a sharded state:
+the save gathers every leaf whole and the mesh's first rank writes the
+single-card layout; a restore loads the whole leaves on every rank and
+keeps each rank's block. So a checkpoint written at one mesh restores at
+any other, and on one card.
 """
 
 from __future__ import annotations
@@ -49,20 +56,25 @@ def _widened(saved: torch.dtype, want: torch.dtype) -> bool:
             and torch.finfo(saved).bits > torch.finfo(want).bits)
 
 
-def _rebuild(template, prefix: str, flat: Dict[str, Any], widen: bool = False):
+def _rebuild(template, prefix: str, flat: Dict[str, Any], widen: bool = False,
+             block=None):
     """``template``'s structure with the leaves of ``flat``; ``widen``: the
-    subtree's floating leaves may be wider than the template's."""
+    subtree's floating leaves may be wider than the template's; ``block``:
+    (path, whole tensor) -> this rank's block."""
     if isinstance(template, dict):
-        return {k: _rebuild(v, f"{prefix}/{k}", flat, widen) for k, v in template.items()}
+        return {k: _rebuild(v, f"{prefix}/{k}", flat, widen, block)
+                for k, v in template.items()}
     if isinstance(template, (list, tuple)):
         fields = getattr(template, "_fields", None)          # NamedTuple
         items = [_rebuild(v, f"{prefix}/{i}", flat,
-                          widen or (fields is not None and fields[i] == "opt_state"))
+                          widen or (fields is not None and fields[i] == "opt_state"), block)
                  for i, v in enumerate(template)]
         return type(template)(*items) if fields else type(template)(items)
     if prefix not in flat:
         raise ValueError(f"checkpoint has no leaf {prefix!r}")
     got = flat[prefix]
+    if block is not None and isinstance(got, torch.Tensor):
+        got = block(prefix, got)
     if isinstance(template, torch.Tensor):
         if not isinstance(got, torch.Tensor):
             raise ValueError(f"{prefix}: checkpoint holds {type(got).__name__}, not a tensor")
@@ -80,10 +92,30 @@ def _rebuild(template, prefix: str, flat: Dict[str, Any], widen: bool = False):
 
 
 class CheckpointManager:
-    def __init__(self, root_dir: str, max_to_keep: int = 3):
+    def __init__(self, root_dir: str, max_to_keep: int = 3, layout=None):
         self.root_dir = os.path.abspath(root_dir)
         os.makedirs(self.root_dir, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.layout = layout
+
+    def _writer(self) -> bool:
+        """Whether this rank writes (the mesh's first rank, or any rank
+        without a layout)."""
+        if self.layout is None:
+            return True
+        import torch.distributed as dist
+
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        return rank == self.layout.mesh.ranks[0]
+
+    def _mesh_barrier(self):
+        if self.layout is None:
+            return
+        from rlinf_tpu_torch.parallel import collectives as C
+
+        mesh = self.layout.mesh
+        C.all_reduce_(torch.zeros(1, device=torch.device(mesh.device_type)), "sum",
+                      mesh.get_group(tuple(mesh.shape)))
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.root_dir, f"global_step_{step}")
@@ -100,11 +132,22 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any, extra: Optional[Dict] = None):
         """Save the state tree and JSON-serializable extra state (dataloader
-        position, rng seeds, config echo)."""
+        position, rng seeds, config echo). With a layout every rank of its
+        mesh calls this: the leaves are gathered whole, one rank writes."""
+        flat = flatten(state)
+        if self.layout is not None:
+            from rlinf_tpu_torch.parallel.sharding import gather_block
+
+            lay = self.layout
+            flat = {k: gather_block(v, lay.spec_for(k, v.shape), lay.mesh).cpu()
+                    if isinstance(v, torch.Tensor) else v for k, v in flat.items()}
+        if not self._writer():
+            self._mesh_barrier()
+            return
         path = self._step_dir(step)
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, STATE_FILE + ".tmp")
-        torch.save(flatten(state), tmp)
+        torch.save(flat, tmp)
         os.replace(tmp, os.path.join(path, STATE_FILE))
         if extra is not None:
             with open(os.path.join(path, "extra.json"), "w") as f:
@@ -112,6 +155,7 @@ class CheckpointManager:
         with open(os.path.join(path, "_DONE"), "w") as f:
             f.write("ok")
         self._gc()
+        self._mesh_barrier()
 
     def restore(self, state_template: Any, step: Optional[int] = None
                 ) -> Tuple[Any, Optional[Dict], Optional[int]]:
@@ -128,7 +172,13 @@ class CheckpointManager:
                        if isinstance(t, torch.Tensor)), "cpu")
         flat = torch.load(os.path.join(path, STATE_FILE), map_location=device,
                           weights_only=True)
-        state = _rebuild(state_template, "", flat)
+        block = None
+        if self.layout is not None:
+            from rlinf_tpu_torch.parallel.sharding import local_block
+
+            lay = self.layout
+            block = lambda k, t: local_block(t, lay.full_spec(k, t), lay.mesh).contiguous()
+        state = _rebuild(state_template, "", flat, block=block)
         extra = None
         extra_path = os.path.join(path, "extra.json")
         if os.path.exists(extra_path):

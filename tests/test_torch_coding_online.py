@@ -66,36 +66,43 @@ def test_extract_code_matches_jax():
         assert tcv.extract_code(text) == jcv.extract_code(text), text
 
 
-@pytest.mark.parametrize("code, stdin, want", [
-    ("print(int(input()) * 2)", "3\n", "6"),
-    ("print(int(input()) * 2)", "3\n", "7"),
-    ("print('a  ')\nprint('b')", "", "a\nb\n"),
-    ("import sys\nsys.exit(1)", "", ""),
-    ("print(", "", ""),
-    ("import time\ntime.sleep(5)", "", ""),
+#: the timeout a snippet that ends gets: a loaded machine (six test
+#: workers) can take most of a second to start an interpreter, and a slow
+#: start must not turn a pass into a timeout
+ENDS_S = 10.0
+
+
+@pytest.mark.parametrize("code, stdin, want, timeout_s", [
+    ("print(int(input()) * 2)", "3\n", "6", ENDS_S),
+    ("print(int(input()) * 2)", "3\n", "7", ENDS_S),
+    ("print('a  ')\nprint('b')", "", "a\nb\n", ENDS_S),
+    ("import sys\nsys.exit(1)", "", "", ENDS_S),
+    ("print(", "", "", ENDS_S),
+    ("while True:\n    pass", "", "", 0.5),
 ])
-def test_run_test_case_matches_jax(code, stdin, want):
+def test_run_test_case_matches_jax(code, stdin, want, timeout_s):
     """Right and wrong output, whitespace normalisation, a non-zero exit, a
-    syntax error and a timeout (0.5 s), on both packages."""
-    got = tcv.run_test_case(code, stdin, want, timeout_s=0.5)
-    assert got == jcv.run_test_case(code, stdin, want, timeout_s=0.5)
+    syntax error, and the timeout (0.5 s) on a snippet that never ends, on
+    both packages."""
+    got = tcv.run_test_case(code, stdin, want, timeout_s=timeout_s)
+    assert got == jcv.run_test_case(code, stdin, want, timeout_s=timeout_s)
 
 
 def test_code_reward_matches_jax_on_a_table():
     """Every snippet against every case list with partial credit, and a
-    batch all-or-nothing (the timeout is held in
-    test_run_test_case_matches_jax)."""
+    batch all-or-nothing. Every snippet ends, so each gets ENDS_S (the
+    timeout is held in test_run_test_case_matches_jax)."""
     seen = set()
     for text in SNIPPETS:
         for cases in CASES:
-            got = tcv.code_reward(text, cases, timeout_s=0.5, partial_credit=True)
-            assert got == jcv.code_reward(text, cases, timeout_s=0.5,
+            got = tcv.code_reward(text, cases, timeout_s=ENDS_S, partial_credit=True)
+            assert got == jcv.code_reward(text, cases, timeout_s=ENDS_S,
                                           partial_credit=True), (text, cases)
             seen.add(got)
     assert {0.0, 0.5, 1.0} <= seen
     texts, lists = SNIPPETS[:4] + SNIPPETS[8:], CASES[:2] * 2 + CASES[2:4]
-    got = tcv.batch_code_rewards(texts, lists, timeout_s=0.5)
-    assert got == jcv.batch_code_rewards(texts, lists, timeout_s=0.5)
+    got = tcv.batch_code_rewards(texts, lists, timeout_s=ENDS_S)
+    assert got == jcv.batch_code_rewards(texts, lists, timeout_s=ENDS_S)
     assert set(got) == {0.0, 1.0}
 
 

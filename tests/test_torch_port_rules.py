@@ -651,3 +651,59 @@ def test_every_activation_kernel_takes_a_dtype_code():
     assert _build.dtype_code("q", torch.zeros(1, dtype=torch.float16)) == 1
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         _build.dtype_code("q", torch.zeros(1, dtype=torch.float64))
+
+
+# the parallel slice: its modules
+PARALLEL_MODULES = (
+    "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+    "parallel/sharding.py", "parallel/collectives.py", "parallel/weight_sync.py",
+    "parallel/launch.py", "parallel/worlds.py", "training/sharded_step.py",
+    "runners/disaggregated_runner.py", "multiprocess_runner_drill.py")
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_modules_import_no_jax(rel):
+    """Each module of the parallel slice exists, is among the files the
+    import rules walk, and imports no JAX, nothing of the JAX package and
+    no HF package."""
+    path = PORT / rel
+    assert path in FILES and path in sorted(PORT.rglob("*.py"))
+    test_no_jax_or_reference_imports(path)
+    test_no_hf_package_imports(path)
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_parallel_modules_default_to_the_card(rel):
+    """Every public ``device`` parameter of the parallel slice defaults to
+    the card; so do the drill's ``--device`` and the runner's."""
+    import inspect
+
+    test_public_device_parameters_default_to_the_card(PORT / rel)
+    from rlinf_tpu_torch.multiprocess_runner_drill import main as drill_main
+    from rlinf_tpu_torch.parallel.distributed import initialize_distributed
+    from rlinf_tpu_torch.runners.disaggregated_runner import DisaggregatedReasoningRunner
+
+    assert inspect.signature(initialize_distributed).parameters["device"].default == "cuda"
+    assert inspect.signature(DisaggregatedReasoningRunner).parameters["device"].default == "cuda"
+    assert "--device" in inspect.getsource(drill_main) and 'default="cuda"' in \
+        inspect.getsource(drill_main)
+
+
+def test_nccl_without_a_card_raises_and_never_takes_gloo(monkeypatch):
+    """``initialize_distributed(backend="nccl")`` without a GPU raises: on
+    the card by default (no CUDA device), and on the CPU (NCCL needs a card
+    a rank); no process group is made, gloo least of all."""
+    import torch
+    import torch.distributed as dist
+
+    from rlinf_tpu_torch.parallel.distributed import initialize_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    made = []
+    monkeypatch.setattr(dist, "init_process_group", lambda *a, **k: made.append((a, k)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        initialize_distributed("file:///nonexistent", 2, 0, backend="nccl")
+    with pytest.raises(RuntimeError, match="nccl"):
+        initialize_distributed("file:///nonexistent", 2, 0, backend="nccl", device="cpu")
+    assert made == [] and not dist.is_initialized()

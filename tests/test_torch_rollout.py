@@ -23,6 +23,7 @@ from rlinf_tpu.models.llm.quant import quantize_params as j_quantize_params
 from rlinf_tpu.models.llm.sampler import SamplingParams as JSampling
 from rlinf_tpu.models.llm.sampler import generate as j_generate
 from rlinf_tpu.rollout.engine import RolloutEngine as JEngine
+from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from rlinf_tpu_torch.config import RolloutConfig
 from rlinf_tpu_torch.data.io_struct import RolloutRequest
 from rlinf_tpu_torch.models.llm.config import LLMConfig as TConfig
@@ -127,8 +128,12 @@ def test_rollout_engine_matches_jax():
     np.testing.assert_array_equal(tres.response_ids, jres.response_ids)
     np.testing.assert_allclose(tres.response_logprobs, jres.response_logprobs, atol=1e-4)
     assert tres.answers == ["a", "b", "c"]
-    with pytest.raises(NotImplementedError):
-        teng.rollout(tp, RolloutRequest(prompt_ids=prompts), torch.Generator(), mesh=object())
+    # a mesh with an expert axis waits for expert parallelism (the static
+    # engine's sharded rollout itself: tests/test_torch_mesh_e2e.py)
+    with pytest.raises(NotImplementedError, match="A.9b"):
+        teng.rollout(tp, RolloutRequest(prompt_ids=prompts), torch.Generator(),
+                     mesh=make_mesh(MeshConfig(data=1, expert=2), ranks=[0, 1],
+                                    device_type="cpu"))
 
 
 def _trainer_cfg(**rollout):
@@ -163,9 +168,14 @@ def test_build_rollout_engine_resolves_on_the_device():
     assert type(eng) is PagedContinuousEngine
     assert (eng.page_size, eng.num_slots, eng.attn_impl) == (8, 4, "xla")
     assert eng.max_pages_per_slot == 5 and eng.num_pages == 1 + 4 * 5
-    for engine in ("static", "auto", "paged"):
+    # under a mesh "auto" is the static engine; the slot-pool engines refuse one
+    mesh = make_mesh(MeshConfig(data=-1), ranks=[0, 1], device_type="cpu")
+    for engine in ("static", "auto"):
+        eng = build_rollout_engine(_trainer_cfg(engine=engine), mesh=mesh, device="cpu")
+        assert type(eng) is RolloutEngine
+    for engine in ("continuous", "paged"):
         with pytest.raises(NotImplementedError):
-            build_rollout_engine(_trainer_cfg(engine=engine), mesh=object(), device="cpu")
+            build_rollout_engine(_trainer_cfg(engine=engine), mesh=mesh, device="cpu")
     with pytest.raises(ValueError):
         build_rollout_engine(_trainer_cfg(engine="bogus"), device="cpu")
 

@@ -27,6 +27,7 @@ from rlinf_tpu.data.datasets import PromptExample as JExample
 from rlinf_tpu.data.tokenizers import ByteTokenizer as JTokenizer
 from rlinf_tpu.models.llm import init_params as jinit_params
 from rlinf_tpu.runners.reasoning_runner import ReasoningRunner as JRunner
+from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from rlinf_tpu_torch import config as tconfig
 from rlinf_tpu_torch import main_grpo
 from rlinf_tpu_torch.data import io_struct as tio
@@ -385,12 +386,15 @@ def test_run_pipelined_rolls_out_on_a_snapshot(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override, kwargs, error, match", [
     ("optimizer.name=sgd", {}, ValueError, "must be adamw"),
-    ("runner.seed=0", {"mesh": object()}, NotImplementedError, "A.9"),
+    ("runner.seed=0", {"mesh": make_mesh(MeshConfig(data=1, expert=2), ranks=[0, 1],
+                                         device_type="cpu")}, NotImplementedError, "A.9"),
 ])
 def test_unported_options_raise(override, kwargs, error, match):
     """What the runner still refuses: an optimizer other than adamw and
-    adafactor, and a mesh. (Adafactor and LoRA run: tests/test_torch_lora.py
-    and the optimizer's cases in tests/test_torch_training.py.)"""
+    adafactor, and a mesh with an expert (or context) axis, which waits for
+    ROADMAP §A.9b. (Adafactor and LoRA run: tests/test_torch_lora.py and
+    the optimizer's cases in tests/test_torch_training.py; the runner on a
+    data x fsdp x tensor mesh: tests/test_torch_mesh_e2e.py.)"""
     _, tdata = _datasets()
     cfg = tconfig.load_config(YAML, [override, "runner.log_dir=null"])
     with pytest.raises(error, match=match):

@@ -361,9 +361,9 @@ def test_metric_logger_backends(tmp_path):
 # the packages' exports
 # ---------------------------------------------------------------------------
 
-#: names the port leaves to a later slice: the tensor-parallel logprobs
-#: need a mesh (the parallel slice)
-NOT_YET = {"rlinf_tpu.ops": {"vocab_parallel_logprobs_and_entropy"}}
+#: names the port leaves to a later slice (none since the tensor-parallel
+#: logprobs came with the mesh)
+NOT_YET = {}
 
 
 def _public(mod):

@@ -20,6 +20,7 @@ from rlinf_tpu.models.llm import model as JM
 from rlinf_tpu.models.llm.config import LLMConfig as JConfig
 from rlinf_tpu.training import learner as JL
 from rlinf_tpu.training import train_state as JS
+from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
 from rlinf_tpu_torch import config as tconfig
 from rlinf_tpu_torch.models.llm import model as TM
 from rlinf_tpu_torch.models.llm.config import LLMConfig as TConfig
@@ -139,14 +140,23 @@ def test_optimizer_three_steps_match_optax(case, grad_dtype):
 
 
 def test_optimizer_rejects_adafactor_and_mesh():
-    """sgd and a mesh raise; adafactor is an optimizer of the port now (its
-    updates are held against optax by the cases above)."""
+    """sgd raises; adafactor is an optimizer of the port (its updates are
+    held against optax by the cases above), but not on a mesh that shards
+    its leaves: its factored statistics reduce over whole rows and columns.
+    adamw takes the same mesh (each rank its block)."""
     tx = TS.make_optimizer(TS.OptimizerConfig(name="adafactor"))
     assert set(tx.init({"w": torch.zeros(256, 128)})) == {"count", "v_row", "v_col", "v"}
     with pytest.raises(ValueError):
         TS.make_optimizer(TS.OptimizerConfig(name="sgd"))
-    with pytest.raises(NotImplementedError):
-        TS.create_train_state(lambda: {}, TS.make_optimizer(TS.OptimizerConfig()), mesh=object())
+    mesh = make_mesh(MeshConfig(data=1, tensor=2), ranks=[0, 1], device_type="cpu")
+    rules = [(r"w", (None, "tensor"))]
+    with pytest.raises(NotImplementedError, match="adafactor"):
+        TS.create_train_state(lambda: {"w": torch.zeros(256, 128)}, tx, mesh=mesh,
+                              partition_rules=rules)
+    st = TS.create_train_state(lambda: {"w": torch.zeros(256, 128)},
+                               TS.make_optimizer(TS.OptimizerConfig()), mesh=mesh,
+                               partition_rules=rules)
+    assert st.params["w"].shape == st.opt_state["mu"]["w"].shape == (256, 64)
 
 
 @pytest.mark.parametrize("fields", [
