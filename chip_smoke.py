@@ -3,7 +3,7 @@
 the rollout serving paths (static, megakernel, continuous and paged
 engines), the GRPO training path, the runners and server mode, HF
 checkpoints, the MoE model family, the agent recipes and the
-AgentLightning runner.
+AgentLightning runner, the mesh drill and the VLM reasoning stack.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -231,7 +231,7 @@ Then Hugging Face checkpoints and the MoE model family:
    metrics with ``actor/moe_aux_loss``; ``capacity_overflow_frac`` reported
    at the rollout's decode shape and at a training microbatch.
 
-Last, the agent recipes and the AgentLightning runner:
+Then the agent recipes and the AgentLightning runner:
 
 25. agent_recipes: at grpo_math_qwen05b.yaml's model, full width, 8 of its
    24 layers (``RECIPES_CUT``)
@@ -261,7 +261,7 @@ Last, the agent recipes and the AgentLightning runner:
    (``SHADOW_BARS``), and its logprob drift from the behaviour logprobs,
    both ways (``DRIFT_BAR``). Also whether ``sympy`` imports.
 
-Last, the mesh, across processes:
+Then the mesh, across processes:
 
 26. mesh_drill: ``python -m rlinf_tpu_torch.multiprocess_runner_drill
    --device cuda --num-processes 4 --model qwen2_0_5b`` at DRILL_CUT's
@@ -283,6 +283,27 @@ Last, the mesh, across processes:
    rank's step seconds, the weight sync's seconds and bytes, all-reduces
    per step, each rank's peak memory. These are times of gloo between
    processes that share one card: they say nothing of NCCL on several.
+
+Last, the VLM reasoning stack:
+
+27. vlm: ``rlinf_tpu_torch.main_vlm_grpo.main`` at full width and depth:
+   the decoder of ``LLMConfig.qwen2_0_5b`` (bf16, 24 layers, V=151,936),
+   a vision tower at CLIP ViT-L/14-224's widths (``VLM_VIT``: 24 timm-style
+   layers of 1024, 16 heads, 256 patches of 14 px and a class token, f32),
+   the two-layer GELU projector to 896 (f32), ``color_dataset`` at 224x224,
+   4 prompts x 8 = 32 rows, 32 new tokens (``VLM_RUN``), random weights
+   from --seed; 2 ``VLMSFTRunner`` steps, then 2 ``VLMReasoningRunner``
+   steps from the SFT'd params, rewards from ``vlm_rule`` (crc32 of the
+   text mod 2, on ``IdTextTokenizer``'s texts, which render every id)
+   so that the groups are mixed. Gates: every param, optimizer moment and
+   batch tensor on the card; finite losses and grad norms; the params
+   moved; at GRPO step 1 the mean and max |behaviour - recompute| logprob
+   over the response tokens under ``VLM_GAP_BAR``; at least half the groups
+   mixed; every kernel's launch count 0 (the path runs the plain versions,
+   as the JAX package's VLM runs XLA; the reason is printed). Reported:
+   seconds a step of rollout, reward, training and the whole step, SFT
+   seconds a step, step-1 ``actor/approx_kl``, the mixed groups' share,
+   peak memory.
 
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures (each with its timed ``variants`` of
@@ -5677,6 +5698,172 @@ def mesh_drill_phase(kerns, gpu, seed) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 27: the VLM reasoning stack
+# ---------------------------------------------------------------------------
+
+#: the vision tower at the widths of CLIP ViT-L/14 at 224 px
+#: (openai/clip-vit-large-patch14: 24 layers of 1024, 16 heads, MLP ratio 4,
+#: 256 patches of 14 px and a class token), timm-style blocks
+VLM_VIT = dict(image_size=224, patch_size=14, hidden=1024, layers=24, heads=16,
+               timm_style=True, cls_token=True)
+#: 4 prompts x the example's group of 8 = 32 rows, 32 new tokens; 2 SFT
+#: steps, then 2 GRPO steps from the SFT'd params (the example: 8 prompts,
+#: 8 new tokens, 40 and 60 steps)
+VLM_RUN = dict(rollout_batch_size=4, max_new_tokens=32, sft_steps=2, grpo_steps=2)
+#: behaviour logprobs (bf16 KV-cached decode) against forward's recompute
+#: (bf16 full-sequence forward) on step 1's response tokens: the runner
+#: phase's bar for the same bf16 gap (phase 4's per-token bar is 0.15)
+VLM_GAP_BAR = DRIFT_BAR
+
+
+class IdTextTokenizer:
+    """The byte tokenizer, whose decode also renders every id past the
+    byte range as "<id>": with Qwen's 151,936 ids and random weights the
+    byte tokenizer decodes ~0.17% of the tokens, so nearly every 32-token
+    text would be empty and no reward rule on texts could tell the rows
+    apart."""
+
+    def __init__(self):
+        from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+
+        self._bytes = ByteTokenizer()
+        self.pad_id, self.eos_id = self._bytes.pad_id, self._bytes.eos_id
+
+    def encode(self, text):
+        return self._bytes.encode(text)
+
+    def decode(self, ids):
+        return "".join(self._bytes.decode([i]) if 2 <= i < 258 else f"<{i}>" for i in ids)
+
+
+def vlm_rule(texts, answers):
+    """crc32 of the text mod 2: about half the rows score 1, so nearly every
+    group of 8 is mixed (with random weights the VQA reward scores every
+    response 0 and the update would be vacuous)."""
+    import zlib
+
+    return [float(zlib.crc32(t.encode("utf-8")) % 2) for t in texts]
+
+
+def off_card(tree) -> list:
+    """Paths of the tensors of ``tree`` that do not lie on the card."""
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    return [k for k, v in flatten(tree).items()
+            if isinstance(v, torch.Tensor) and v.device.type != "cuda"]
+
+
+@contextlib.contextmanager
+def watching_vlm(record: dict):
+    """For one main_vlm_grpo run: keep each train step's batch placement,
+    the share of mixed groups and, before GRPO step 1's update, the gap
+    between the behaviour logprobs and forward's recompute on the response
+    tokens; clone the params before the first SFT step."""
+    from rlinf_tpu_torch.runners.vlm_reasoning_runner import VLMReasoningRunner
+    from rlinf_tpu_torch.runners.vlm_sft_runner import VLMSFTRunner
+
+    orig = {R: R._train_step for R in (VLMSFTRunner, VLMReasoningRunner)}
+
+    def sft_step(self, state, batch):
+        if "params0" not in record:
+            record["params0"] = clone_tree(state.params)
+        record.setdefault("off_card", []).extend(f"sft batch {k}" for k in off_card(batch))
+        return orig[VLMSFTRunner](self, state, batch)
+
+    def grpo_step(self, state, batch):
+        record.setdefault("off_card", []).extend(f"grpo batch {k}" for k in off_card(batch))
+        G = self.cfg.algorithm.group_size
+        adv = batch["advantages"].abs().reshape(-1, G * batch["advantages"].shape[1])
+        record.setdefault("mixed_group_share", []).append(
+            float((adv.amax(dim=1) > 0).float().mean()))
+        if "gap" not in record:
+            with torch.no_grad():
+                lp, _ = self.model.forward(
+                    state.params, batch["images"], batch["prompt_ids"], batch["prompt_mask"],
+                    batch["response_ids"], batch["loss_mask"],
+                    temperature=self.cfg.sampling.temperature)
+            m = batch["loss_mask"]
+            d = (lp - batch["old_logprobs"]).abs()[m]
+            record["gap"] = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                             "tokens": int(m.sum()), "bar": VLM_GAP_BAR}
+        return orig[VLMReasoningRunner](self, state, batch)
+
+    VLMSFTRunner._train_step, VLMReasoningRunner._train_step = sft_step, grpo_step
+    try:
+        yield
+    finally:
+        for R, fn in orig.items():
+            R._train_step = fn
+
+
+def vlm_phase(kerns, gpu, seed) -> dict:
+    """Phase 27 (see the module docstring). Returns the launches of the run
+    (all 0: the path takes the plain versions, as the JAX package's VLM
+    takes XLA)."""
+    from rlinf_tpu_torch import main_vlm_grpo
+    from rlinf_tpu_torch.models.embodiment.vit import ViTConfig
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+
+    t_phase = time.perf_counter()
+    model, vit = LLMConfig.qwen2_0_5b(), ViTConfig(**VLM_VIT)
+    record = {}
+    torch.cuda.reset_peak_memory_stats()
+    with watching_vlm(record):
+        res, secs, counts = run_counted(kerns, lambda: main_vlm_grpo.main(
+            "cuda", VLM_RUN["sft_steps"], VLM_RUN["grpo_steps"], model=model, vit=vit,
+            rollout_batch_size=VLM_RUN["rollout_batch_size"],
+            max_new_tokens=VLM_RUN["max_new_tokens"], tokenizer=IdTextTokenizer(),
+            reward_fn=vlm_rule, seed=seed, log_dir=None))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    sft, grpo, runner = res["sft"], res["grpo"], res["runner"]
+    time_keys = ("time/rollout", "time/reward", "time/training", "time/step")
+    out = {"phase": "vlm", "gpu": gpu, "entry": "rlinf_tpu_torch.main_vlm_grpo.main",
+           "decoder": f"qwen2_0_5b ({model.dtype}, {model.num_layers} layers, D="
+                      f"{model.hidden_size}, V={model.vocab_size})", "vision_tower": VLM_VIT,
+           "projector": f"2-layer tanh-GELU MLP {vit.hidden} -> {model.hidden_size} -> "
+                        f"{model.hidden_size}, f32",
+           "rows": VLM_RUN["rollout_batch_size"] * runner.cfg.algorithm.group_size,
+           "prefix_tokens": vit.num_patches + len("what color?"), **VLM_RUN,
+           "seconds": secs, "sft_step_s": [h["time/step"] for h in sft],
+           "grpo_history": [{k: h[k] for k in (*time_keys, "actor/loss", "actor/grad_norm",
+                                             "actor/approx_kl", "rollout/reward_mean")}
+                          for h in grpo],
+           "sft_history": [{k: h[k] for k in ("sft/loss", "sft/grad_norm", "time/step")}
+                         for h in sft],
+           "step1_approx_kl": grpo[0]["actor/approx_kl"],
+           "logprob_gap_step1": record["gap"],
+           "mixed_group_share": record["mixed_group_share"],
+           "params_moved_share": moved_share(runner.state.params, record["params0"]),
+           "max_memory_allocated_gib": peak_gb, "launches": counts,
+           "launches_why_zero": "the path runs no hand-written kernel: the ViT's and the "
+                                "decoder's attention take the plain causal_attention "
+                                "(impl='xla'), the decode the plain decode_attention on the "
+                                "unpacked cache, the logprobs an f32 matmul + log_softmax, "
+                                "as the JAX package's VLM takes XLA"}
+    bad = [b for b in finite_steps(sft) + finite_steps(grpo)]
+    bad += record["off_card"]
+    bad += [f"state {k} off the card" for r in (res["sft_runner"], runner)
+            for k in off_card(r.state)]
+    bad += [f"{k} launched {c}" for k, c in counts.items() if c]
+    if not (len(sft) == VLM_RUN["sft_steps"] and len(grpo) == VLM_RUN["grpo_steps"]):
+        bad.append(f"{len(sft)} SFT and {len(grpo)} GRPO steps")
+    if not out["params_moved_share"] > 0:
+        bad.append("params did not move")
+    bad += [f"logprob gap {k} {record['gap'][k]} over {bar}" for k, bar in VLM_GAP_BAR.items()
+            if not record["gap"][k] < bar]
+    if not min(record["mixed_group_share"]) >= 0.5:
+        bad.append(f"mixed groups {record['mixed_group_share']}: the update is near vacuous")
+    del res, runner, record
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds_phase"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"VLM phase failed: {bad}")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6012,6 +6199,10 @@ def main() -> int:
     # 26. the mesh: ReasoningRunner(mesh=) and the disaggregated runner,
     # 4 processes on the card
     for k, c in mesh_drill_phase(kerns, gpu, args.seed).items():
+        launches[k] += c
+
+    # 27. the VLM reasoning stack through main_vlm_grpo (SFT, then GRPO)
+    for k, c in vlm_phase(kerns, gpu, args.seed).items():
         launches[k] += c
 
     results += new_results

@@ -3,10 +3,11 @@
 The port's own copy of ``PromptExample``, ``PromptDataset``,
 ``StatefulBatchIterator`` and the reasoning-dataset family
 (``ReasoningDataset``, ``WideSeekR1Dataset``, ``Rstar2Dataset``,
-``create_rl_dataset``) from ``rlinf_tpu/data/datasets.py``: the batch
-order comes from ``random.Random(f"{seed}-{epoch}")``, so both packages
-hand out the same batches. ``VQADataset`` and ``EpisodeDataset`` come with
-the VLM and embodied slices.
+``create_rl_dataset``) and the VLM's ``VQAExample`` and ``VQADataset``
+from ``rlinf_tpu/data/datasets.py``: the batch order comes from
+``random.Random(f"{seed}-{epoch}")``, so both packages hand out the same
+batches. ``EpisodeDataset`` comes with the embodied slice (ROADMAP.md
+§A.11).
 """
 
 from __future__ import annotations
@@ -61,6 +62,67 @@ class PromptDataset:
         return len(self.examples)
 
     def __getitem__(self, i: int) -> PromptExample:
+        return self.examples[i]
+
+
+@dataclasses.dataclass
+class VQAExample:
+    """One VQA row: image (path or array), question, answer(s)."""
+
+    image: object                 # str path or np.ndarray HWC
+    question: str
+    answers: List[str]
+    meta: Optional[dict] = None
+
+
+class VQADataset:
+    """VQA jsonl: {image|image_path, question, answer|answers} (reference
+    rlinf/data/datasets VQA/VLM loaders). ``from_jsonl`` reads a local file;
+    ``load_image`` decodes a path row to a float32 HWC array in [0, 1]
+    (PIL, imported only then) and passes an array row through as float32;
+    the answers list feeds the soft-accuracy reward."""
+
+    def __init__(self, examples: Sequence[VQAExample]):
+        self.examples = list(examples)
+
+    @staticmethod
+    def from_jsonl(path: str, max_examples: Optional[int] = None) -> "VQADataset":
+        out = []
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                row = json.loads(line)
+                image = row.get("image", row.get("image_path"))
+                question = row.get("question", row.get("prompt"))
+                answers = row.get("answers")
+                if answers is None:
+                    a = row.get("answer", row.get("label"))
+                    answers = [str(a)] if a is not None else []
+                if image is None or question is None:
+                    continue
+                out.append(VQAExample(image, str(question),
+                                      [str(a) for a in answers], meta=row))
+                if max_examples and len(out) >= max_examples:
+                    break
+        return VQADataset(out)
+
+    @staticmethod
+    def load_image(ex: VQAExample):
+        import numpy as np
+
+        if isinstance(ex.image, str):
+            from PIL import Image
+
+            with Image.open(ex.image) as im:
+                return np.asarray(im.convert("RGB"), np.float32) / 255.0
+        return np.asarray(ex.image, np.float32)
+
+    def __len__(self) -> int:
+        return len(self.examples)
+
+    def __getitem__(self, i: int) -> VQAExample:
         return self.examples[i]
 
 

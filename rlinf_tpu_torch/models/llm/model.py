@@ -2,8 +2,10 @@
 functions on tensors.
 
 Port of ``rlinf_tpu/models/llm/model.py``: the differentiable forward of
-training (with per-block rematerialization), prefill, and the packed (bf16
-and int8) KV-cache decode steps. Parameters are a dict of
+training (with per-block rematerialization, and a multimodal prefix through
+``inputs_embeds``), prefill, the unpacked KV-cache decode steps of the VLM
+(``decode_step``, ``decode_step_ragged``, ``decode_step_layered``) and the
+packed (bf16 and int8) ones. Parameters are a dict of
 tensors with the JAX package's key names and layouts: layer weights are
 stacked along a leading [L, ...] axis and matmul weights are [D_in, D_out]
 (``convert.params_from_numpy`` turns a JAX param tree into this dict).
@@ -39,7 +41,7 @@ from torch.utils.checkpoint import (
 
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.models.llm.quant import QTensor, mm
-from rlinf_tpu_torch.ops.attention import causal_attention
+from rlinf_tpu_torch.ops.attention import causal_attention, decode_attention
 from rlinf_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_packed,
     decode_attention_packed_q8,
@@ -396,9 +398,15 @@ def _block(
     positions: torch.Tensor,
     kv_valid_mask: Optional[torch.Tensor],
     attn_impl: str,
+    mask_positions: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], Optional[torch.Tensor]]:
     """One transformer block. Returns (x_out, (k, v), moe aux or None) with
-    k/v [B,S,K,D] (this rank's kv heads under a tensor axis)."""
+    k/v [B,S,K,D] (this rank's kv heads under a tensor axis).
+
+    mask_positions: optional [B, S] ints used for the causality test in
+    place of ``positions`` (RoPE still uses ``positions``): tokens that
+    share a mask position attend to each other both ways (prefix-LM and
+    block-causal masks)."""
     B, S, _ = x.shape
     mesh, tp, fsdp = _groups()
     lc = local_config(cfg, mesh)
@@ -406,10 +414,11 @@ def _block(
     h = C.copy_to(rms_norm(x, layer["attn_norm"], cfg.rms_eps), tp)
     q, k, v = _project_qkv(lc, layer, h, B, S)
     q, k = apply_rope(q, k, cos, sin, positions)
+    mpos = positions if mask_positions is None else mask_positions
     attn = causal_attention(
         q, k, v,
-        positions_q=positions,
-        positions_kv=positions,
+        positions_q=mpos,
+        positions_kv=mpos,
         kv_valid_mask=kv_valid_mask,
         impl=attn_impl,
     )
@@ -436,10 +445,12 @@ _save_dots_contexts = functools.partial(create_selective_checkpoint_contexts, _d
 def forward_hidden(
     params: Params,
     cfg: LLMConfig,
-    input_ids: torch.Tensor,
+    input_ids: Optional[torch.Tensor],
     positions: Optional[torch.Tensor] = None,
     attention_mask: Optional[torch.Tensor] = None,
     *,
+    inputs_embeds: Optional[torch.Tensor] = None,
+    mask_positions: Optional[torch.Tensor] = None,
     attn_impl: str = "xla",
     return_kv: bool = False,
     remat=False,
@@ -451,6 +462,11 @@ def forward_hidden(
     over layers (f32 scalar, 0 for a dense model) as a third item.
 
     attention_mask: [B, S] bool, False = padding (left or right).
+    inputs_embeds: [B, S, D] in place of the embedding lookup (``input_ids``
+      None): multimodal prefixes, image patch embeddings spliced before the
+      text. Cast to the compute dtype.
+    mask_positions: [B, S] ints for the causality test only (see
+      ``_block``): prefix-LM and block-causal attention.
     remat: True or "full" recomputes each block in the backward
       (``torch.utils.checkpoint``, non-reentrant), as ``jax.checkpoint``
       does; "dots" keeps the outputs of the projections (``aten.mm`` and
@@ -465,8 +481,8 @@ def forward_hidden(
     del unroll_layers
     if remat not in (False, True, "full", "dots"):
         raise ValueError(f"remat must be False, True, 'full' or 'dots', got {remat!r}")
-    B, S = input_ids.shape
-    dev = input_ids.device
+    B, S = (input_ids if inputs_embeds is None else inputs_embeds).shape[:2]
+    dev = (input_ids if inputs_embeds is None else inputs_embeds).device
     if positions is None:
         if attention_mask is not None:
             positions = (attention_mask.to(torch.int32).cumsum(dim=-1) - 1).clamp_min(0)
@@ -474,10 +490,14 @@ def forward_hidden(
             positions = torch.arange(S, device=dev).expand(B, S)
 
     cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, dev)
-    x = embed_tokens(params, cfg, input_ids)
+    if inputs_embeds is None:
+        x = embed_tokens(params, cfg, input_ids)
+    else:
+        x = inputs_embeds.to(cfg.compute_dtype)
 
     def block_fn(x, layer):
-        return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl)
+        return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl,
+                      mask_positions)
 
     ks, vs = [], []
     aux_sum = None
@@ -565,6 +585,135 @@ def prefill(
     k = F.pad(kv.k, (0, 0, 0, 0, 0, pad))
     v = F.pad(kv.v, (0, 0, 0, 0, 0, pad))
     return hidden[:, -1, :], KVCache(k=k, v=v)
+
+
+# ---------------------------------------------------------------------------
+# Unpacked decode path: the [L, B, S_max, Kv, Hd] cache of the VLM and the
+# VLA policies, attention by the plain ``decode_attention`` as in the JAX
+# package (no kernel reads this layout). The steps write the new token's
+# k/v into the cache IN PLACE and return the same buffers, where the JAX
+# package returns new ones: a caller must not keep the old cache.
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, device="cuda") -> KVCache:
+    """Zeros of [L, B, S_max, Kv, Hd] in the compute dtype (this rank's kv
+    heads under a tensor axis)."""
+    device = resolve_device(device)
+    shape = (cfg.num_layers, batch, max_len, local_config(cfg, current_mesh()).num_kv_heads,
+             cfg.head_dim_)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+                   v=torch.zeros(shape, dtype=cfg.compute_dtype, device=device))
+
+
+def _write_at(cache_index: int):
+    """buf[:, i] = value for one slot ``cache_index`` of a [B, S, ...]
+    buffer, with ``lax.dynamic_update_slice``'s index rule: a negative index
+    counts from the end, then the index is clamped into [0, S - 1] (a write
+    past the end lands on the last slot)."""
+    i = int(cache_index)
+
+    def write(buf: torch.Tensor, value: torch.Tensor) -> None:
+        S = buf.shape[1]
+        buf[:, min(max(i + S if i < 0 else i, 0), S - 1)] = value
+    return write
+
+
+def _write_rows(write_pos: torch.Tensor):
+    """buf[b, write_pos[b]] = value[b] with ``x.at[rows, pos].set``'s rule:
+    a negative position counts from the end, and a row whose position is
+    still outside [0, S) is dropped (its slot keeps its old value)."""
+    def write(buf: torch.Tensor, value: torch.Tensor) -> None:
+        S = buf.shape[1]
+        wp = write_pos.to(device=buf.device, dtype=torch.long)
+        wp = torch.where(wp < 0, wp + S, wp)
+        inside = (wp >= 0) & (wp < S)
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        wp = wp.clamp(0, S - 1)
+        keep = inside.view(-1, *([1] * (value.dim() - 1)))
+        buf[rows, wp] = torch.where(keep, value.to(buf.dtype), buf[rows, wp])
+    return write
+
+
+def _decode_unpacked(params, cfg, token_ids, kv_layers, write, positions, kv_valid):
+    """One decode step over per-layer (k, v) buffers [B, S_max, Kv, Hd];
+    ``write(buf, value)`` puts this token's [B, Kv, Hd] into a buffer.
+    Returns the [B, D] hidden state."""
+    B = token_ids.shape[0]
+    mesh, tp, fsdp = _groups()
+    lc = local_config(cfg, mesh)
+    cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta,
+                                token_ids.device)
+    x = embed_tokens(params, cfg, token_ids)[:, None, :]
+    pos = positions[:, None]
+    for (kc, vc), layer in zip(kv_layers, _layers(params["blocks"], len(kv_layers))):
+        layer = _gather_layer(layer, cfg, mesh, fsdp)
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_eps)
+        q, k, v = _project_qkv(lc, layer, h, B, 1)
+        q, k = apply_rope(q, k, cos, sin, pos)
+        write(kc, k[:, 0])
+        write(vc, v[:, 0])
+        attn = decode_attention(q, kc, vc, kv_valid)
+        x = x + C.all_reduce(mm(attn.reshape(B, 1, lc.q_dim), layer["wo"]), tp)
+        x, _ = _mlp_or_moe(cfg, x, layer, tp)
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    return x[:, 0, :]
+
+
+def decode_step(
+    params: Params,
+    cfg: LLMConfig,
+    token_ids: torch.Tensor,   # [B] current input token
+    cache: KVCache,
+    cache_index: int,          # write slot (prompt_len + step); a scalar tensor is read
+                               # to the host
+    positions: torch.Tensor,   # [B] rope position of this token
+    kv_valid: torch.Tensor,    # [B, S_max] bool, True incl. this token's slot
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step for the whole batch, every row writing slot
+    ``cache_index`` (clamped as ``lax.dynamic_update_slice`` clamps it).
+    Returns ([B, D] hidden, cache): ``cache`` itself, written in place."""
+    layers = layered_cache_from_stacked(cache)
+    return _decode_unpacked(params, cfg, token_ids, layers, _write_at(cache_index),
+                            positions, kv_valid), cache
+
+
+def decode_step_ragged(
+    params: Params,
+    cfg: LLMConfig,
+    token_ids: torch.Tensor,   # [B] current input token per slot
+    cache: KVCache,
+    write_pos: torch.Tensor,   # [B] PER-SLOT cache write index
+    positions: torch.Tensor,   # [B] rope position of this token
+    kv_valid: torch.Tensor,    # [B, S_max] bool incl. this token's slot
+) -> Tuple[torch.Tensor, KVCache]:
+    """Decode step where every row writes its k/v at its OWN cache index
+    (continuous batching); a row whose index lies outside the cache writes
+    nothing, as ``.at[rows, write_pos].set`` drops it. Returns ([B, D]
+    hidden, cache): ``cache`` itself, written in place."""
+    layers = layered_cache_from_stacked(cache)
+    return _decode_unpacked(params, cfg, token_ids, layers, _write_rows(write_pos),
+                            positions, kv_valid), cache
+
+
+def layered_cache_from_stacked(cache: KVCache):
+    """KVCache [L,B,S,K,D] -> tuple of (k_i, v_i) per layer: views of the
+    stacked buffers, so a write into one is a write into the other."""
+    return tuple(zip(cache.k.unbind(0), cache.v.unbind(0)))
+
+
+def decode_step_layered(
+    params: Params,
+    cfg: LLMConfig,
+    token_ids: torch.Tensor,   # [B]
+    kv_layers,                 # tuple of (k [B,S,K,D], v [B,S,K,D])
+    write_pos: torch.Tensor,   # [B] per-row cache write index
+    positions: torch.Tensor,   # [B] rope position
+    kv_valid: torch.Tensor,    # [B, S_max]
+):
+    """``decode_step_ragged`` on per-layer cache buffers. Returns ([B, D]
+    hidden, kv_layers): the same buffers, written in place."""
+    return _decode_unpacked(params, cfg, token_ids, kv_layers, _write_rows(write_pos),
+                            positions, kv_valid), kv_layers
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,7 @@ Port of the LLM half of ``rlinf_tpu/runners/eval_runner.py``: accuracy and
 pass@k over a prompt dataset through the static rollout engine, and the
 aggregated tables. Sampling seeds come from one ``torch.Generator`` seeded
 from ``seed`` (not JAX's threefry). ``evaluate_embodied_episodes`` waits for
-the port of ``rollout/env_loop.py`` (ROADMAP.md §A.6).
+the port of ``rollout/env_loop.py`` (ROADMAP.md §A.11).
 """
 
 from __future__ import annotations
@@ -217,7 +217,7 @@ def evaluate_embodied_episodes(
     ``rollout/env_loop.py`` and the embodied stack, not ported yet."""
     raise NotImplementedError(
         "evaluate_embodied_episodes needs rollout/env_loop.py and the embodied stack, "
-        "which come with a later slice of the port (ROADMAP.md §A.6)")
+        "which come with a later slice of the port (ROADMAP.md §A.11)")
 
 
 def print_metrics_table(

@@ -46,7 +46,8 @@ class SFTRunner:
         port's dict of tensors on ``device``) in place of a random init."""
         if mesh is not None:
             raise NotImplementedError(
-                "SFTRunner(mesh=...) comes with the port's parallel slice (ROADMAP.md §A.9)")
+                "SFTRunner(mesh=...) comes with the rest of the port's parallel layer "
+                "(ROADMAP.md §A.9b.1)")
         dev = resolve_device(device)
         cfg = dataclasses.replace(cfg, attn_impl=resolve_attn_impl(cfg, dev))
         self.cfg = cfg

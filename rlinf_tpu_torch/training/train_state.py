@@ -78,14 +78,20 @@ class OptimizerConfig:
 # ---------------------------------------------------------------------------
 
 def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists (a list of layers: the
+    VLM's projector); tuples are leaves."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if type(tree) is list:
+        return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if type(tree) is list:
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

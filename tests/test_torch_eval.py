@@ -126,7 +126,7 @@ def test_tables_print_as_jax(capsys):
 
 
 def test_embodied_eval_waits_for_the_env_loop():
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(NotImplementedError, match="A.11"):
         tev.evaluate_embodied_episodes(None, None, None)
 
 

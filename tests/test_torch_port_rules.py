@@ -489,12 +489,26 @@ def _tensor_makers():
     from rlinf_tpu_torch.models.llm.config import LLMConfig
     from rlinf_tpu_torch.rollout import paged_cache as PC
     import numpy as np
+    import torch
 
     cfg = LLMConfig(vocab_size=16, hidden_size=8, num_layers=1, num_heads=1, num_kv_heads=1,
                     head_dim=8, intermediate_size=16, max_seq_len=8)
     tree = {"embed": np.zeros((16, 8), np.float32)}
+    from rlinf_tpu_torch.models.embodiment import mlp_policy as MP
+    from rlinf_tpu_torch.models.embodiment import vit as V
+    from rlinf_tpu_torch.models.vlm import VLMReasoningModel, vlm_params_from_numpy
+
+    vit = V.ViTConfig(image_size=8, patch_size=4, hidden=8, layers=1, heads=1)
+    g = torch.Generator()
     return {
         "init_params": lambda: M.init_params(cfg, 0),
+        "init_kv_cache": lambda: M.init_kv_cache(cfg, 1, 8),
+        "init_vit": lambda: V.init_vit(vit, g),
+        "mlp_init": lambda: MP._mlp_init(g, (4, 4)),
+        "mlp_policy_init": lambda: MP.MLPGaussianPolicy(4, 2).init(g),
+        "vlm_init": lambda: VLMReasoningModel(cfg, vit).init(0),
+        "vlm_params_from_numpy": lambda: vlm_params_from_numpy(
+            {"vit": {}, "img_proj": [], "vlm": tree}, cfg),
         "init_kv_cache_packed": lambda: M.init_kv_cache_packed(cfg, 1, 8),
         "init_kv_cache_packed_q8": lambda: M.init_kv_cache_packed_q8(cfg, 1, 8),
         "init_page_pool_cache": lambda: PC.init_page_pool_cache(1, 2, 4, 1, 8),
@@ -506,7 +520,9 @@ def _tensor_makers():
 
 @pytest.mark.parametrize("name", ["cache_from_numpy", "init_kv_cache_packed",
                                   "init_kv_cache_packed_q8", "init_page_pool_cache",
-                                  "init_params", "params_from_numpy", "tensor_from_numpy"])
+                                  "init_params", "params_from_numpy", "tensor_from_numpy",
+                                  "init_kv_cache", "init_vit", "mlp_init", "mlp_policy_init",
+                                  "vlm_init", "vlm_params_from_numpy"])
 def test_tensor_makers_default_to_the_card(name, monkeypatch):
     """With no device given, the functions that make tensors ask for the
     card, and raise where there is none (instead of making CPU tensors that
@@ -613,7 +629,7 @@ def test_agentlightning_runner_takes_the_card_by_default():
     assert inspect.signature(AgentLightningRunner).parameters["device"].default == "cuda"
 
 
-@pytest.mark.parametrize("module", ["main_agent_grpo", "serve_openai"])
+@pytest.mark.parametrize("module", ["main_agent_grpo", "serve_openai", "main_vlm_grpo"])
 def test_new_entry_points_run_on_the_card_by_default(module):
     import importlib
 
@@ -651,6 +667,44 @@ def test_every_activation_kernel_takes_a_dtype_code():
     assert _build.dtype_code("q", torch.zeros(1, dtype=torch.float16)) == 1
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         _build.dtype_code("q", torch.zeros(1, dtype=torch.float64))
+
+
+# the VLM slice: its modules
+VLM_MODULES = (
+    "models/vlm/__init__.py", "models/vlm/reasoning.py", "models/embodiment/__init__.py",
+    "models/embodiment/base_policy.py", "models/embodiment/mlp_policy.py",
+    "models/embodiment/vit.py", "runners/vlm_reasoning_runner.py",
+    "runners/vlm_sft_runner.py", "main_vlm_grpo.py")
+
+
+@pytest.mark.parametrize("rel", VLM_MODULES)
+def test_vlm_modules_are_held_by_the_rules(rel):
+    """Each module of the VLM slice exists, is among the files the import and
+    device rules walk, imports no JAX, nothing of the JAX package and no HF
+    package, and its public ``device`` parameters default to the card."""
+    path = PORT / rel
+    assert path in FILES and path in sorted(PORT.rglob("*.py"))
+    test_no_jax_or_reference_imports(path)
+    test_no_hf_package_imports(path)
+    test_public_device_parameters_default_to_the_card(path)
+
+
+def test_vlm_runners_and_main_take_the_card_by_default(monkeypatch):
+    """Without a card, the VLM runners and ``main_vlm_grpo.main`` raise
+    unless the caller asks for the CPU."""
+    import inspect
+
+    import torch
+
+    from rlinf_tpu_torch import main_vlm_grpo
+    from rlinf_tpu_torch.runners.vlm_reasoning_runner import VLMReasoningRunner
+    from rlinf_tpu_torch.runners.vlm_sft_runner import VLMSFTRunner
+
+    for fn in (VLMReasoningRunner, VLMSFTRunner, main_vlm_grpo.main):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main_vlm_grpo.main(sft_steps=1, grpo_steps=1, log_dir=None)
 
 
 # the parallel slice: its modules
