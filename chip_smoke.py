@@ -103,7 +103,7 @@ Last, the reasoning runner:
 
 13. runner: three GRPO steps through ``rlinf_tpu_torch.main_grpo.main``
    on examples/reasoning/config/grpo_math_qwen05b.yaml at full width and
-   depth (Qwen2.5-0.5B: Hd=64, G=7; random weights from --seed, the byte
+   ``RUNNER_CUT``'s depth (Qwen2.5-0.5B: Hd=64, G=7; random weights from --seed, the byte
    tokenizer, main_grpo's 512 synthetic additions, the math verifier; the
    continuous engine with int8 weights and a bf16 cache, the recompute,
    token-budget microbatches of 16,384, 4 minibatches, adamw), the
@@ -138,13 +138,13 @@ Then server mode and agentic rollout:
    (``--preset qwen2_1_5b``: bf16, 32 slots, K2 alone) answers 8 HTTP
    requests and ``APIRewardClient`` scores 8 payloads against it.
 15. coding_online: ``CodingOnlineRunner`` on grpo_math_qwen05b.yaml with
-   the decoupled loss at full width, 12 of the 24 layers (``CODING_CUT``),
+   the decoupled loss at full width, 8 of the 24 layers (``CODING_CUT``),
    the runner phase's traffic (``CODING_REDUCED``), 64 coding tasks with I/O tests, 3 overlapped
    online steps; rewards from the code-execution verifier plus
    ``text_rule``. Gates: the verifier scored every response; param version
    4, lag <= 2; finite metrics; params moved; K1, K2 and K5-K8 launched and
    no other kernel.
-16. agent: ``AgentRunner`` at Qwen2.5-0.5B's widths, 12 of its 24 layers
+16. agent: ``AgentRunner`` at Qwen2.5-0.5B's widths, 8 of its 24 layers
    (``AGENT_CUT``, ``AGENT_REDUCED``): ``CalculatorTool``, a scripted call in each
    conversation's first turn, 2 turns, 64 conversations, 2 steps,
    ``agent_rule`` rewards. Gates: every conversation has its two turns,
@@ -170,7 +170,7 @@ the small models' default runs, and PPO with a learned critic:
    HTTP requests; launch counts shown, K5, K6 and a decode kernel gated.
 19. critic: ppo_separate_critic.yaml as shipped (Hd=32, bf16) for 3 steps
    with ``critic_warmup_steps=1``; then grpo_math_qwen05b.yaml's model at
-   full width, 6 of its 24 layers (``CRITIC_CUT``), as PPO with a learned
+   full width, 4 of its 24 layers (``CRITIC_CUT``), as PPO with a learned
    critic (``CRITIC_OVERRIDES``, cut as ``CRITIC_REDUCED``), once with a
    separate critic and once with
    the shared value head, 3 steps each. Gates: K1, K2 and K5-K8 launched,
@@ -190,7 +190,7 @@ Then adafactor and selective recompute, LoRA and SFT:
    and backward under each, the two forms' gradients on one microbatch
    bitwise equal or within ``SHADOW_BARS``.
 21. lora: ``main_grpo`` on grpo_math_qwen05b.yaml in LoRA mode
-   (``LORA_OVERRIDES``, rank 16, the runner phase's cut, 6 of the 24
+   (``LORA_OVERRIDES``, rank 16, the runner phase's cut, 4 of the 24
    layers: ``LORA_CUT``) for 3 steps; then a
    runner with ``text_rule`` rewards for 3 steps. Gates: the base params
    bitwise the init's, the adapters' b moved, every rollout's params
@@ -283,6 +283,20 @@ Then the mesh, across processes:
    rank's step seconds, the weight sync's seconds and bytes, all-reduces
    per step, each rank's peak memory. These are times of gloo between
    processes that share one card: they say nothing of NCCL on several.
+   Then, in B's processes, the parts of the context axis and the mesh
+   configurations (``DRILL_PARTS``): (a) 3 ring train steps on data=1 x
+   context=4 at B=2, T=8,192 (step 1 within ``TOLERANCE`` of a world-1
+   step of the same weights and batch through K1/K7/K8, on rank 0);
+   (b) 2 GRPO steps with ``attn_impl=ring`` on data=1 x context=2 x
+   tensor=2 (4 prompts x 4, 8 new tokens; every rank's sampled tokens
+   bitwise equal); (c) one step each at fsdp=2 x tensor=2 of
+   ``SFTRunner``, the runner with LoRA, with the token budget, with
+   adafactor and with ``qwen3_moe_2b``'s widths (32 experts, top-2,
+   capacity); (d) one rollout each of the continuous engine (int8 KV),
+   the same with the megakernel and the paged engine at data=2 x
+   tensor=2 (every rank the same tokens). Gates: those checks, and each
+   part's launches of ``PART_KERNELS``. Reported: each part's seconds,
+   launches, collectives (``parallel.collectives.COUNTS``) and peaks.
 
 Last, the VLM reasoning stack:
 
@@ -2379,6 +2393,10 @@ def whole_step_check(kerns, seed) -> dict:
 
 RUNNER_YAML = "examples/reasoning/config/grpo_math_qwen05b.yaml"
 # the yaml's traffic, cut to a short run: each override and why
+#: the runner phase's depth: the script's time limit (all 24 layers until
+#: phase 26's parts came; phase 26 itself runs 2, DRILL_CUT)
+RUNNER_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                     "(24 until phase 26's parts came)"}
 RUNNER_REDUCED = {
     "runner.rollout_batch_size=8": "8 prompts x group_size 8 = 64 rows a step "
                                    "(the yaml: 64 prompts, 512 rows)",
@@ -2749,8 +2767,8 @@ def runner_phase(kerns, gpu, peaks, seed):
     work = HERE / "build" / "runner_smoke"
     shutil.rmtree(work, ignore_errors=True)
     yaml = str(HERE / RUNNER_YAML)
-    overrides = [*RUNNER_REDUCED, f"runner.seed={seed}", f"runner.log_dir={work / 'logs'}",
-                 f"runner.checkpoint_dir={work / 'ckpt'}"]
+    overrides = [*RUNNER_REDUCED, *RUNNER_CUT, f"runner.seed={seed}",
+                 f"runner.log_dir={work / 'logs'}", f"runner.checkpoint_dir={work / 'ckpt'}"]
     record = {}
     torch.cuda.reset_peak_memory_stats()
     with watching_runner(record):
@@ -2766,7 +2784,7 @@ def runner_phase(kerns, gpu, peaks, seed):
              "plain": record["drift_plain"], "bar": DRIFT_BAR}
     cfg = r1.cfg
     out = {"phase": "runner", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
-           "layers": cfg.model.num_layers, "reduced": RUNNER_REDUCED,
+           "layers": cfg.model.num_layers, "reduced": {**RUNNER_REDUCED, **RUNNER_CUT},
            "entry": "rlinf_tpu_torch.main_grpo.main", "attn_impl": cfg.attn_impl,
            "recompute_logprobs": r1.recompute_logprobs,
            "pack_microbatches": pack_ms(load_config(yaml), seed),
@@ -2824,7 +2842,7 @@ def runner_phase(kerns, gpu, peaks, seed):
     torch.cuda.empty_cache()
 
     # pipelined: rollout of step N+1 beside the update of step N
-    r3 = ReasoningRunner(load_config(yaml, [*RUNNER_REDUCED, f"runner.seed={seed}",
+    r3 = ReasoningRunner(load_config(yaml, [*RUNNER_REDUCED, *RUNNER_CUT, f"runner.seed={seed}",
                                             "runner.log_dir=null", "runner.checkpoint_dir=null"]),
                          ByteTokenizer(), main_grpo.synthetic_dataset(), device="cuda")
     torch.cuda.synchronize()
@@ -2869,11 +2887,13 @@ SWAP_PROMPT, SWAP_NEW = 640, 16
 #: phase 4's bars: greedy token agreement, and the logprob error over the
 #: tokens up to each row's first difference
 SWAP_BARS = {"agree": 0.95, "lp_max_abs": 0.15}
-#: phases 15 and 16 run the model at half its depth (the runner phase runs
-#: all 24 layers of the same model), so that the whole script stays inside
-#: its time limit with phase 26
-CODING_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
-AGENT_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
+#: phases 15 and 16 run the model at a third of its depth (the runner phase
+#: runs half, RUNNER_CUT), so that the whole script stays inside its time
+#: limit with phase 26
+CODING_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                     "(12 until phase 26's parts came)"}
+AGENT_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                    "(12 until phase 26's parts came)"}
 #: the coding phase: the runner phase's traffic cut, the loss online RL needs
 CODING_REDUCED = {**{k: v for k, v in RUNNER_REDUCED.items() if "save_interval" not in k},
                   "loss.loss_type=decoupled": "online RL trains against live-swapped "
@@ -3611,11 +3631,10 @@ CRITIC_REDUCED = {
     "runner.max_steps=3": "the yaml has 400",
     "runner.save_interval=3": "one checkpoint, at the last step (the yaml: every 50)",
 }
-#: the critic runs at half the model's depth (the runner phase runs all 24
-#: layers of the same model), so that the whole script stays well inside
-#: its time limit
-CRITIC_CUT = {"model.num_layers=6": "6 of Qwen2.5-0.5B's 24 layers: the script's time limit "
-                                     "(12 until phase 26 came)"}
+#: the critic runs at a sixth of the model's depth (the runner phase runs
+#: half, RUNNER_CUT), so that the whole script stays inside its time limit
+CRITIC_CUT = {"model.num_layers=4": "4 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                     "(12 until phase 26 came, 6 until its parts came)"}
 CRITIC_KERNELS = ("flash_attention_fwd", "decode_attention_bf16", "linear_ce_fwd",
                   "linear_ce_bwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # the shadow steps: one critic step (separate) and one actor-critic step
@@ -3696,8 +3715,8 @@ def critic_phase(kerns, gpu, seed) -> dict:
     """Phase 19. (a) ppo_separate_critic.yaml as shipped (Hd=32, bf16, the
     continuous engine) through ``main_grpo.main`` for 3 steps with
     ``critic_warmup_steps=1``: step 1 skips the actor, steps 2 and 3 train
-    it. (b) grpo_math_qwen05b.yaml's model at full width, 12 of its 24
-    layers (CRITIC_CUT), with CRITIC_OVERRIDES and CRITIC_REDUCED, once
+    it. (b) grpo_math_qwen05b.yaml's model at full width, CRITIC_CUT's
+    depth, with CRITIC_OVERRIDES and CRITIC_REDUCED, once
     with a separate critic and
     once with the shared value head: 3 steps each, then a shadow step
     (``critic_shadow``) on step 1's rollout. Gates: K1, K2 and K5-K8
@@ -3932,11 +3951,10 @@ LORA_OVERRIDES = {
                                 "static minibatches",
 }
 LORA_HEAD_TARGETS = "lora.targets=[wq,wk,wv,wo,gate,up,down,lm_head]"
-#: the LoRA runs at half the model's depth (the runner phase runs all 24
-#: layers of the same model), so that the whole script stays well inside
-#: its time limit
-LORA_CUT = {"model.num_layers=6": "6 of Qwen2.5-0.5B's 24 layers: the script's time limit "
-                                   "(12 until phase 26 came)"}
+#: the LoRA runs at a sixth of the model's depth (the runner phase runs
+#: half, RUNNER_CUT), so that the whole script stays inside its time limit
+LORA_CUT = {"model.num_layers=4": "4 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                   "(12 until phase 26 came, 6 until its parts came)"}
 
 
 @contextlib.contextmanager
@@ -3982,8 +4000,8 @@ def lora_minibatch(runner, result) -> dict:
 
 def lora_phase(kerns, gpu, seed) -> dict:
     """Phase 21. (a) ``main_grpo.main`` on grpo_math_qwen05b.yaml in LoRA
-    mode (LORA_OVERRIDES, the runner phase's RUNNER_REDUCED, 12 of the 24
-    layers: LORA_CUT): 3 steps with
+    mode (LORA_OVERRIDES, the runner phase's RUNNER_REDUCED, LORA_CUT's
+    depth): 3 steps with
     the math verifier. (b) A ReasoningRunner on the same config with
     ``text_rule`` rewards (non-zero advantages) for 3 steps, then the gates:
     the base params bitwise the init's, the adapters' b moved from 0, each
@@ -4595,11 +4613,11 @@ def capacity_overflow(runner, result, rows: int = 16) -> dict:
     seen = {"decode": [], "train": []}
     orig = M.moe_layer
 
-    def recording(params, x, cfg):
+    def recording(params, x, cfg, tp=None):
         rowsel = torch.arange(x.shape[0], device=x.device)
         seen["decode"].append(float(capacity_overflow_frac(params, x[rowsel, first][:, None], moe)))
         seen["train"].append(float(capacity_overflow_frac(params, x[:rows], moe)))
-        return orig(params, x, cfg)
+        return orig(params, x, cfg, tp)
 
     M.moe_layer = recording
     try:
@@ -4785,8 +4803,8 @@ def moe_phase(kerns, gpu, peaks, seed) -> dict:
 # ---------------------------------------------------------------------------
 
 #: phase 25 runs the model at a third of its depth (the runner phase runs
-#: all 24 layers of the same model), so that the whole script stays inside
-#: its time limit with phase 26
+#: half, RUNNER_CUT), so that the whole script stays inside its time limit
+#: with phase 26
 RECIPES_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
 #: the AgentLightning runner's traffic, cut to a short run of
 #: grpo_math_qwen05b.yaml: each override and why
@@ -5608,6 +5626,28 @@ DRILL_CUT = {"--num-layers=2": "2 of Qwen2.5-0.5B's 24 layers: the script's time
 DRILL_KERNELS = ("flash_attention_fwd", "decode_attention_bf16", "fused_lmhead_sample",
                  "linear_ce_fwd", "linear_ce_bwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
+#: the parts of phase 26 after its phase C, and the kernels each must
+#: launch (summed over its ranks): the ring's attention is plain PyTorch,
+#: so the ring parts train through K5/K6 alone and decode through K2; the
+#: sharded steps of (c) take K1/K7/K8 and K5/K6; the engines of (d) their
+#: decode kernels (int8 KV: K3; the megakernel K9; the paged engine K10)
+_TRAIN = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+          "linear_ce_fwd", "linear_ce_bwd")
+PART_KERNELS = {
+    "ring_step": ("linear_ce_fwd", "linear_ce_bwd"),
+    "ring_runner": ("linear_ce_fwd", "linear_ce_bwd", "decode_attention_bf16"),
+    "sft": _TRAIN, "lora": _TRAIN, "budget": _TRAIN, "adafactor": _TRAIN, "moe": _TRAIN,
+    "continuous": ("decode_attention_q8",), "continuous_mega": ("decode_megakernel",),
+    "paged": ("paged_attention",),
+}
+#: the parts' cuts, beside DRILL_CUT (which cuts every part's depth)
+DRILL_PARTS_REDUCED = {
+    "ring_step": "B=2 rows of T=8,192 (the preset's max_seq_len raised to it), 3 steps",
+    "moe": "qwen3_moe_2b's widths (32 experts, top-2, capacity) at DRILL_CUT's depth, "
+           "max_seq_len 128, 1 step",
+    "runners": "4 prompts x 4, 8 new tokens, 1 step a configuration (the ring runner 2)",
+    "engines": "12 requests, 16 new tokens, 8 slots",
+}
 
 
 def drill_local_kernels(seed) -> dict:
@@ -5675,6 +5715,15 @@ def mesh_drill_phase(kerns, gpu, seed) -> dict:
         raise AssertionError(f"the drill reported failure: {summary}")
     launches = dict.fromkeys(kerns, 0)
     missing = {}
+    for part, info in summary["parts"].items():
+        print(f"mesh drill part {part}: {info['seconds']:.1f} s, launches "
+              f"{json.dumps(info['launches'])}, collectives {json.dumps(info['collectives'])}",
+              flush=True)
+        lacking = [k for k in PART_KERNELS[part] if info["launches"].get(k, 0) == 0]
+        if lacking:
+            missing[f"part {part}"] = lacking
+        for k, c in info["launches"].items():
+            launches[k] += c
     for phase in ("launches_a", "launches_b"):
         for rank, counts in summary[phase].items():
             lacking = [k for k in DRILL_KERNELS if counts.get(k, 0) == 0]
@@ -5686,7 +5735,8 @@ def mesh_drill_phase(kerns, gpu, seed) -> dict:
         for k, c in counts.items():
             launches[k] += c
     out = {"phase": "mesh_drill", "gpu": gpu, "config": RUNNER_YAML, "model": "qwen2_0_5b",
-           "reduced": DRILL_CUT, "transport": "gloo, 4 processes on one card",
+           "reduced": {**DRILL_CUT, **DRILL_PARTS_REDUCED},
+           "transport": "gloo, 4 processes on one card",
            "command": " ".join(cmd[1:]), "local_kernel_checks": local,
            **{k: v for k, v in summary.items()
                                            if not k.startswith("launches_")},

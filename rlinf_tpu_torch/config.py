@@ -6,8 +6,8 @@ YAML file drives both packages. ``LoRAConfig`` lives in
 ``models/llm/lora.py``, as in the JAX package. ``MeshConfig`` lives in
 ``parallel/mesh.py`` (re-exported here): the mesh block of a YAML is
 validated here; the runners take a built mesh (``ReasoningRunner(mesh=)``),
-and ``main_grpo`` builds none, as in the JAX package. The expert and
-context axes wait for ROADMAP.md §A.9b.
+and ``main_grpo`` builds none, as in the JAX package. The expert axis
+waits for ROADMAP.md §A.9b.3.
 """
 
 from __future__ import annotations
@@ -313,7 +313,8 @@ def _validate_mesh(cfg: TrainerConfig):
     cp = me.context if me.context != -1 else 1
     if cp > 1 and m.max_seq_len % cp != 0:
         raise ValueError(
-            f"model.max_seq_len ({m.max_seq_len}) not divisible by mesh.context ({cp})")
+            f"model.max_seq_len ({m.max_seq_len}) not divisible by mesh.context ({cp}) "
+            "— ring attention shards the sequence evenly")
     ep = me.expert if me.expert != -1 else 1
     if ep > 1:
         if not m.is_moe:

@@ -6,6 +6,12 @@ is a pair of stacked low-rank factors ``a: [L, in, r]``, ``b: [L, r, out]``
 and the merge is one einsum per target over all layers. Training
 differentiates the loss with respect to the adapter tree only; the frozen
 base params are read, never written (``training/lora_learner.py``).
+
+Under a mesh the base params are this rank's blocks under the model's
+partition rules and the adapters are whole on every rank (the JAX
+package's layout); ``merge_lora(..., layout=)`` merges per rank on its
+blocks: ``a``'s input rows and ``b``'s output columns cut as the target's
+block is cut, so that ``a @ b`` is the block of the whole product.
 """
 
 from __future__ import annotations
@@ -81,14 +87,29 @@ def init_lora_params(cfg: LLMConfig, lora_cfg: LoRAConfig, generator: torch.Gene
     return out
 
 
-def merge_lora(base_params: Params, lora_params: Params, lora_cfg: LoRAConfig) -> Params:
+def merge_lora(base_params: Params, lora_params: Params, lora_cfg: LoRAConfig,
+               layout=None) -> Params:
     """Effective params: ``W + scaling * (a @ b)`` per target, all layers in
     one f32 einsum, added to ``W`` in f32 and cast to ``W``'s dtype (the JAX
-    package's rounding order). Other leaves are the base's tensors, shared."""
+    package's rounding order). Other leaves are the base's tensors, shared.
+    ``layout`` (a ``parallel.sharding.Layout`` of the model's params): the
+    base leaves are this rank's blocks under it, and each target merges
+    its block (see the module docstring)."""
+    def cut(ab, spec, lead):
+        if layout is None:
+            return ab["a"], ab["b"]
+        from rlinf_tpu_torch.parallel.sharding import local_block
+
+        spec = tuple(spec) + (None,) * (lead + 2 - len(spec))
+        pre = (None,) * lead
+        return (local_block(ab["a"], pre + (spec[lead], None), layout.mesh),
+                local_block(ab["b"], pre + (None, spec[lead + 1]), layout.mesh))
+
     merged_blocks = dict(base_params["blocks"])
     for name, ab in lora_params["blocks"].items():
         w = base_params["blocks"][name]
-        delta = torch.einsum("lir,lro->lio", ab["a"].float(), ab["b"].float()) * lora_cfg.scaling
+        a, b = cut(ab, layout.specs[f"blocks/{name}"] if layout else (), 1)
+        delta = torch.einsum("lir,lro->lio", a.float(), b.float()) * lora_cfg.scaling
         merged_blocks[name] = (w.float() + delta).to(w.dtype)
     merged = dict(base_params)
     merged["blocks"] = merged_blocks
@@ -96,8 +117,13 @@ def merge_lora(base_params: Params, lora_params: Params, lora_cfg: LoRAConfig) -
         ab = lora_params["lm_head"]
         w = base_params.get("lm_head")
         if w is None:
+            if layout is not None:
+                raise NotImplementedError(
+                    "a LoRA lm_head target on tied embeddings under a mesh: the merged "
+                    "head would have no layout of its own; untie the head or drop the target")
             w = base_params["embed"].T  # tied embeddings
-        delta = (ab["a"].float() @ ab["b"].float()) * lora_cfg.scaling
+        a, b = cut(ab, layout.specs["lm_head"] if layout else (), 0)
+        delta = (a.float() @ b.float()) * lora_cfg.scaling
         merged["lm_head"] = (w.float() + delta).to(w.dtype)
     return merged
 

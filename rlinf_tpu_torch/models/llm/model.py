@@ -20,8 +20,21 @@ all-reduce over the tensor axis, and the vocab-sharded ``embed`` is looked
 up with a mask and summed. An fsdp-sharded leaf is gathered one layer at a
 time before use, and its gradient reduce-scattered (``_gather_layer``);
 which dims a leaf's block splits is read from ``param_layout``.
-The lm-head kernels take the whole operand (``full_output_params``). The
-expert and context axes wait for ring attention and expert parallelism.
+The lm-head kernels take the whole operand (``full_output_params``). An
+MoE layer keeps its router whole and splits each expert's columns over the
+tensor axis (``moe_gate``/``moe_up`` column-parallel, ``moe_down``
+row-parallel), with one all-reduce after ``down``, for the capacity and
+the dropless dispatch alike.
+
+Under ``attn_impl="ring"`` on a mesh whose context axis has more than one
+rank, ``forward_hidden`` takes whole rows, computes the positions on them
+(``cumsum(mask) - 1`` on a chunk would be wrong) and runs every layer on
+this rank's contiguous chunk of the sequence (``sharding.context_chunk``),
+attention by ``ops/ring_attention.py``; it returns the chunk's hidden
+states and K/V. ``prefill`` gathers them whole over the context group, so
+that decoding reads the whole cache on every context rank, as JAX's decode
+reads the cache XLA regathers. The expert axis waits for expert
+parallelism (ROADMAP.md §A.9b.3).
 """
 
 from __future__ import annotations
@@ -49,12 +62,12 @@ from rlinf_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_packed_xla,
     quantize_kv_token,
 )
-from rlinf_tpu_torch.ops.moe import moe_layer
+from rlinf_tpu_torch.ops.moe import moe_layer, row_group, rows_split_over
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from rlinf_tpu_torch.parallel import collectives as C
-from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, current_mesh
-from rlinf_tpu_torch.parallel.sharding import P, Layout, sharded_axes
+from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, current_mesh, use_mesh
+from rlinf_tpu_torch.parallel.sharding import P, Layout, context_chunk, sharded_axes
 from rlinf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, object]
@@ -95,21 +108,21 @@ def partition_rules():
 def check_mesh(cfg: LLMConfig, mesh) -> None:
     """Raise unless the port's sharded forward takes ``cfg`` on ``mesh``:
     the tensor axis must divide the heads, the kv heads and the MLP width
-    (the blocks are split by whole heads and columns); the expert and
-    context axes, and an MoE model under tensor or fsdp sharding, wait for
-    expert parallelism and ring attention (ROADMAP.md §A.9b)."""
+    (the blocks are split by whole heads and columns); the expert axis
+    waits for expert parallelism (ROADMAP.md §A.9b.3), and an MoE model
+    under a context axis, whose router statistics and capacity count the
+    tokens of whole rows, waits with it."""
     if mesh is None:
         return
-    for axis in (Ax.EXPERT, Ax.CONTEXT):
-        if mesh.size(axis) > 1:
-            raise NotImplementedError(
-                f"mesh.{axis} > 1 waits for the port's expert parallelism and ring "
-                "attention (ROADMAP.md §A.9b)")
-    tp, fsdp = mesh.size(Ax.TENSOR), mesh.size(Ax.FSDP)
-    if cfg.is_moe and (tp > 1 or fsdp > 1):
+    if mesh.size(Ax.EXPERT) > 1:
         raise NotImplementedError(
-            "an MoE model under tensor or fsdp sharding waits for expert parallelism "
-            "(ROADMAP.md §A.9b); shard it over data only")
+            f"mesh.{Ax.EXPERT} > 1 waits for the port's expert parallelism "
+            "(moe_layer_dropless_ep, ROADMAP.md §A.9b.3)")
+    if cfg.is_moe and mesh.size(Ax.CONTEXT) > 1:
+        raise NotImplementedError(
+            "an MoE model under mesh.context > 1 waits for the port's expert "
+            "parallelism (ROADMAP.md §A.9b.3)")
+    tp = mesh.size(Ax.TENSOR)
     for name in ("num_heads", "num_kv_heads", "intermediate_size"):
         if getattr(cfg, name) % tp:
             raise ValueError(f"model.{name} ({getattr(cfg, name)}) not divisible by "
@@ -169,6 +182,45 @@ def _gather_layer(layer: Params, cfg: LLMConfig, mesh, fsdp) -> Params:
         for d in _split_dims(cfg, mesh, f"blocks/{k}", w, Ax.FSDP, lead=1):
             out[k] = C.all_gather(out[k], d, fsdp, backward="reduce_scatter")
     return out
+
+
+def ring_mesh(attn_impl: str):
+    """The active mesh where ``attn_impl`` is "ring" and its context axis
+    has more than one rank (the sequence is then split over it), else
+    None."""
+    if attn_impl != "ring":
+        return None
+    mesh = current_mesh()
+    if mesh is None or mesh.size(Ax.CONTEXT) == 1:
+        return None
+    return mesh
+
+
+def context_chunks(batch: Dict[str, torch.Tensor], attn_impl: str) -> Dict[str, torch.Tensor]:
+    """This rank's sequence chunk of every per-token [B, T, ...] tensor of
+    ``batch`` where ``attn_impl`` splits the sequence over the context axis
+    (``ring_mesh``); ``batch`` itself otherwise. The loss's inputs
+    (targets, masks, advantages) line up with ``forward_hidden``'s chunk."""
+    mesh = ring_mesh(attn_impl)
+    if mesh is None:
+        return batch
+    return {k: context_chunk(v, mesh) if torch.is_tensor(v) and v.dim() >= 2 else v
+            for k, v in batch.items()}
+
+
+def gather_sequence(hidden: torch.Tensor, cache: Optional["KVCache"], attn_impl: str):
+    """``forward_hidden``'s chunk of the hidden states [B, S/cp, D] and of
+    its KVCache [L, B, S/cp, K, D] gathered whole over the context group
+    where ``attn_impl`` split the sequence (``ring_mesh``); as they are
+    otherwise."""
+    mesh = ring_mesh(attn_impl)
+    if mesh is None:
+        return hidden, cache
+    g = mesh.get_group(Ax.CONTEXT)
+    hidden = C.gather_tensor(hidden, 1, g)
+    if cache is not None:
+        cache = KVCache(k=C.gather_tensor(cache.k, 2, g), v=C.gather_tensor(cache.v, 2, g))
+    return hidden, cache
 
 
 def embed_tokens(params: Params, cfg: LLMConfig, ids: torch.Tensor) -> torch.Tensor:
@@ -370,7 +422,7 @@ def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params, tp=None
     the MoE layer's auxiliary loss, None for a dense MLP (the JAX package's
     zero, not made on the device in every layer). ``tp``: the tensor
     group, whose ranks hold the MLP's columns (the down projection's rows)."""
-    h = C.copy_to(rms_norm(x, layer["mlp_norm"], cfg.rms_eps), tp)
+    h = rms_norm(x, layer["mlp_norm"], cfg.rms_eps)
     if cfg.is_moe:
         moe_params = {
             "router": layer["moe_router"],
@@ -378,8 +430,9 @@ def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params, tp=None
             "up": layer["moe_up"],
             "down": layer["moe_down"],
         }
-        out, aux = moe_layer(moe_params, h, cfg.moe_config)
-        return x + out, aux
+        out, aux = moe_layer(moe_params, h, cfg.moe_config, tp)
+        return x + C.all_reduce(out, tp), aux
+    h = C.copy_to(h, tp)
     if "wgu" in layer:
         gu = mm(h, layer["wgu"])
         f = gu.shape[-1] // 2
@@ -477,6 +530,13 @@ def forward_hidden(
       into, so they are recomputed under either form.
     unroll_layers: accepted for the JAX signature; the port always runs the
       layers as a Python loop.
+
+    Under ``attn_impl="ring"`` on a mesh with a context axis > 1 the inputs
+    are whole rows (S divisible by the context axis) and the hidden states
+    and K/V returned are this rank's chunk of the sequence, [B, S/cp, ...]
+    (``gather_sequence`` makes them whole). Under remat the backward
+    replays each block's forward, ring shifts included: every rank replays
+    the same blocks in the same order, so the shifts meet.
     """
     del unroll_layers
     if remat not in (False, True, "full", "dots"):
@@ -488,6 +548,13 @@ def forward_hidden(
             positions = (attention_mask.to(torch.int32).cumsum(dim=-1) - 1).clamp_min(0)
         else:
             positions = torch.arange(S, device=dev).expand(B, S)
+    ring = ring_mesh(attn_impl)
+    if ring is not None:
+        # the positions come from the whole row; every layer runs on the chunk
+        cut = lambda t: None if t is None else context_chunk(t, ring)
+        input_ids, inputs_embeds = cut(input_ids), cut(inputs_embeds)
+        positions, attention_mask = cut(positions), cut(attention_mask)
+        mask_positions = cut(mask_positions)
 
     cos, sin = rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, dev)
     if inputs_embeds is None:
@@ -495,9 +562,15 @@ def forward_hidden(
     else:
         x = inputs_embeds.to(cfg.compute_dtype)
 
+    # the active mesh and MoE row group, set again around each block: remat
+    # recomputes a block in the backward, which on the card runs in the
+    # autograd engine's own thread, where the caller's context is not set
+    mesh, rows = current_mesh(), row_group()
+
     def block_fn(x, layer):
-        return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl,
-                      mask_positions)
+        with use_mesh(mesh), rows_split_over(rows):
+            return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl,
+                          mask_positions)
 
     ks, vs = [], []
     aux_sum = None
@@ -581,6 +654,7 @@ def prefill(
         params, cfg, input_ids, attention_mask=attention_mask,
         attn_impl=attn_impl, return_kv=True,
     )
+    hidden, kv = gather_sequence(hidden, kv, attn_impl)
     pad = max_cache_len - S
     k = F.pad(kv.k, (0, 0, 0, 0, 0, pad))
     v = F.pad(kv.v, (0, 0, 0, 0, 0, pad))

@@ -15,30 +15,44 @@ tensor=2``):
     leave 1;
   * phase A: 3 GRPO steps with a checkpoint at step 2 (every rank takes
     part in the save; the mesh's first rank writes). Rank 0 keeps step 1's
-    rollout, and a world of ONE process trains a plain ``ReasoningRunner``
-    on it from the same weights: its loss and grad norm must match the
-    sharded step's within the drill's tolerance;
+    rollout; in phase B's processes, before it joins a mesh, rank 0 trains
+    a plain ``ReasoningRunner`` (no mesh: a world of one) on it from the
+    same weights: its loss and grad norm must match the sharded step's
+    within the drill's tolerance;
   * the processes exit (the "kill"); phase B: new processes resume from
     the checkpoint and train 2 more steps;
   * phase C (in B's processes): ``DisaggregatedReasoningRunner`` with the
     actor on the even ranks and the rollout on the odd ones, 2 decoupled
     PPO steps, the rollout's weights checked against the actor's after
     every sync;
+  * then, in B's processes, the parts of the context axis and of the mesh
+    configurations (``parts_rank``): (a) the ring train step on data=1 x
+    context=N (``--ring-seq-len`` tokens a row, 3 steps; step 1 held
+    against a world-1 step of the same weights and batch with the plain
+    attention, on rank 0); (b) the GRPO runner with ``attn_impl=ring`` on
+    data=1 x context=2 x tensor=2 (2 steps; every rank's sampled tokens
+    bitwise equal); (c) one step each at fsdp=2 x tensor=2 of
+    ``SFTRunner``, the runner with LoRA, with the token budget, with
+    adafactor, and with an MoE model (``moe_model_config``, capacity);
+    (d) one rollout each of the continuous engine (int8 KV), the same with
+    the megakernel (``use_mega``: the params gathered whole) and the paged
+    engine at data=2 x tensor=2 (every rank the same tokens). Each part
+    reports its seconds, its kernel launches and its collectives;
   * the parent asserts that every step's loss and grad norm are
     bit-identical across ranks in every phase and nonzero in A and B,
-    that B resumed from A's last save, and that each sync left the rollout
-    ranks with the actor's weights.
+    that B resumed from A's last save, that each sync left the rollout
+    ranks with the actor's weights, and the parts' checks above.
 
 ``--device cpu`` runs the ranks on the CPU over gloo; ``--device cuda``
 (the default) puts them on the card(s): NCCL when each rank has a card of
 its own, gloo when they share one, where every kernel runs at the local
 (sharded) shapes a multi-GPU machine gives it. ``--model mini`` (8 layers,
 hidden 512, f32) or an ``LLMConfig`` preset (``qwen2_0_5b``: bf16 at the
-preset's widths); ``--num-layers`` cuts the depth. Prints one JSON line,
-the summary, last.
+preset's widths); ``--num-layers`` cuts the depth (of the MoE model
+too). Prints one JSON line, the summary, last.
 
 Usage: python -m rlinf_tpu_torch.multiprocess_runner_drill \\
-         --device cpu --num-processes 4 --model mini
+         --device cpu --num-processes 4 --model mini --ring-seq-len 512
 """
 
 from __future__ import annotations
@@ -90,6 +104,21 @@ def model_config(name: str, num_layers: Optional[int] = None):
                         dtype="float32", qkv_bias=False, rope_theta=1e4)
     else:
         cfg = dataclasses.replace(getattr(LLMConfig, name)(), max_seq_len=128)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    return cfg
+
+
+def moe_model_config(name: str, num_layers: Optional[int] = None):
+    """The MoE model of part (c): ``qwen3_moe_2b``'s widths (32 experts,
+    top-2) beside a preset, a mini MoE (8 experts) beside ``mini``."""
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+
+    if name == "mini":
+        cfg = dataclasses.replace(model_config("mini"), intermediate_size=256, num_experts=8,
+                                  num_experts_per_token=2)
+    else:
+        cfg = dataclasses.replace(LLMConfig.qwen3_moe_2b(), max_seq_len=128)
     if num_layers:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
     return cfg
@@ -179,6 +208,9 @@ def drill_rank(rank: int, world: int, opts: Dict, phase: str, workdir: str) -> D
         torch.cuda.reset_peak_memory_stats()
     ckpt_dir = os.path.join(workdir, "ckpt")
     max_steps = 3 if phase == "A" else 5
+    # phase A's world-1 reference, before this rank joins a mesh (the other
+    # ranks wait for it in the mesh's first collective)
+    world1 = world1_step1(opts, workdir) if phase == "BC" and rank == 0 else None
     cfg = trainer_config(opts, ckpt_dir, max_steps)
     tok = _tokenizer(cfg)
     mesh = make_mesh(mesh_config(world))
@@ -202,7 +234,7 @@ def drill_rank(rank: int, world: int, opts: Dict, phase: str, workdir: str) -> D
         step_s.append(time.perf_counter() - t0)
     n_steps = max(len(history), 1)
     out = {
-        "rank": rank, "start_step": start, "end_step": runner.global_step,
+        "rank": rank, "start_step": start, "end_step": runner.global_step, "world1": world1,
         "losses": [h["actor/loss"] for h in history],
         "grad_norms": [h["actor/grad_norm"] for h in history],
         "reward_stds": [h.get("rollout/reward_std", 0.0) for h in history],
@@ -245,21 +277,260 @@ def drill_rank(rank: int, world: int, opts: Dict, phase: str, workdir: str) -> D
         "disagg_param_version": drunner.param_version,
         "disagg_launches": _launches() if on_card else {},
     })
+    del drunner
+    out["parts"] = parts_rank(rank, world, opts, cfg, tok)
     return out
 
 
-def reference_rank(rank: int, world: int, opts: Dict, workdir: str):
-    """A world of one: a plain ``ReasoningRunner`` trains on phase A's
-    first rollout from the same weights."""
+# ---------------------------------------------------------------------------
+# The parts of the context axis and the mesh configurations
+# ---------------------------------------------------------------------------
+
+def _sync(device: str) -> None:
+    if device == "cuda":
+        import torch
+
+        torch.cuda.synchronize()
+
+
+def _timed(device: str, fn):
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(device)
+    return out, time.perf_counter() - t0
+
+
+def _part(device: str, fn) -> Dict:
+    """Run one part: its result, seconds, launches and collectives."""
+    from rlinf_tpu_torch.parallel import collectives as C
+
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    C.reset_counts()
+    result, seconds = _timed(device, fn)
+    return {**result, "seconds": seconds, "launches": _launches() if device == "cuda" else {},
+            "collectives": C.counts(), "peak_gib": _peak_gib(device)}
+
+
+def _ring_batch(vocab: int, T: int, seed: int = 7) -> Dict:
+    """2 rows of T tokens, the second right-padded; the loss on the second
+    half of each row's tokens."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    attn = np.ones((2, T), bool)
+    attn[1, T - T // 16:] = False
+    loss_mask = attn & (np.arange(T)[None, :] >= T // 2)
+    return {"input_ids": np.where(attn, r.integers(2, vocab, (2, T)), 0).astype(np.int32),
+            "target_ids": r.integers(2, vocab, (2, T)).astype(np.int32),
+            "attention_mask": attn, "loss_mask": loss_mask,
+            "old_logprobs": np.where(loss_mask, -np.log(vocab), 0).astype(np.float32),
+            "advantages": (r.normal(size=(2, T)) * loss_mask).astype(np.float32)}
+
+
+def ring_step_part(rank: int, world: int, opts: Dict, params_of) -> Dict:
+    """(a): 3 ring train steps on data=1 x context=world from one init; on
+    rank 0 the world-1 step 1 (same weights, same batch, the plain
+    attention: the kernels on the card)."""
+    import torch
+
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.parallel import collectives as C
+    from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from rlinf_tpu_torch.training.learner import PolicyLossConfig, make_policy_train_step
+    from rlinf_tpu_torch.training.train_state import (
+        OptimizerConfig, create_train_state, make_optimizer,
+    )
+
+    device, T = opts["device"], opts["ring_seq_len"]
+    cfg = dataclasses.replace(model_config(opts["model"], opts.get("num_layers")),
+                              max_seq_len=T)
+    mesh = make_mesh(MeshConfig(data=1, context=world))
+    batch = _ring_batch(cfg.vocab_size, T)
+    tx = make_optimizer(OptimizerConfig(lr=5e-4, clip_grad=1.0))
+    loss_cfg = PolicyLossConfig(logprob_chunk_size=1024)
+    params = params_of(cfg)
+    keep = params_of(cfg) if rank == 0 else None
+    state = create_train_state(lambda: params, tx, mesh=mesh, partition_rules=M.partition_rules())
+    step = make_policy_train_step(cfg, loss_cfg, tx, remat=True, attn_impl="ring", mesh=mesh,
+                                  device=device)
+    losses, norms, step_s, shifts = [], [], [], []
+    for _ in range(3):
+        before = C.counts().get("ring_shift", 0)
+        (state, m), sec = _timed(device, lambda: step(state, batch))
+        losses.append(float(m["actor/loss"]))
+        norms.append(float(m["actor/grad_norm"]))
+        step_s.append(sec)
+        shifts.append(C.counts().get("ring_shift", 0) - before)
+    out = {"losses": losses, "grad_norms": norms, "step_s": step_s, "shifts_per_step": shifts,
+           "seq_len": T, "chunk": T // world, "mesh": dict(mesh.shape)}
+    del state, step
+    if rank == 0:
+        ring_launches = _launches() if device == "cuda" else {}
+        _reset_launches()
+        plain = "pallas" if device == "cuda" else "xla"
+        ref_step = make_policy_train_step(cfg, loss_cfg, tx, remat=True, attn_impl=plain,
+                                          device=device)
+        _, m = ref_step(create_train_state(lambda: keep, tx), batch)
+        out["world1"] = {"loss": float(m["actor/loss"]), "grad_norm": float(m["actor/grad_norm"]),
+                         "attn_impl": plain,
+                         "launches": _launches() if device == "cuda" else {}}
+        if device == "cuda":                      # the part's own launches: the ring steps'
+            from rlinf_tpu_torch.ops.cuda import kernels
+
+            for k, c in ring_launches.items():
+                kernels()[k].launches = c
+        del keep
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def ring_runner_part(rank: int, world: int, opts: Dict, params_of) -> Dict:
+    """(b): 2 GRPO steps of ``ReasoningRunner(mesh=)`` with
+    ``attn_impl=ring`` on data=1 x context=2 x tensor=2."""
+    from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from rlinf_tpu_torch.runners.reasoning_runner import ReasoningRunner
+
+    cfg = dataclasses.replace(trainer_config(opts, None, 2), attn_impl="ring")
+    mesh = make_mesh(MeshConfig(data=1, context=2, tensor=2))
+    runner = ReasoningRunner(cfg, _tokenizer(cfg), _dataset(), mesh=mesh,
+                             reward_fn=reward_mean_byte, device=opts["device"],
+                             init_params_override=lambda s: params_of(cfg.model))
+    tokens, losses = [], []
+    for _ in range(2):
+        result = runner._rollout_phase(runner._policy_params())
+        tokens.append(result.response_ids.tolist())
+        losses.append(runner._train_on_result(result)["actor/loss"])
+    return {"tokens": tokens, "losses": losses, "mesh": dict(mesh.shape)}
+
+
+def _sft_dataset():
+    from rlinf_tpu_torch.data.datasets import PromptDataset, PromptExample
+
+    return PromptDataset([PromptExample(f"question {i}:", f" answer {2 * i + 1}")
+                          for i in range(16)])
+
+
+def config_part(rank: int, world: int, opts: Dict, kind: str, params_of) -> Dict:
+    """(c): one step at fsdp=2 x tensor=2 of ``SFTRunner`` ("sft") or of
+    the runner with LoRA ("lora"), the token budget ("budget"), adafactor
+    ("adafactor") or the MoE model ("moe")."""
+    from rlinf_tpu_torch.models.llm.lora import LoRAConfig
+    from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from rlinf_tpu_torch.runners.reasoning_runner import ReasoningRunner
+    from rlinf_tpu_torch.runners.sft_runner import SFTRunner
+
+    cfg = trainer_config(opts, None, 1)
+    cfg = dataclasses.replace(cfg, runner=dataclasses.replace(cfg.runner, num_epochs=1))
+    if kind == "lora":
+        cfg = dataclasses.replace(cfg, lora=LoRAConfig(enabled=True, rank=8))
+    elif kind == "budget":
+        cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, max_tokens_per_mb=256))
+    elif kind == "adafactor":
+        cfg = dataclasses.replace(cfg, optimizer=dataclasses.replace(cfg.optimizer,
+                                                                      name="adafactor"))
+    elif kind == "moe":
+        cfg = dataclasses.replace(cfg, model=moe_model_config(opts["model"],
+                                                              opts.get("num_layers")))
+    mesh = make_mesh(MeshConfig(data=1, fsdp=2, tensor=2))
+    if kind == "sft":
+        runner = SFTRunner(cfg, _tokenizer(cfg), _sft_dataset(), mesh=mesh,
+                           device=opts["device"],
+                           init_params_override=lambda s: params_of(cfg.model))
+        m = runner.run_step()
+        return {"loss": m["sft/loss"], "grad_norm": m["sft/grad_norm"]}
+    runner = ReasoningRunner(cfg, _tokenizer(cfg), _dataset(), mesh=mesh,
+                             reward_fn=reward_mean_byte, device=opts["device"],
+                             init_params_override=lambda s: params_of(cfg.model))
+    m = runner.run_step()
+    return {"loss": m["actor/loss"], "grad_norm": m["actor/grad_norm"],
+            "microbatches": m.get("actor/num_dyn_microbatches")}
+
+
+def engine_part(rank: int, world: int, opts: Dict, kind: str, params_of) -> Dict:
+    """(d): one rollout of 12 requests of the continuous engine with an
+    int8 KV cache ("continuous"), the same with the megakernel
+    ("continuous_mega") or the paged engine ("paged") at data=2 x
+    tensor=2; the pool whole on every rank."""
+    import numpy as np
+    import torch
+
+    from rlinf_tpu_torch.data.io_struct import RolloutRequest
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.sampler import SamplingParams
+    from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from rlinf_tpu_torch.parallel.sharding import Layout
+    from rlinf_tpu_torch.rollout.continuous_engine import ContinuousBatchingEngine
+    from rlinf_tpu_torch.rollout.paged_engine import PagedContinuousEngine
+
+    device = opts["device"]
+    cfg = model_config(opts["model"], opts.get("num_layers"))
+    mesh = make_mesh(MeshConfig(data=2, tensor=2))
+    full = params_of(cfg)
+    params = Layout.from_rules(mesh, M.partition_rules(), full).shard(full)
+    del full
+    sp = SamplingParams(max_new_tokens=16, temperature=1.0, eos_token_id=-1, pad_token_id=0)
+    common = dict(num_slots=8, prompt_bucket=16, decode_chunk=8, device=device)
+    if kind == "paged":
+        eng = PagedContinuousEngine(cfg, sp, max_seq_len=64, page_size=16,
+                                    attn_impl="pallas" if device == "cuda" else "xla", **common)
+    else:
+        quant = "int8" if device == "cuda" else "none"
+        mega = kind == "continuous_mega"
+        eng = ContinuousBatchingEngine(
+            cfg, sp, max_seq_len=128 if mega else 64, weight_quant="int8" if mega else quant,
+            kv_quant="int8", use_mega=mega, **common)
+    r = np.random.default_rng(3)
+    req = RolloutRequest(prompt_ids=[r.integers(2, 250, n).tolist() for n in
+                                     r.integers(4, 30, 12)])
+    res = eng.rollout(params, req, torch.Generator().manual_seed(9), mesh=mesh)
+    return {"tokens": res.response_ids.tolist(),
+            "finite": bool(np.isfinite(res.response_logprobs).all())}
+
+
+def parts_rank(rank: int, world: int, opts: Dict, cfg, tok) -> Dict:
+    """The parts (a)-(d) in this world, in order, each with its report.
+    The parts' initial params are drawn once a process for each model's
+    shapes (``params_of`` hands each part a copy to train): the draw of a
+    151,936-row embedding costs seconds on a host that four ranks share."""
+    from rlinf_tpu_torch.models.llm import init_params
+    from rlinf_tpu_torch.training.train_state import tree_map
+
+    del cfg, tok
+    device = opts["device"]
+    drawn = {}
+
+    def params_of(model_cfg):
+        key = dataclasses.replace(model_cfg, max_seq_len=0)
+        if key not in drawn:
+            drawn[key] = init_params(model_cfg, 11, device=device)
+        return tree_map(lambda t: t.clone(), drawn[key])
+
+    run = lambda fn, *a: _part(device, lambda: fn(rank, world, opts, *a, params_of))
+    parts = {"ring_step": run(ring_step_part), "ring_runner": run(ring_runner_part)}
+    for kind in ("sft", "lora", "budget", "adafactor", "moe"):
+        parts[kind] = run(config_part, kind)
+    engines = ("continuous", "continuous_mega", "paged") if device == "cuda" else (
+        "continuous", "paged")
+    for kind in engines:
+        parts[kind] = run(engine_part, kind)
+    return parts
+
+
+def world1_step1(opts: Dict, workdir: str) -> Dict:
+    """A world of one: a plain ``ReasoningRunner`` (no mesh) trains on
+    phase A's first rollout from the same weights."""
     import torch
 
     from rlinf_tpu_torch.runners.reasoning_runner import ReasoningRunner
 
     device = opts["device"]
-    if device == "cuda":
-        from rlinf_tpu_torch.ops.cuda import build
-
-        build()
     cfg = trainer_config(opts, None, 3)
     runner = ReasoningRunner(cfg, _tokenizer(cfg), _dataset(), reward_fn=reward_mean_byte,
                              device=device)
@@ -282,6 +553,54 @@ def _assert_identical_nonzero(results: List[Dict], key: str, *, nonzero=True, ph
 TOLERANCE = {"cpu": (1e-3, 1e-6), "cuda": (2e-2, 1e-3)}
 
 
+def check_parts(per_rank: List[Dict], device: str) -> Dict:
+    """The parts' checks (the module docstring); returns their summary:
+    per part its seconds (the slowest rank's), its launches summed over
+    the ranks, rank 0's collectives and every rank's peak."""
+    import math
+
+    rel, ab = TOLERANCE[device]
+    ring = [p["ring_step"] for p in per_rank]
+    _assert_identical_nonzero(ring, "losses", phase="ring step")
+    _assert_identical_nonzero(ring, "grad_norms", phase="ring step")
+    w1 = ring[0]["world1"]
+    for key, got in (("loss", ring[0]["losses"][0]), ("grad_norm", ring[0]["grad_norms"][0])):
+        assert abs(got - w1[key]) <= rel * abs(w1[key]) + ab, (
+            f"ring step 1 {key}: {got} against the world-1 step's {w1[key]} "
+            f"(rel {rel}, abs {ab})")
+    runner = [p["ring_runner"] for p in per_rank]
+    assert all(r["tokens"] == runner[0]["tokens"] for r in runner), \
+        "the ring runner's context ranks sampled different tokens"
+    _assert_identical_nonzero(runner, "losses", nonzero=False, phase="ring runner")
+    for kind in ("sft", "lora", "budget", "adafactor", "moe"):
+        vals = [(p[kind]["loss"], p[kind]["grad_norm"]) for p in per_rank]
+        assert len(set(vals)) == 1, f"{kind}: ranks differ: {vals}"
+        assert all(math.isfinite(v) for v in vals[0]), f"{kind}: {vals[0]}"
+    assert per_rank[0]["budget"]["microbatches"] >= 2, per_rank[0]["budget"]
+    for kind in ("continuous", "continuous_mega", "paged"):
+        if kind not in per_rank[0]:
+            continue
+        assert all(p[kind]["tokens"] == per_rank[0][kind]["tokens"] for p in per_rank), \
+            f"{kind}: the ranks decoded different tokens"
+        assert all(p[kind]["finite"] for p in per_rank), kind
+    out = {}
+    for name in per_rank[0]:
+        launches: Dict[str, int] = {}
+        for p in per_rank:
+            for k, c in p[name]["launches"].items():
+                launches[k] = launches.get(k, 0) + c
+        out[name] = {"seconds": max(p[name]["seconds"] for p in per_rank),
+                     "launches": launches, "collectives": per_rank[0][name]["collectives"],
+                     "peak_gib": [p[name]["peak_gib"] for p in per_rank]}
+    out["ring_step"].update({k: ring[0][k] for k in (
+        "losses", "grad_norms", "step_s", "shifts_per_step", "seq_len", "chunk", "mesh")})
+    out["ring_step"]["world1"] = w1
+    for kind in ("sft", "lora", "budget", "adafactor", "moe"):
+        out[kind].update(loss=per_rank[0][kind]["loss"], grad_norm=per_rank[0][kind]["grad_norm"])
+    out["ring_runner"]["losses"] = runner[0]["losses"]
+    return out
+
+
 def run_drill(opts: Dict) -> Dict:
     """Phases A, B and C and the world-1 reference; raises on a failed
     check, returns the summary."""
@@ -299,17 +618,16 @@ def run_drill(opts: Dict) -> Dict:
         _assert_identical_nonzero(a, "grad_norms", phase="A")
         for r in a:
             assert all(s > 0 for s in r["reward_stds"]), r["reward_stds"]
-        ref = spawn_world(reference_rank, 1, (opts, workdir), device=device,
-                          workdir=os.path.join(workdir, "world_ref"))[0]
+        t0 = time.perf_counter()
+        b = spawn_world(drill_rank, n, (opts, "BC", workdir), device=device,
+                        workdir=os.path.join(workdir, "world_bc"))
+        t_bc = time.perf_counter() - t0
+        ref = b[0]["world1"]
         rel, ab = TOLERANCE[device]
         for key, got in (("loss", a[0]["losses"][0]), ("grad_norm", a[0]["grad_norms"][0])):
             assert abs(got - ref[key]) <= rel * abs(ref[key]) + ab, (
                 f"step 1 {key}: sharded {got} against world-1 {ref[key]} "
                 f"(rel {rel}, abs {ab})")
-        t0 = time.perf_counter()
-        b = spawn_world(drill_rank, n, (opts, "BC", workdir), device=device,
-                        workdir=os.path.join(workdir, "world_bc"))
-        t_bc = time.perf_counter() - t0
         assert all(r["start_step"] == 2 for r in b), (
             f"resume did not pick up the checkpoint: {[r['start_step'] for r in b]}")
         assert all(r["end_step"] == 5 for r in b), b
@@ -320,6 +638,7 @@ def run_drill(opts: Dict) -> Dict:
             assert r["disagg_param_version"] == 2, r["disagg_param_version"]
             assert r["disagg_version_lags"] == [0.0, 1.0], r["disagg_version_lags"]
             assert all(d == 0.0 for d in r["disagg_sync_max_abs"]), r["disagg_sync_max_abs"]
+        parts = check_parts([r["parts"] for r in b], device)
         return {
             "multiprocess_runner": True, "num_processes": n, "device": device,
             "model": opts["model"], "num_layers": model_config(
@@ -339,6 +658,7 @@ def run_drill(opts: Dict) -> Dict:
             "launches_b": {r["rank"]: r["launches"] for r in b},
             "launches_c": {r["rank"]: (r["disagg_role"], r["disagg_launches"]) for r in b},
             "phase_seconds": {"A": t_a, "BC": t_bc},
+            "parts": parts,
             "ok": True,
         }
     finally:
@@ -353,6 +673,8 @@ def main(argv=None):
     ap.add_argument("--num-layers", type=int, default=None,
                     help="cut the model's depth (widths stay the preset's)")
     ap.add_argument("--workdir", default=None, help="parent of the drill's scratch directory")
+    ap.add_argument("--ring-seq-len", type=int, default=8192,
+                    help="tokens a row of the ring train step (part a)")
     args = ap.parse_args(argv)
     opts = {k.replace("-", "_"): v for k, v in vars(args).items()}
     if opts["device"] == "cuda":

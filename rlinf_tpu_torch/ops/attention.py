@@ -3,8 +3,9 @@
 Plain PyTorch implementations here (the JAX package's "xla" path); the
 hand-written flash-attention kernel K1 lives in
 ``rlinf_tpu_torch.ops.cuda.flash_attention`` and is selected with
-``causal_attention(..., impl="pallas")`` (or ``"flash"``). Softmax is
-computed in float32.
+``causal_attention(..., impl="pallas")`` (or ``"flash"``); ``"ring"``
+runs ``ops/ring_attention.py`` over the active mesh's context axis where it
+has more than one rank. Softmax is computed in float32.
 """
 
 from __future__ import annotations
@@ -53,11 +54,18 @@ def causal_attention(
             scale=scale,
         )
     if impl == "ring":
-        # Context parallelism needs a mesh with a context axis of size > 1;
-        # without one the JAX package takes the plain path below. The port's
-        # mesh (parallel/mesh.py) takes data, fsdp and tensor axes; a
-        # context axis > 1 raises (models/llm/model.py check_mesh) until
-        # ring attention is ported (ROADMAP.md §A.9b).
+        # context parallelism: the sequence split over the active mesh's
+        # context axis (ops/ring_attention.py); without a context axis of
+        # size > 1 the plain path below, as in the JAX package
+        from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, current_mesh
+
+        mesh = current_mesh()
+        if mesh is not None and mesh.size(Ax.CONTEXT) > 1:
+            from rlinf_tpu_torch.ops.ring_attention import ring_attention
+
+            return ring_attention(
+                q, k, v, group=mesh.get_group(Ax.CONTEXT), positions=positions_q,
+                kv_valid_mask=kv_valid_mask, scale=scale)
         impl = "xla"
     if impl != "xla":
         raise ValueError(

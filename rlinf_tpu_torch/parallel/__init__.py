@@ -1,8 +1,8 @@
 """Meshes over ranks, component placement, sharding rules, collectives and
 weight sync: the port of ``rlinf_tpu/parallel/`` on ``torch.distributed``
-(one process per device, explicit collectives). Ring attention and the
-context axis, expert parallelism, ``dynamic_scheduler`` and ``channel``
-are not ported yet (ROADMAP.md §A.9b)."""
+(one process per device, explicit collectives), with the context axis
+(``ops/ring_attention.py``). Expert parallelism, ``dynamic_scheduler`` and
+``channel`` are not ported yet (ROADMAP.md §A.9b.3-5)."""
 
 from rlinf_tpu_torch.parallel.mesh import (
     AxisNames,

@@ -16,6 +16,11 @@ calls ``torch.distributed``'s collectives:
                            computed the same loss, as tensor-parallel ranks)
   reduce_scatter(x, dim, group)
                            sum, then the rank's slice along ``dim``
+  ring_shift(x, group)     the rank's block to the next rank of the group
+                           (index + 1, modulo its size), the previous
+                           rank's block back (JAX's ``ppermute`` with the
+                           ring's permutation); its backward is the shift
+                           the other way
   all_reduce_(x, op, group), broadcast_(x, src, group), broadcast_object
                            in place / on objects, no autograd
 
@@ -27,9 +32,13 @@ gloo takes CUDA tensors for ``broadcast`` and ``all_reduce`` only (no CUDA
 one card cannot use NCCL. On a gloo group holding CUDA tensors,
 ``all_gather`` is therefore an all-reduce of a zero-padded buffer (each
 rank writes its block at its offset, the sum is the concatenation) and
-``reduce_scatter`` an all-reduce followed by the rank's slice. This moves
-``world`` times the bytes of a real all-gather: the times of such a run
-say nothing of NCCL on several cards.
+``reduce_scatter`` an all-reduce followed by the rank's slice, and
+``ring_shift`` the same zero-padded all-reduce as the all-gather, from
+which each rank keeps its predecessor's block. This moves ``world`` times
+the bytes of a real all-gather (or of a send): the times of such a run
+say nothing of NCCL on several cards. Where the backend takes
+point-to-point calls (gloo on CPU tensors, NCCL), the shift is one
+``batch_isend_irecv`` of a send and a receive.
 
 ``COUNTS`` counts the calls made to the backend by kind, for the drills'
 reports.
@@ -44,7 +53,8 @@ import torch
 import torch.distributed as dist
 
 #: backend calls by kind ("all_reduce", "all_gather", "reduce_scatter",
-#: "broadcast", "broadcast_object"); reset by the caller
+#: "broadcast", "broadcast_object", "ring_shift": one a shift, in either
+#: form); reset by the caller
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -149,6 +159,28 @@ def _slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return x.narrow(dim, _index(group) * k, k).contiguous()
 
 
+def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """The block of the rank ``step`` places before this one in the group
+    (this rank's own goes ``step`` places after it)."""
+    n = _size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    me = _index(group)
+    COUNTS["ring_shift"] += 1
+    if _emulated(x, group):
+        out = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype, device=x.device)
+        out[me].copy_(x)
+        dist.all_reduce(out, group=group)
+        return out[(me - step) % n].clone()
+    recv = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (me + step) % n), group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (me - step) % n), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return recv
+
+
 def gather_tensor(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """All-gather without autograd (checkpoints, weight sync, results)."""
     with torch.no_grad():
@@ -205,6 +237,17 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather(g, ctx.dim, ctx.group), None, None
 
 
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _shift(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -1), None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron's f: identity forward, sum of the gradients backward."""
     if _size(group) == 1:
@@ -237,6 +280,15 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _ReduceScatter.apply(x, dim, group)
 
 
+def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """Send this rank's ``x`` to the next rank of ``group`` and return the
+    previous rank's (ranks in the group's order, wrapping around); the
+    gradient goes back the other way."""
+    if _size(group) == 1:
+        return x
+    return _RingShift.apply(x, group)
+
+
 def group_size(group) -> int:
     return _size(group)
 
@@ -252,4 +304,5 @@ def reset_counts() -> None:
 __all__: List[str] = [
     "COUNTS", "all_gather", "all_reduce", "all_reduce_", "broadcast_", "broadcast_object",
     "copy_to", "counts", "gather_tensor", "group_size", "reduce_scatter", "reset_counts",
+    "ring_shift",
 ]

@@ -6,8 +6,9 @@ explicit collectives, as PyTorch (and the reference RLinf, one worker per
 GPU) runs. A :class:`Mesh` is a ``torch.distributed.device_mesh.DeviceMesh``
 over ranks with the JAX package's axis names and order (data, fsdp, expert,
 context, tensor); each axis's process group is ``mesh.get_group(name)``.
-The mesh adds one group the DeviceMesh does not make, the batch axes
-(data x fsdp) together, and the group of all its ranks.
+The mesh adds the groups the DeviceMesh does not make: one for every set
+of two or more of its axes of size > 1 (the batch axes data x fsdp, the
+batch and context axes together, a leaf's sharding axes, all its ranks).
 
 ``torch.distributed.new_group`` must be called by every rank of the world
 in the same order, also by ranks outside the group: so a mesh is built on
@@ -24,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import itertools
 import math
 from enum import Enum
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -112,10 +114,15 @@ class Mesh:
         self.grid = grid
         self.device_mesh = DeviceMesh(device_type, grid, mesh_dim_names=MESH_ORDER) \
             if dist.is_initialized() else None
-        self._groups: Dict[Tuple[str, ...], object] = {}
+        # one group for every set of two or more axes of size > 1 (the
+        # batch axes, batch x context, the whole mesh, a leaf's sharding
+        # axes), made in the same order on every rank
+        self._groups: Dict[frozenset, object] = {}
         if dist.is_initialized():
-            self._groups[AxisNames.BATCH] = self._combined_group(AxisNames.BATCH)
-            self._groups[MESH_ORDER] = self._combined_group(MESH_ORDER)
+            sized = [a for a in MESH_ORDER if self.shape[a] > 1]
+            for n in range(2, len(sized) + 1):
+                for axes in itertools.combinations(sized, n):
+                    self._groups[frozenset(axes)] = self._combined_group(axes)
 
     # -- groups -----------------------------------------------------------
     def _combined_group(self, axes: Tuple[str, ...]):
@@ -144,13 +151,12 @@ class Mesh:
             if self.shape[axes] == 1 or self.device_mesh is None or not self.contains():
                 return None
             return self.device_mesh.get_group(axes)
-        axes = tuple(axes)
-        if axes in self._groups:
-            return self._groups[axes]
         sized = [a for a in axes if self.shape[a] > 1]
         if len(sized) <= 1:
             return self.get_group(sized[0]) if sized else None
-        raise KeyError(f"no group for axes {axes}: the mesh makes {list(self._groups)}")
+        if self.device_mesh is None or not self.contains():
+            return None
+        return self._groups[frozenset(sized)]
 
     def size(self, axes=None) -> int:
         if axes is None:

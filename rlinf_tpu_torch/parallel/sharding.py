@@ -157,6 +157,22 @@ def sharded_axes(spec: PartitionSpec) -> Tuple[str, ...]:
     return tuple(a for entry in spec if entry is not None for a in _axes(entry))
 
 
+def context_chunk(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """This rank's contiguous chunk of ``x`` along ``dim`` (the sequence)
+    over the mesh's context axis: rank i of the context group takes
+    [i*S/cp, (i+1)*S/cp), the JAX layout ``P(None, "context")``. A length
+    that the context axis does not divide raises, as JAX's shard_map."""
+    cp = mesh.size("context")
+    if cp == 1:
+        return x
+    n = x.shape[dim]
+    if n % cp:
+        raise ValueError(f"sequence length {n} not divisible by mesh.context ({cp}): "
+                         "ring attention shards the sequence evenly")
+    k = n // cp
+    return x.narrow(dim, mesh.axis_index("context") * k, k)
+
+
 def logical_to_mesh_axes(
     logical_axes: Sequence[Optional[str]],
     mapping: Dict[str, Union[str, Tuple[str, ...], None]],
@@ -173,11 +189,21 @@ def with_sharding_constraint(x, spec: PartitionSpec):
     return x
 
 
+def _trim(spec: PartitionSpec) -> PartitionSpec:
+    spec = list(spec)
+    while spec and spec[-1] is None:
+        spec.pop()
+    return P(*spec)
+
+
 class Layout:
     """Resolved specs by parameter path, for trees whose paths end with a
     parameter's path (the optimizer state's ``mu/blocks/wq``, a
     checkpoint's ``/1/blocks/wq``): the longest parameter path that ends
-    the leaf's path gives its spec, where the local shapes agree."""
+    the leaf's path gives its spec, where the local shapes agree. A leaf
+    under ``v_row/`` or ``v_col/`` (adafactor's factored statistics: the
+    parameter's shape without its largest or its second largest dim)
+    takes the parameter's spec without that dim."""
 
     def __init__(self, mesh, specs: Dict[str, PartitionSpec], local_shapes: Dict[str, tuple]):
         self.mesh = mesh
@@ -198,12 +224,38 @@ class Layout:
             local[path] = tuple(shape)
         return cls(mesh, flat_specs, local)
 
+    def _forms(self, p: str, path: str):
+        """(local shape, spec) of the leaf at ``path``, a state of the
+        parameter at ``p``: the parameter's own, or under ``v_row``/``v_col``
+        also its factored statistic's."""
+        from rlinf_tpu_torch.training.train_state import factored_dims
+
+        local, spec = self.local_shapes[p], self.specs[p]
+        yield local, spec
+        parts = path.split("/")
+        stat = 0 if "v_row" in parts else 1 if "v_col" in parts else None
+        if stat is None:
+            return
+        full = list(local)
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                full[dim] *= self.mesh.size(_axes(axis))
+        dims = factored_dims(tuple(full))
+        if dims is None:
+            return
+        padded = list(spec) + [None] * (len(local) - len(spec))
+        d = dims[1] if stat == 0 else dims[0]       # v_row drops the largest dim
+        yield local[:d] + local[d + 1:], P(*padded[:d], *padded[d + 1:])
+
     def spec_for(self, path: str, local_shape=None) -> PartitionSpec:
         path = path.strip("/")
         for p in self._by_len:
             if path == p or path.endswith("/" + p):
-                if local_shape is None or tuple(local_shape) == self.local_shapes[p]:
+                if local_shape is None:
                     return self.specs[p]
+                for shape, spec in self._forms(p, path):
+                    if tuple(local_shape) == tuple(shape):
+                        return _trim(spec)
         return P()
 
     def shard(self, tree, prefix: str = ""):
@@ -220,13 +272,13 @@ class Layout:
         path = path.strip("/")
         for p in self._by_len:
             if path == p or path.endswith("/" + p):
-                spec = self.specs[p]
-                want = list(self.local_shapes[p])
-                for dim, axis in enumerate(spec):
-                    if axis is not None:
-                        want[dim] *= self.mesh.size(_axes(axis))
-                if tuple(leaf.shape) == tuple(want):
-                    return spec
+                for shape, spec in self._forms(p, path):
+                    want = list(shape)
+                    for dim, axis in enumerate(spec):
+                        if axis is not None:
+                            want[dim] *= self.mesh.size(_axes(axis))
+                    if tuple(leaf.shape) == tuple(want):
+                        return _trim(spec)
         return P()
 
     def gather(self, tree, prefix: str = ""):

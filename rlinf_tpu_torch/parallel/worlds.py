@@ -5,8 +5,11 @@ arrays, floats, dicts), so that a parent process, which may hold other
 packages, compares what the ranks computed. They drive the port's public
 entry points under a mesh: the sharded train step, the logprob recompute,
 the static engine, ``ReasoningRunner(mesh=)``, the checkpoints, the weight
-syncers and the disaggregated runner. ``jobs`` runs several bodies in one
-world, so that a caller pays the start of a world once.
+syncers and the disaggregated runner; ring attention and the context axis
+(``ring_case``, ``ring_shift_case``, ``ring_forward``); ``SFTRunner(mesh=)``
+(``sft_steps``) and the slot-pool engines under a mesh
+(``greedy_rollout(engine=)``). ``jobs`` runs several bodies in one world,
+so that a caller pays the start of a world once.
 """
 
 from __future__ import annotations
@@ -143,17 +146,22 @@ def quantized_blocks(rank, world, *, mesh_cfg, cfg, params, size=None, device="c
 
 
 def greedy_rollout(rank, world, *, mesh_cfg, cfg, params, prompts, max_new_tokens,
-                   size=None, device="cuda"):
-    """The static engine's greedy tokens under ``rollout(mesh=)``."""
+                   size=None, engine="static", engine_kw=None, device="cuda"):
+    """Greedy tokens of an engine ("static", "continuous" or "paged", with
+    ``engine_kw``) under ``rollout(mesh=)``."""
     from rlinf_tpu_torch.data.io_struct import RolloutRequest
     from rlinf_tpu_torch.models.llm import model as M
     from rlinf_tpu_torch.models.llm.sampler import SamplingParams
+    from rlinf_tpu_torch.rollout.continuous_engine import ContinuousBatchingEngine
     from rlinf_tpu_torch.rollout.engine import RolloutEngine
+    from rlinf_tpu_torch.rollout.paged_engine import PagedContinuousEngine
 
     mesh = _my_mesh(mesh_cfg, size or world, device)
     p = M.shard_params_from_numpy(params, cfg, mesh, device=device)
     sp = SamplingParams(max_new_tokens=max_new_tokens, greedy=True, eos_token_id=-1)
-    eng = RolloutEngine(cfg, sp, prompt_bucket=8, device=device)
+    kind = {"static": RolloutEngine, "continuous": ContinuousBatchingEngine,
+            "paged": PagedContinuousEngine}[engine]
+    eng = kind(cfg, sp, prompt_bucket=8, device=device, **(engine_kw or {}))
     res = eng.rollout(p, RolloutRequest(prompt_ids=prompts), torch.Generator().manual_seed(0),
                       mesh=mesh)
     return {"ids": res.response_ids, "lps": res.response_logprobs}
@@ -176,25 +184,28 @@ def _my_mesh(mesh_cfg, size: int, device: str):
 
 
 def _train_steps(rank, mesh, *, cfg, params, batches, opt_cfg, loss_cfg,
-                 num_microbatches=1, device="cuda"):
+                 num_microbatches=1, attn_impl="xla", remat=False, device="cuda"):
     from rlinf_tpu_torch.models.llm import model as M
     from rlinf_tpu_torch.training.learner import make_policy_train_step
-    from rlinf_tpu_torch.training.sharded_step import model_layout
+    from rlinf_tpu_torch.training.sharded_step import model_layout, shards_of
     from rlinf_tpu_torch.training.train_state import TrainState, make_optimizer
 
     tx = make_optimizer(opt_cfg)
+    lay = model_layout(cfg, mesh)
     p = M.shard_params_from_numpy(params, cfg, mesh, device=device)
-    state = TrainState(0, p, tx.init(p))
+    state = TrainState(0, p, tx.init(p, shards=shards_of(lay, p)))
     step = make_policy_train_step(cfg, loss_cfg, tx, num_microbatches=num_microbatches,
-                                  remat=False, attn_impl="xla", mesh=mesh, device=device)
+                                  remat=remat, attn_impl=attn_impl, mesh=mesh, device=device)
     losses, norms = [], []
     for b in batches:
         state, m = step(state, b)
         losses.append(float(m["actor/loss"]))
         norms.append(float(m["actor/grad_norm"]))
-    full = model_layout(cfg, mesh).gather(state.params)
+    full, opt = lay.gather(state.params), lay.gather(state.opt_state)   # on every rank
+    first = rank == mesh.ranks[0]
     return {"losses": losses, "grad_norms": norms,
-            "params": _np_tree(full) if rank == mesh.ranks[0] else None}
+            "params": _np_tree(full) if first else None,
+            "opt_state": _np_tree(opt) if first else None}
 
 
 # ---------------------------------------------------------------------------
@@ -202,14 +213,18 @@ def _train_steps(rank, mesh, *, cfg, params, batches, opt_cfg, loss_cfg,
 # ---------------------------------------------------------------------------
 
 def runner_steps(rank, world, *, mesh_cfg, yaml, overrides, params, rollouts, perm,
-                 reward, ckpt_dir=None, rescale_to=None, pipelined_steps=0, device="cuda"):
-    """``ReasoningRunner(mesh=)`` from the JAX-layout ``params``: one
-    ``_train_on_result`` per given rollout (the permutation ``perm``
-    injected), then optionally a checkpoint (``ckpt_dir``), a ``rescale``
-    to ``rescale_to`` and ``pipelined_steps`` of ``run_pipelined`` (its
-    rollouts from the runner's engine, on the new mesh). Returns the
-    metrics, the params gathered whole before and after the rescale, and
-    the pipelined steps' history."""
+                 reward, ckpt_dir=None, rescale_to=None, pipelined_steps=0, adapters=None,
+                 critic_params=None, rollouts_after=(), size=None, device="cuda"):
+    """``ReasoningRunner(mesh=)`` from the JAX-layout ``params`` (LoRA:
+    with the given ``adapters``; a separate critic: from
+    ``critic_params``): one ``_train_on_result`` per given rollout (the
+    permutation ``perm`` injected), then optionally a checkpoint
+    (``ckpt_dir``), a ``rescale`` to ``rescale_to``, one
+    ``_train_on_result`` per rollout of ``rollouts_after`` and
+    ``pipelined_steps`` of ``run_pipelined`` (its rollouts from the
+    runner's engine, on the new mesh). Returns the metrics, the params
+    gathered whole before and after the rescale, and the pipelined steps'
+    history."""
     from rlinf_tpu_torch import config as tconfig
     from rlinf_tpu_torch.data.datasets import PromptDataset, PromptExample
     from rlinf_tpu_torch.data.io_struct import RolloutResult
@@ -224,12 +239,27 @@ def runner_steps(rank, world, *, mesh_cfg, yaml, overrides, params, rollouts, pe
 
         cfg = dataclasses.replace(cfg, runner=dataclasses.replace(
             cfg.runner, checkpoint_dir=ckpt_dir, save_interval=len(rollouts)))
-    mesh = make_mesh(mesh_cfg, device_type=torch.device(device).type)
+    mesh = (make_mesh(mesh_cfg, device_type=torch.device(device).type) if size is None
+            else _my_mesh(mesh_cfg, size, device))
     data = PromptDataset([PromptExample(f"q{i}", "a") for i in range(8)])
     r = ReasoningRunner(cfg, ByteTokenizer(), data, mesh=mesh, reward_fn=globals()[reward],
                         device=device,
                         init_params_override=lambda s: params_from_numpy(params, cfg.model,
                                                                          device=device))
+    if adapters is not None:            # LoRA: the given adapters, whole on every rank
+        from rlinf_tpu_torch.training.train_state import create_train_state
+
+        tree = params_from_numpy({"embed": np.zeros((cfg.model.vocab_size,
+                                                     cfg.model.hidden_size)), **adapters},
+                                 cfg.model, device=device)
+        tree.pop("embed")
+        r.state = create_train_state(lambda: tree, r.tx)
+    if critic_params is not None:
+        from rlinf_tpu_torch.training.train_state import create_train_state
+
+        r.critic_state = create_train_state(
+            lambda: params_from_numpy(critic_params, cfg.model, device=device), r.critic_tx,
+            mesh=mesh, partition_rules=r._rules(True))
     r._permutation = lambda n: np.asarray(perm)[:n]
     metrics = [r._train_on_result(RolloutResult(**arrays)) for arrays in rollouts]
     out = {"metrics": metrics, "params": _np_tree(r._layout(False).gather(r.state.params))}
@@ -238,6 +268,9 @@ def runner_steps(rank, world, *, mesh_cfg, yaml, overrides, params, rollouts, pe
         out["rescaled_shapes"] = {k: tuple(v.shape) for k, v in _flat(r.state.params).items()}
         out["rescaled"] = _np_tree(r._layout(False).gather(r.state.params))
         out["rescaled_mu"] = _np_tree(r._layout(False).gather(r.state.opt_state["mu"]))
+        out["metrics_after"] = [r._train_on_result(RolloutResult(**arrays))
+                                for arrays in rollouts_after]
+        out["params_after"] = _np_tree(r._layout(False).gather(r.state.params))
     if pipelined_steps:
         r.ckpt = None            # the checkpoint above stays the latest
         out["pipelined"] = r.run_pipelined(len(rollouts) + pipelined_steps)
@@ -380,6 +413,101 @@ def odd_rule_reward(texts, answers):
 def char_reward(texts, answers):
     """The fraction of the letter "a" in each response."""
     return [(sum(c == "a" for c in t) / max(len(t), 1)) if t else 0.0 for t in texts]
+
+
+def sft_steps(rank, world, *, mesh_cfg, yaml, overrides, params, examples, steps,
+              device="cuda"):
+    """``SFTRunner(mesh=)`` from the JAX-layout ``params`` on ``examples``
+    ((prompt, answer) pairs): ``steps`` run_steps; the metrics and the
+    params gathered whole."""
+    from rlinf_tpu_torch import config as tconfig
+    from rlinf_tpu_torch.data.datasets import PromptDataset, PromptExample
+    from rlinf_tpu_torch.data.tokenizers import ByteTokenizer
+    from rlinf_tpu_torch.models.llm.convert import params_from_numpy
+    from rlinf_tpu_torch.parallel.mesh import make_mesh
+    from rlinf_tpu_torch.runners.sft_runner import SFTRunner
+
+    cfg = tconfig.load_config(yaml, overrides)
+    mesh = make_mesh(mesh_cfg, device_type=torch.device(device).type)
+    r = SFTRunner(cfg, ByteTokenizer(), PromptDataset([PromptExample(p, a) for p, a in examples]),
+                  mesh=mesh, device=device,
+                  init_params_override=lambda s: params_from_numpy(params, cfg.model,
+                                                                   device=device))
+    metrics = [r.run_step() for _ in range(steps)]
+    return {"metrics": metrics, "params": _np_tree(r.layout.gather(r.state.params))}
+
+
+# ---------------------------------------------------------------------------
+# Ring attention and the context axis
+# ---------------------------------------------------------------------------
+
+def ring_case(rank, world, *, cp, q, k, v, positions, mask, weight, emulated=False,
+              device="cuda"):
+    """``ring_attention`` over a context group of ``cp`` ranks (meshes of
+    ``cp`` ranks side by side) on the whole-sequence inputs cut into the
+    rank's chunk; the loss sum(out * weight) backward. Returns the output
+    and the gradients of q, k, v gathered whole over the group.
+    ``emulated``: the shift built from all-reduce, as on CUDA tensors of a
+    gloo group."""
+    from rlinf_tpu_torch.ops.ring_attention import ring_attention
+    from rlinf_tpu_torch.parallel import collectives as C
+    from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, MeshConfig
+    from rlinf_tpu_torch.parallel.sharding import context_chunk
+
+    mesh = _my_mesh(MeshConfig(data=1, context=cp), cp, device)
+    g = mesh.get_group(Ax.CONTEXT)
+    real = C._emulated
+    if emulated:
+        C._emulated = lambda x, group: True
+    try:
+        C.reset_counts()
+        cut = lambda a: context_chunk(torch.as_tensor(a).to(device), mesh).contiguous()
+        qc, kc, vc = (cut(a).requires_grad_(True) for a in (q, k, v))
+        out = ring_attention(qc, kc, vc, group=g, positions=cut(positions),
+                             kv_valid_mask=cut(mask))
+        (out * cut(weight)).sum().backward()
+        got = {n: _np(C.gather_tensor(t.detach(), 1, g))
+               for n, t in (("out", out), ("dq", qc.grad), ("dk", kc.grad), ("dv", vc.grad))}
+        got["counts"] = C.counts()
+    finally:
+        C._emulated = real
+    return got
+
+
+def ring_shift_case(rank, world, *, emulated=False, device="cuda"):
+    """``ring_shift`` over a group of all 4 ranks on x = rank + [0, 1, 2],
+    with the loss sum(y * (rank + 1)): y and the gradient of x."""
+    from rlinf_tpu_torch.parallel import collectives as C
+    from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(data=1, context=world), device_type=torch.device(device).type)
+    real = C._emulated
+    if emulated:
+        C._emulated = lambda x, group: True
+    try:
+        x = (rank + torch.arange(3.0)).requires_grad_(True)
+        y = C.ring_shift(x, mesh.get_group("context"))
+        (y * (rank + 1)).sum().backward()
+    finally:
+        C._emulated = real
+    return {"y": _np(y), "dx": _np(x.grad)}
+
+
+def ring_forward(rank, world, *, mesh_cfg, cfg, params, ids, mask=None, size=None,
+                 device="cuda"):
+    """``forward_hidden(attn_impl="ring")`` on whole rows under the mesh,
+    the rank's chunk of the hidden states gathered whole."""
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.parallel.mesh import use_mesh
+
+    mesh = _my_mesh(mesh_cfg, size or world, device)
+    p = M.shard_params_from_numpy(params, cfg, mesh, device=device)
+    with use_mesh(mesh), torch.no_grad():
+        h, _ = M.forward_hidden(p, cfg, torch.as_tensor(ids).to(device),
+                                attention_mask=None if mask is None else
+                                torch.as_tensor(mask).to(device), attn_impl="ring")
+        whole, _ = M.gather_sequence(h, None, "ring")
+    return {"chunk": tuple(h.shape), "hidden": _np(whole)}
 
 
 def collectives(rank, world, *, device="cuda"):

@@ -6,7 +6,9 @@ knobs resolve on the DEVICE the engine runs on: int8 weights and the
 hand-written kernels on CUDA, no quantization and the plain versions on
 the CPU. Under a mesh "auto" resolves to the static engine, whose
 ``rollout(mesh=)`` splits the prompts over the batch axes; the continuous
-and paged engines refuse a mesh, as in the JAX package.
+and paged engines, named explicitly, run their slot pool whole on every
+rank over the rank's blocks of the params, as the JAX package's do
+(``rollout/continuous_engine.py``).
 """
 
 import torch
@@ -64,10 +66,6 @@ def build_rollout_engine(cfg, mesh=None, device="cuda"):
     """
     device = resolve_device(device)
     engine, quant, decode_attn = resolve_rollout_paths(cfg, mesh=mesh, device=device)
-    if mesh is not None and engine != "static":
-        raise NotImplementedError(
-            f"rollout.engine={engine!r} under a mesh: the continuous and paged engines "
-            "run on one device, as in the JAX package; use engine=static (or auto)")
     if engine == "static":
         return RolloutEngine(
             cfg.model, cfg.sampling,

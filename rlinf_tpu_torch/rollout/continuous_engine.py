@@ -27,6 +27,17 @@ two paths cross on this card is to be measured.
 
 Where the JAX package jitted ``_refill_impl`` / ``_decode_impl`` with donated
 buffers, these run eagerly and update the pool's tensors IN PLACE.
+
+``rollout(mesh=)`` runs under a mesh as the JAX engine does: the slot pool
+is not sharded, every rank runs the same pool on the whole request (with
+the same generator, so the ranks draw the same tokens), and the model runs
+over the rank's blocks: the tensor-parallel prefill and per-layer decode
+steps of the static engine, on the weights gathered over fsdp
+(``model.rollout_params``). The megakernel K9 runs every layer in one
+launch with no collective in between; JAX's engine calls its Pallas kernel
+on sharded params, which XLA gathers whole for it, so with ``use_mega``
+(True or "auto") every rank here decodes on the whole params, gathered
+once a rollout, with no mesh active.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from rlinf_tpu_torch.ops.cuda.decode_megakernel import (
 from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import rope_frequencies
+from rlinf_tpu_torch.parallel.mesh import current_mesh, use_mesh
 from rlinf_tpu_torch.utils.device import resolve_device
 
 
@@ -186,7 +198,8 @@ class ContinuousBatchingEngine:
             params, self.cfg, prompt_ids, attention_mask=prompt_mask,
             return_kv=True, attn_impl=self.attn_impl,
         )
-        kd = self.cfg.kv_dim
+        hidden, kv = M.gather_sequence(hidden, kv, self.attn_impl)
+        kd = M.local_config(self.cfg, current_mesh()).kv_dim
         kv_layers = pool.kv_layers
         if self.use_mega and self._is_stacked(kv_layers):
             kc, vc, ksc, vsc = kv_layers
@@ -513,12 +526,17 @@ class ContinuousBatchingEngine:
         self, params, request: RolloutRequest, generator: torch.Generator, *, mesh=None
     ) -> RolloutResult:
         """Runner-facing API (matches rollout.engine.RolloutEngine.rollout).
-        The slot pool is single-program."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "the continuous engine runs on one device, as in the JAX package: "
-                "under a mesh use the static engine (rollout.engine=static or auto)")
-        return self.generate(params, request, generator)
+        The slot pool is single-program; a mesh shards the model params,
+        not the slots (see the module docstring)."""
+        if mesh is None:
+            return self.generate(params, request, generator)
+        M.check_mesh(self.cfg, mesh)
+        if self.use_mega:
+            with torch.no_grad():
+                whole = M.param_layout(self.cfg, mesh).gather(params)
+            return self.generate(whole, request, generator)
+        with use_mesh(mesh):
+            return self.generate(M.rollout_params(params, self.cfg), request, generator)
 
     def _pack_results(self, request, results_tokens, results_lps) -> RolloutResult:
         n = len(request.prompt_ids)

@@ -9,7 +9,10 @@ writes; the pools hold only ~sum(lengths) tokens of KV instead of B*S_max.
 Decode attention goes to the paged-attention kernel K10
 (``attn_impl="pallas"``, ops/cuda/paged_attention.py) or to its plain gather
 version (``"xla"``). As in the JAX package, the prefill runs the model's
-plain attention and the engine decodes on the unquantized params.
+plain attention and the engine decodes on the unquantized params. Under
+``rollout(mesh=)`` the pools hold this rank's kv heads and every layer is
+the tensor-parallel one of the model's decode steps (the base engine's
+docstring says how the pool runs under a mesh).
 
 Chunk-ahead allocation: before each K-step decode chunk the host allocates
 K token positions for every occupied slot (pages as needed). Slots that
@@ -32,6 +35,8 @@ from rlinf_tpu_torch.ops.cuda.geometry import check_kernel_geometry
 from rlinf_tpu_torch.ops.cuda.paged_attention import paged_attention, paged_attention_xla
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from rlinf_tpu_torch.parallel import collectives as C
+from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, current_mesh
 from rlinf_tpu_torch.rollout.continuous_engine import ContinuousBatchingEngine, _Slot
 from rlinf_tpu_torch.rollout.paged_cache import PagePool, paged_cache_write
 
@@ -75,7 +80,7 @@ class PagedContinuousEngine(ContinuousBatchingEngine):
 
     # -- state ---------------------------------------------------------------
     def _init_pools(self):
-        c = self.cfg
+        c = M.local_config(self.cfg, current_mesh())
         shape = (self.num_pages, c.num_kv_heads, self.page_size, c.head_dim_)
         make = lambda: tuple(
             torch.zeros(shape, dtype=c.compute_dtype, device=self.device)
@@ -93,7 +98,8 @@ class PagedContinuousEngine(ContinuousBatchingEngine):
         )
         R, Pb = prompt_ids.shape
         n_pages = Pb // self.page_size
-        Kv, Hd = self.cfg.num_kv_heads, self.cfg.head_dim_
+        lc = M.local_config(self.cfg, current_mesh())
+        Kv, Hd = lc.num_kv_heads, lc.head_dim_
         for i in range(self.cfg.num_layers):
             # kv.k[i]: [R, Pb, Kv, Hd] -> [R, n_pages, Kv, P, Hd]
             kk = kv.k[i].reshape(R, n_pages, self.page_size, Kv, Hd)
@@ -123,6 +129,9 @@ class PagedContinuousEngine(ContinuousBatchingEngine):
         Returns (done, cur_tokens, toks, lps, was_done) on the device.
         """
         c = self.cfg
+        mesh = current_mesh()
+        lc = M.local_config(c, mesh)          # this rank's heads under a tensor axis
+        tp = mesh.get_group(Ax.TENSOR) if mesh is not None else None
         sp = self.sampling
         B = cur_tokens.shape[0]
         cos, sin = rope_frequencies(c.head_dim_, c.max_seq_len, c.rope_theta, cur_tokens.device)
@@ -133,16 +142,16 @@ class PagedContinuousEngine(ContinuousBatchingEngine):
         for k_idx in range(n_steps):
             pos = base_len + k_idx          # [B] rope position of this token
             lengths = torch.where(pad_mask, 0, pos + 1).to(torch.int32)
-            x = params["embed"][tok.long()][:, None, :].to(c.compute_dtype)
+            x = M.embed_tokens(params, c, tok)[:, None, :]
             for i, layer in enumerate(layers):
                 h = rms_norm(x, layer["attn_norm"], c.rms_eps)
-                q, kk, vv = M._project_qkv(c, layer, h, B, 1)
+                q, kk, vv = M._project_qkv(lc, layer, h, B, 1)
                 q, kk = apply_rope(q, kk, cos, sin, pos[:, None])
                 paged_cache_write(k_layers[i], v_layers[i], kk[:, 0], vv[:, 0],
                                   write_pages[k_idx], write_offsets[k_idx])
                 attn = self._attend(q[:, 0], k_layers[i], v_layers[i], page_table, lengths)
-                x = x + attn.reshape(B, 1, c.q_dim) @ layer["wo"]
-                x, _ = M._mlp_or_moe(c, x, layer)
+                x = x + C.all_reduce(attn.reshape(B, 1, lc.q_dim) @ layer["wo"], tp)
+                x, _ = M._mlp_or_moe(c, x, layer, tp)
             x = rms_norm(x, params["final_norm"], c.rms_eps)
             logits = (x[:, 0] @ w_lm).float()
             new_tok, lp = sample_from_logits(generator, logits, sp)

@@ -31,8 +31,14 @@ batch axes and returns the global result on every rank, every rank scores
 and assembles the whole batch, and each train step keeps its rows and
 reduces across the mesh. The checkpoints hold the single-card layout
 (gathered on save, cut on restore), and ``rescale(new_mesh)`` re-shards the
-live state. LoRA and the token-budget microbatches do not take a mesh yet
-(ROADMAP.md §A.9b).
+live state. With LoRA the base params are this rank's blocks and the
+adapters are whole on every rank (the JAX package's layout); the merge
+runs per rank on its blocks. The token-budget microbatches are packed from
+the whole minibatch on every rank, and each rank trains on its rows of
+each. Under ``attn_impl="ring"`` on a context axis > 1 the forward, the
+recompute and the loss run on each rank's chunk of the sequence; the
+rollout's prefill too, after which each layer's K/V is gathered over the
+context group and every context rank decodes the same tokens.
 
 Randomness: two seeded ``torch.Generator``s on the host, one for the
 rollout's per-call sampling seeds (the engines draw their device noise from
@@ -73,6 +79,18 @@ from rlinf_tpu_torch.utils.sync import host_sync
 from rlinf_tpu_torch.utils.timers import Timers
 
 
+#: why ``rescale`` refuses LoRA: the JAX runner's ``rescale``
+#: (rlinf_tpu/runners/reasoning_runner.py:259-286) replaces the LoRA step
+#: (:151) by a full-parameter ``make_policy_train_step`` over the adapter
+#: tree, whose next call fails (tests/test_torch_mesh_configs.py
+#: test_jax_rescale_with_lora_or_a_separate_critic; ROADMAP.md §C.4)
+RESCALE_REFUSED = (
+    "rescale with LoRA: the JAX runner's rescale (rlinf_tpu/runners/reasoning_runner.py:"
+    "259-286) re-shards the adapter tree under the model's rules, leaves base_params on the "
+    "old mesh and replaces the LoRA step (:151) by a full-parameter make_policy_train_step "
+    "over the adapters, whose next call fails (KeyError 'embed'); ROADMAP.md §C.4")
+
+
 class ReasoningRunner:
     def __init__(
         self,
@@ -89,10 +107,6 @@ class ReasoningRunner:
         port's dict of tensors on ``device``) in place of a random init;
         ``reward_fn(texts, answers)`` scores the decoded responses (default:
         the math verifier)."""
-        if mesh is not None and (cfg.lora.enabled or cfg.loss.max_tokens_per_mb > 0):
-            raise NotImplementedError(
-                "ReasoningRunner(mesh=...) with lora.enabled or loss.max_tokens_per_mb > 0 "
-                "is not ported yet (ROADMAP.md §A.9b)")
         if cfg.lora.enabled and cfg.loss.max_tokens_per_mb > 0:
             raise NotImplementedError(
                 "lora.enabled with dynamic token-budget microbatching "
@@ -137,7 +151,7 @@ class ReasoningRunner:
             lora_step = make_lora_policy_train_step(
                 cfg.model, cfg.loss, self.tx, cfg.lora,
                 num_microbatches=cfg.num_microbatches,
-                remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+                remat=cfg.remat, attn_impl=cfg.attn_impl, mesh=mesh, device=dev,
             )
             self.train_step = lambda state, batch: lora_step(state, self.base_params, batch)
         else:
@@ -179,7 +193,7 @@ class ReasoningRunner:
             self._grad_step, self._apply_step, self._zero_grads = (
                 make_policy_grad_and_apply(
                     cfg.model, cfg.loss, self.tx,
-                    remat=cfg.remat, attn_impl=cfg.attn_impl, device=dev,
+                    remat=cfg.remat, attn_impl=cfg.attn_impl, mesh=mesh, device=dev,
                 )
             )
         # Logprob-consistency invariant: the recompute is on whenever the
@@ -216,6 +230,9 @@ class ReasoningRunner:
             from rlinf_tpu_torch.models.llm.lora import init_lora_params, merge_lora
 
             self.base_params = init_fn(seed)
+            lay = self._layout(False)
+            if lay is not None:
+                self.base_params = lay.shard(self.base_params)
             self.state = create_train_state(
                 lambda: init_lora_params(cfg.model, cfg.lora,
                                          torch.Generator().manual_seed(seed + 11), device=dev),
@@ -225,7 +242,8 @@ class ReasoningRunner:
                 state, _, _ = CheckpointManager(cfg.lora.path).restore(self.state)
                 if state is not None:
                     self.state = state
-            self._merge = torch.no_grad()(lambda base, lora: merge_lora(base, lora, cfg.lora))
+            self._merge = torch.no_grad()(
+                lambda base, lora: merge_lora(base, lora, cfg.lora, self._layout(False)))
         else:
             self.base_params = None
             self.state = create_train_state(
@@ -280,13 +298,14 @@ class ReasoningRunner:
         """Online parallel-strategy switch: re-shard the live train state
         onto ``new_mesh`` (every rank gathers each leaf whole and keeps its
         new block) and rebuild the mesh-bound step functions. Training
-        resumes on the next step."""
+        resumes on the next step. A separate critic stays on the old mesh
+        with its steps, as the JAX runner's rescale leaves it (it re-shards
+        the actor alone); LoRA is refused (``RESCALE_REFUSED``)."""
         from rlinf_tpu_torch.training.train_state import rescale_train_state
 
-        if self.base_params is not None or self.separate_critic:
-            raise NotImplementedError(
-                "rescale with LoRA or a separate critic is not ported yet (ROADMAP.md §A.9b)")
-        shared = self.with_critic
+        if self.base_params is not None:
+            raise NotImplementedError(RESCALE_REFUSED)
+        shared = self.with_critic and not self.separate_critic
         M.check_mesh(self.cfg.model, new_mesh)
         self.state = rescale_train_state(self.state, new_mesh, self._rules(shared),
                                          old_layout=self._layout(shared))
@@ -304,6 +323,10 @@ class ReasoningRunner:
             self.train_step = make_policy_train_step(
                 cfg.model, cfg.loss, self.tx, num_microbatches=cfg.num_microbatches,
                 remat=cfg.remat, attn_impl=cfg.attn_impl, mesh=new_mesh, device=dev)
+        if cfg.loss.max_tokens_per_mb > 0:
+            self._grad_step, self._apply_step, self._zero_grads = make_policy_grad_and_apply(
+                cfg.model, cfg.loss, self.tx, remat=cfg.remat, attn_impl=cfg.attn_impl,
+                mesh=new_mesh, device=dev)
         if self.logprob_fn is not None:
             self.logprob_fn = make_logprob_fn(
                 cfg.model, chunk_size=cfg.loss.logprob_chunk_size, attn_impl=cfg.attn_impl,
@@ -403,6 +426,11 @@ class ReasoningRunner:
         self.state, grad_norm = self._apply_step(self.state, grads)
         metrics = dict(metrics)
         metrics["actor/loss"] = total_loss
+        if self.mesh is not None:
+            # this rank's shares: the loss summed, the last microbatch's
+            # metrics over the ranks, as the train step reduces them
+            metrics = {k: float(v) for k, v in self._grad_step.reduce_metrics(
+                metrics, mbs[-1]).items()}
         metrics["actor/grad_norm"] = grad_norm
         metrics["actor/num_dyn_microbatches"] = float(len(mbs))
         return metrics

@@ -5,6 +5,12 @@ the RL training batch layout with the loss on the answer tokens only, then
 ``make_sft_train_step`` runs on them, with the metrics, checkpoint and
 auto-resume plumbing of the reasoning runner. The run is on the card unless
 ``device`` says otherwise.
+
+Under ``mesh=`` (every rank runs the same script) the train state holds
+this rank's blocks under ``partition_rules()`` (the JAX package's sharded
+state, ``create_train_state(mesh=)``), every rank builds the whole batch
+and each step keeps its rows; the checkpoints hold the single-card layout
+and the mesh's first rank writes the metrics.
 """
 
 from __future__ import annotations
@@ -14,10 +20,11 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from rlinf_tpu_torch.config import TrainerConfig, resolve_attn_impl
 from rlinf_tpu_torch.data.datasets import PromptDataset, StatefulBatchIterator
-from rlinf_tpu_torch.models.llm import init_params
+from rlinf_tpu_torch.models.llm import init_params, model as M
 from rlinf_tpu_torch.training.sft import make_sft_train_step
 from rlinf_tpu_torch.training.train_state import create_train_state, make_optimizer
 from rlinf_tpu_torch.utils.checkpoint import CheckpointManager
@@ -44,30 +51,38 @@ class SFTRunner:
     ):
         """``init_params_override(seed)`` returns the initial params (the
         port's dict of tensors on ``device``) in place of a random init."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "SFTRunner(mesh=...) comes with the rest of the port's parallel layer "
-                "(ROADMAP.md §A.9b.1)")
         dev = resolve_device(device)
         cfg = dataclasses.replace(cfg, attn_impl=resolve_attn_impl(cfg, dev))
+        M.check_mesh(cfg.model, mesh)
         self.cfg = cfg
         self.device = dev
+        self.mesh = mesh
         self.tokenizer = tokenizer
         self.seq_bucket = seq_bucket
-        self.logger = MetricLogger(cfg.runner.log_dir)
+        writes = mesh is None or (dist.get_rank() if dist.is_initialized() else 0) == mesh.ranks[0]
+        self.logger = (MetricLogger(cfg.runner.log_dir) if writes
+                       else MetricLogger(None, print_every=0))
         self.tx = make_optimizer(cfg.optimizer)
         self.train_step = make_sft_train_step(
             cfg.model, self.tx,
             num_microbatches=cfg.num_microbatches,
             remat=cfg.remat, attn_impl=cfg.attn_impl,
-            logprob_chunk_size=cfg.loss.logprob_chunk_size, device=dev,
+            logprob_chunk_size=cfg.loss.logprob_chunk_size, mesh=mesh, device=dev,
         )
         seed = cfg.runner.seed
         init_fn = init_params_override or (lambda s: init_params(cfg.model, s, device=dev))
-        self.state = create_train_state(lambda: init_fn(seed), self.tx)
+        self.state = create_train_state(lambda: init_fn(seed), self.tx, mesh=mesh,
+                                        partition_rules=M.partition_rules())
         self.iterator = StatefulBatchIterator(dataset, cfg.runner.rollout_batch_size, seed=seed)
+        layout = None
+        if mesh is not None:
+            from rlinf_tpu_torch.training.sharded_step import model_layout
+
+            layout = model_layout(cfg.model, mesh, M.partition_rules())
+        self.layout = layout
         self.ckpt = (
-            CheckpointManager(cfg.runner.checkpoint_dir) if cfg.runner.checkpoint_dir else None
+            CheckpointManager(cfg.runner.checkpoint_dir, layout=layout)
+            if cfg.runner.checkpoint_dir else None
         )
         self.global_step = 0
         if self.ckpt and cfg.runner.resume == "auto":

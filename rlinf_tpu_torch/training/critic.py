@@ -55,9 +55,11 @@ def make_critic_value_fn(cfg: LLMConfig, *, attn_impl: str = "xla", mesh=None,
     """fp32 token values [B, T] from the critic's own trunk (or a shared
     trunk's value head), without grad."""
     from rlinf_tpu_torch.parallel.distributed import fetch_global
+    from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax
 
     dev = resolve_device(device)
-    ms = MeshStep(cfg, mesh, value_head=True)
+    ms = MeshStep(cfg, mesh, value_head=True, attn_impl=attn_impl)
+    spec = (Ax.BATCH, Ax.CONTEXT) if ms.ring else (Ax.BATCH,)
     check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
     @torch.no_grad()
@@ -66,7 +68,7 @@ def make_critic_value_fn(cfg: LLMConfig, *, attn_impl: str = "xla", mesh=None,
             rows = ms.rows({"ids": input_ids, "mask": attention_mask})
             v = forward_values(params, cfg, torch.as_tensor(rows["ids"], device=dev),
                                torch.as_tensor(rows["mask"], device=dev), attn_impl=attn_impl)
-            return v if mesh is None else fetch_global(v, mesh)
+            return v if mesh is None else fetch_global(v, mesh, spec)
 
     return value_fn
 
@@ -87,17 +89,19 @@ def make_critic_train_step(
     from rlinf_tpu_torch.training.learner import _grads, _to_device, optax_global_norm
 
     dev = resolve_device(device)
-    ms = MeshStep(cfg, mesh, value_head=True)
+    ms = MeshStep(cfg, mesh, value_head=True, attn_impl=attn_impl)
     check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
     def loss_fn(batch, share):
         def fn(params):
             values = forward_values(params, cfg, batch["input_ids"], batch["attention_mask"],
                                     attn_impl=attn_impl, remat=remat)
+            tok = M.context_chunks(batch, attn_impl)    # the chunk's per-token inputs
             loss, metrics = compute_ppo_critic_loss(
-                values=values, returns=batch["returns"], prev_values=batch["prev_values"],
+                values=values, returns=tok["returns"], prev_values=tok["prev_values"],
                 value_clip=critic_cfg.value_clip, huber_delta=critic_cfg.huber_delta,
-                loss_mask=batch["loss_mask"])
+                loss_mask=tok["loss_mask"])
+            metrics["_values"] = values          # for the whole batch's metrics
             return (loss if share is None else loss * share), metrics
         return fn
 
@@ -105,13 +109,18 @@ def make_critic_train_step(
         with ms.active():
             batch = _to_device(ms.rows(batch), dev)
             share = None
+            local = M.context_chunks(batch, attn_impl)["loss_mask"].float().sum()
             if mesh is not None:
-                local = batch["loss_mask"].float().sum()
-                share = local.clamp_min(1.0) / ms.valid(local).clamp_min(1.0)
+                share = local.clamp_min(1.0) / ms.valid(
+                    batch["loss_mask"].float().sum()).clamp_min(1.0)
             grads, _, metrics = _grads(state.params, loss_fn(batch, share))
+            values = metrics.pop("_values")
             updates, new_opt, grad_norm = ms.update(tx, grads, state, optax_global_norm)
             apply_updates(state.params, updates)
-            metrics = ms.metrics(dict(metrics), batch["loss_mask"].sum())
+            tok = M.context_chunks(batch, attn_impl)
+            metrics = ms.critic_metrics(ms.metrics(dict(metrics), local), values,
+                                        tok["returns"], tok["prev_values"], tok["loss_mask"],
+                                        critic_cfg.value_clip)
             metrics["critic/grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, new_opt), metrics
 

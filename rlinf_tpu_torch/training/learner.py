@@ -11,7 +11,12 @@ Where the JAX package jits one function that donates the state, the port
 runs eagerly and updates the params and the optimizer state in place.
 Under ``mesh=`` a step takes the GLOBAL batch, keeps this rank's rows and
 reduces across the mesh as ``training/sharded_step.py`` says; the logprob
-recompute returns the global result on every rank.
+recompute returns the global result on every rank. Under
+``attn_impl="ring"`` on a context axis > 1 the forward runs on this rank's
+chunk of the sequence, and so do the loss's per-token inputs
+(``model.context_chunks``): ``target_ids`` are already shifted per
+position, so each chunk's logprobs are local, and the token sums over the
+global count of valid tokens add up over the context ranks too.
 An MoE model's auxiliary loss joins the policy loss in
 ``microbatch_loss_with_moe``, as in the JAX package.
 """
@@ -122,6 +127,7 @@ def microbatch_loss_with_moe(
         attention_mask=mb["attention_mask"],
         attn_impl=attn_impl, remat=remat, return_aux=True, unroll_layers=unroll_layers,
     )
+    mb = M.context_chunks(mb, attn_impl)
     lp, ent = linear_logprobs_and_entropy(
         params, cfg, hidden, mb["target_ids"], chunk_size=loss_cfg.logprob_chunk_size,
     )
@@ -190,7 +196,7 @@ def make_policy_train_step(
     place; the returned state holds the same tensors.
     """
     dev = resolve_device(device)
-    ms = MeshStep(cfg, mesh)
+    ms = MeshStep(cfg, mesh, attn_impl=attn_impl)
     check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
     acc_dt = grad_acc_dtype or torch.float32
 
@@ -204,7 +210,7 @@ def make_policy_train_step(
             return _train_step(state, batch)
 
     def _train_step(state: TrainState, batch: Dict[str, Any]):
-        batch = _to_device(ms.rows(batch), dev)
+        batch = _to_device(ms.rows(batch, num_microbatches), dev)
         global_valid = ms.valid(batch["loss_mask"].float().sum()).clamp_min(1.0)
         if num_microbatches == 1:
             grads, loss, metrics = _grads(state.params, loss_of(batch, global_valid))
@@ -227,7 +233,7 @@ def make_policy_train_step(
         apply_updates(state.params, updates)
         metrics = dict(metrics)
         metrics["actor/loss"] = loss
-        metrics = ms.metrics(metrics, batch["loss_mask"].sum())
+        metrics = ms.metrics(metrics, M.context_chunks(batch, attn_impl)["loss_mask"].sum())
         metrics["actor/grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, new_opt_state), metrics
 
@@ -242,26 +248,41 @@ def make_policy_grad_and_apply(
     remat=True,
     attn_impl: str = "xla",
     acc_dtype: Optional[torch.dtype] = None,
+    mesh=None,
     device="cuda",
 ):
     """Split train step for dynamic microbatching: ``grad_step`` adds one
     microbatch's gradient (normalized by the global token count) into an
     accumulator, ``apply_step`` performs one optimizer update, with
-    gradients identical to the one-big-batch form."""
+    gradients identical to the one-big-batch form.
+
+    Under ``mesh=`` ``grad_step`` takes a GLOBAL microbatch and keeps this
+    rank's rows (a microbatch whose rows the batch axes do not divide is
+    first padded with rows that hold no valid token; they add nothing), and
+    ``apply_step`` reduces the accumulated blocks over the mesh as the
+    train step does; its loss and metrics are this rank's share (summed
+    over the ranks by ``reduce_metrics``)."""
     dev = resolve_device(device)
-    check_on_card(cfg, dev, attn_impl=attn_impl)
+    ms = MeshStep(cfg, mesh, attn_impl=attn_impl)
+    check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
+    if cfg.is_moe and mesh is not None and mesh.size(("data", "fsdp")) > 1:
+        raise NotImplementedError(
+            "token-budget microbatches of an MoE model on a mesh that splits the rows: the "
+            "rows padding a microbatch to the batch axes would count as the MoE layer's "
+            "tokens (its capacity and load statistics take the whole microbatch)")
 
     def grad_step(params, acc_grads, mb, global_valid_tokens):
-        mb = _to_device(mb, dev)
-        gv = torch.as_tensor(global_valid_tokens, dtype=torch.float32, device=dev)
-        g, loss, metrics = _grads(params, lambda p: microbatch_loss_with_moe(
-            p, cfg, loss_cfg, mb, gv, attn_impl=attn_impl, remat=remat))
-        tree_map(lambda a, x: a.add_(x.to(a.dtype)), acc_grads, g)
+        with ms.active():
+            mb = _to_device(ms.rows(ms.pad_rows(mb)), dev)
+            gv = torch.as_tensor(global_valid_tokens, dtype=torch.float32, device=dev)
+            g, loss, metrics = _grads(params, lambda p: microbatch_loss_with_moe(
+                p, cfg, loss_cfg, mb, gv, attn_impl=attn_impl, remat=remat))
+            tree_map(lambda a, x: a.add_(x.to(a.dtype)), acc_grads, g)
         return acc_grads, loss, metrics
 
     def apply_step(state: TrainState, grads):
-        grad_norm = optax_global_norm(grads)
-        updates, new_opt = tx.update(grads, state.opt_state, state.params)
+        with ms.active():
+            updates, new_opt, grad_norm = ms.update(tx, grads, state, optax_global_norm)
         apply_updates(state.params, updates)
         return TrainState(state.step + 1, state.params, new_opt), grad_norm
 
@@ -269,6 +290,14 @@ def make_policy_grad_and_apply(
         return tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype or torch.float32,
                                               device=p.device), params)
 
+    def reduce_metrics(metrics, mb):
+        """Metrics of the global microbatch ``mb`` (this rank's shares)
+        reduced over the mesh, as the train step reduces them."""
+        with ms.active():
+            mine = M.context_chunks(_to_device(ms.rows(ms.pad_rows(mb)), dev), attn_impl)
+            return ms.metrics(metrics, mine["loss_mask"].sum())
+
+    grad_step.reduce_metrics = reduce_metrics
     return grad_step, apply_step, zero_grads
 
 
@@ -294,7 +323,7 @@ def make_actor_critic_train_step(
     from rlinf_tpu_torch.models.llm.value_head import values_from_hidden
 
     dev = resolve_device(device)
-    ms = MeshStep(cfg, mesh, value_head=True)
+    ms = MeshStep(cfg, mesh, value_head=True, attn_impl=attn_impl)
     check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
     def loss_of(batch, global_valid):
@@ -303,22 +332,24 @@ def make_actor_critic_train_step(
                 params, cfg, batch["input_ids"], attention_mask=batch["attention_mask"],
                 attn_impl=attn_impl, remat=remat,
             )
+            tok = M.context_chunks(batch, attn_impl)     # the chunk's per-token inputs
             lp, ent = linear_logprobs_and_entropy(
-                params, cfg, hidden, batch["target_ids"],
+                params, cfg, hidden, tok["target_ids"],
                 chunk_size=loss_cfg.logprob_chunk_size,
             )
             values = values_from_hidden(params, hidden)
-            actor_loss, metrics = _token_level_loss(lp, ent, batch, loss_cfg, global_valid)
+            actor_loss, metrics = _token_level_loss(lp, ent, tok, loss_cfg, global_valid)
             critic_loss, cmetrics = compute_ppo_critic_loss(
-                values=values, returns=batch["returns"], prev_values=batch["prev_values"],
-                value_clip=value_clip, huber_delta=huber_delta, loss_mask=batch["loss_mask"],
+                values=values, returns=tok["returns"], prev_values=tok["prev_values"],
+                value_clip=value_clip, huber_delta=huber_delta, loss_mask=tok["loss_mask"],
             )
             if mesh is not None:
                 # the critic's masked mean over the global tokens: this
                 # rank's share, summed over the ranks
-                local = batch["loss_mask"].float().sum().clamp_min(1.0)
+                local = tok["loss_mask"].float().sum().clamp_min(1.0)
                 critic_loss = critic_loss * local / global_valid
             metrics.update(cmetrics)
+            metrics["_values"] = values          # for the whole batch's metrics
             return actor_loss + value_coef * critic_loss, metrics
         return fn
 
@@ -327,12 +358,16 @@ def make_actor_critic_train_step(
             batch = _to_device(ms.rows(batch), dev)
             global_valid = ms.valid(batch["loss_mask"].float().sum()).clamp_min(1.0)
             grads, loss, metrics = _grads(state.params, loss_of(batch, global_valid))
+            values = metrics.pop("_values")
             updates, new_opt, grad_norm = ms.update(tx, grads, state, optax_global_norm)
             del grads
             apply_updates(state.params, updates)
             metrics = dict(metrics)
             metrics["actor/loss"] = loss
-            metrics = ms.metrics(metrics, batch["loss_mask"].sum())
+            tok = M.context_chunks(batch, attn_impl)
+            metrics = ms.critic_metrics(ms.metrics(metrics, tok["loss_mask"].sum()), values,
+                                        tok["returns"], tok["prev_values"], tok["loss_mask"],
+                                        value_clip)
             metrics["actor/grad_norm"] = grad_norm
         return TrainState(state.step + 1, state.params, new_opt), metrics
 
@@ -351,12 +386,15 @@ def make_logprob_fn(
     """Forward-only logprob (+entropy) recompute, for old/ref/proximal
     logprobs. Unlike the train step's loss, it passes ``temperature`` to
     the lm-head (as the JAX package does; the two agree at 1.0). Under
-    ``mesh`` each rank computes its rows of the global batch and every rank
-    gets the global result."""
+    ``mesh`` each rank computes its rows of the global batch (under ring
+    attention on a context axis, its chunk of their sequence) and every
+    rank gets the global result."""
     from rlinf_tpu_torch.parallel.distributed import fetch_global
+    from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax
 
     dev = resolve_device(device)
-    ms = MeshStep(cfg, mesh)
+    ms = MeshStep(cfg, mesh, attn_impl=attn_impl)
+    spec = (Ax.BATCH, Ax.CONTEXT) if ms.ring else (Ax.BATCH,)
     check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
     @torch.no_grad()
@@ -368,11 +406,11 @@ def make_logprob_fn(
                 attention_mask=batch["attention_mask"], attn_impl=attn_impl,
             )
             lp, ent = linear_logprobs_and_entropy(
-                params, cfg, hidden, batch["target_ids"], chunk_size=chunk_size,
-                temperature=temperature,
+                params, cfg, hidden, M.context_chunks(batch, attn_impl)["target_ids"],
+                chunk_size=chunk_size, temperature=temperature,
             )
             if mesh is None:
                 return lp, ent
-            return fetch_global(lp, mesh), fetch_global(ent, mesh)
+            return fetch_global(lp, mesh, spec), fetch_global(ent, mesh, spec)
 
     return logprob_fn

@@ -6,6 +6,11 @@ the whole batch, so that accumulation over microbatches equals one big
 batch. The forward goes through ``forward_hidden`` and
 ``linear_logprobs_and_entropy``: on the card K1 (and K7/K8 in the
 backward), K5 and K6.
+
+Under ``mesh=`` the state holds this rank's blocks and each step keeps its
+rows of the global batch, reducing across the mesh as the policy train
+step does (``training/sharded_step.py``); the loss is the sum over the
+ranks of their token sums over the global count.
 """
 
 from __future__ import annotations
@@ -18,9 +23,11 @@ from rlinf_tpu_torch.models.llm import model as M
 from rlinf_tpu_torch.models.llm.config import LLMConfig
 from rlinf_tpu_torch.ops.cuda.geometry import check_on_card
 from rlinf_tpu_torch.ops.logprobs import linear_logprobs_and_entropy
+from rlinf_tpu_torch.parallel import collectives as C
 from rlinf_tpu_torch.training.learner import (
     _grads, _microbatches, _to_device, optax_global_norm,
 )
+from rlinf_tpu_torch.training.sharded_step import MeshStep
 from rlinf_tpu_torch.training.train_state import Optimizer, TrainState, apply_updates, tree_map
 from rlinf_tpu_torch.utils.device import resolve_device
 
@@ -33,6 +40,7 @@ def make_sft_train_step(
     remat=True,
     attn_impl: str = "xla",
     logprob_chunk_size: int = 512,
+    mesh=None,
     device="cuda",
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict]]:
     """``(state, batch) -> (state, metrics)``; the batch holds input_ids,
@@ -41,7 +49,8 @@ def make_sft_train_step(
     place. Metrics: ``sft/loss``, ``sft/ppl`` (exp of the loss clamped at
     20), ``sft/grad_norm`` and ``sft/valid_tokens``."""
     dev = resolve_device(device)
-    check_on_card(cfg, dev, attn_impl=attn_impl)
+    ms = MeshStep(cfg, mesh, attn_impl=attn_impl)
+    check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
 
     def mb_loss(mb, global_valid):
         def fn(params):
@@ -49,15 +58,20 @@ def make_sft_train_step(
                 params, cfg, mb["input_ids"], attention_mask=mb["attention_mask"],
                 attn_impl=attn_impl, remat=remat,
             )
+            tok = M.context_chunks(mb, attn_impl)
             lp, _ = linear_logprobs_and_entropy(
-                params, cfg, hidden, mb["target_ids"], chunk_size=logprob_chunk_size,
+                params, cfg, hidden, tok["target_ids"], chunk_size=logprob_chunk_size,
             )
-            return -(lp * mb["loss_mask"].float()).sum() / global_valid, {}
+            return -(lp * tok["loss_mask"].float()).sum() / global_valid, {}
         return fn
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
-        batch = _to_device(batch, dev)
-        global_valid = batch["loss_mask"].float().sum().clamp_min(1.0)
+        with ms.active():
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: Dict[str, Any]):
+        batch = _to_device(ms.rows(batch, num_microbatches), dev)
+        global_valid = ms.valid(batch["loss_mask"].float().sum()).clamp_min(1.0)
         grads, loss = None, torch.zeros((), device=dev)
         for mb in _microbatches(batch, num_microbatches):
             g, mb_loss_value, _ = _grads(state.params, mb_loss(mb, global_valid))
@@ -66,10 +80,11 @@ def make_sft_train_step(
             grads = g if grads is None else tree_map(torch.add, grads, g)
             loss = loss + mb_loss_value
             del g
-        grad_norm = optax_global_norm(grads)
-        updates, new_opt = tx.update(grads, state.opt_state, state.params)
+        updates, new_opt, grad_norm = ms.update(tx, grads, state, optax_global_norm)
         del grads
         apply_updates(state.params, updates)
+        if mesh is not None:
+            loss = C.all_reduce_(loss.clone(), "sum", ms.batch_group)
         metrics = {
             "sft/loss": loss,
             "sft/ppl": torch.exp(torch.clamp_max(loss, 20.0)),

@@ -28,8 +28,13 @@ partition_rules=)``) and the optimizer state is made from them, so it is
 sharded like the params (the JAX package's ``_opt_state_specs``). adamw is
 elementwise, so it runs on the blocks as they are; its global-norm clip
 reads the norm the train step reduced across the mesh (``update(...,
-grad_norm=)``). adafactor's factored statistics reduce over whole rows and
-columns: it takes a mesh that shards no leaf (data only).
+grad_norm=)``). adafactor's statistics reduce over whole rows, columns and
+leaves (the factored second moments, the block-RMS clip, the parameter
+scale): on sharded leaves each such mean is a sum over the rank's block,
+all-reduced over the axes that split the reduced dims and divided by the
+whole leaf's size (``Blocks``, from ``update(..., shards=)`` and
+``init(..., shards=)``), as XLA partitions optax's reductions. The
+factored rows and columns are then the rank's blocks of the whole leaf's.
 """
 
 from __future__ import annotations
@@ -102,6 +107,50 @@ def _mean(x: torch.Tensor, *dims, keepdim: bool = False) -> torch.Tensor:
     return x.float().mean(dims or None, keepdim=keepdim).to(x.dtype)
 
 
+class Blocks:
+    """How a leaf is cut on a mesh: its resolved partition spec (one entry
+    per leading dim: an axis, a tuple of axes or None). ``mean`` takes a
+    mean over dims of the whole leaf from this rank's block of it."""
+
+    def __init__(self, spec, mesh):
+        self.spec = tuple(spec or ())
+        self.mesh = mesh
+
+    def _axes(self, dim: int) -> tuple:
+        entry = self.spec[dim] if dim < len(self.spec) else None
+        if entry is None:
+            return ()
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+    @property
+    def sharded(self) -> bool:
+        return any(self._axes(d) for d in range(len(self.spec)))
+
+    def full(self, shape) -> tuple:
+        """The whole leaf's shape from a block's."""
+        return tuple(n * self.mesh.size(self._axes(d)) for d, n in enumerate(shape))
+
+    def without(self, dim: int) -> "Blocks":
+        """The spec of a statistic that reduced ``dim`` away."""
+        spec = list(self.spec) + [None] * max(0, dim + 1 - len(self.spec))
+        return Blocks(spec[:dim] + spec[dim + 1:], self.mesh)
+
+    def mean(self, x: torch.Tensor, dims=None, keepdim: bool = False) -> torch.Tensor:
+        """``_mean(x, *dims)`` of the whole leaf, from this block: the
+        block's f32 sum, all-reduced over the axes that split ``dims``,
+        over the whole count, in ``x``'s dtype."""
+        from rlinf_tpu_torch.parallel import collectives as C
+
+        dims = tuple(range(x.dim())) if dims is None else tuple(dims)
+        axes = tuple(a for d in dims for a in self._axes(d))
+        if not axes:
+            return _mean(x, *dims, keepdim=keepdim)
+        total = x.float().sum(dims, keepdim=keepdim)
+        C.all_reduce_(total, "sum", self.mesh.get_group(axes))
+        n = math.prod(self.full(x.shape)[d] for d in dims)
+        return (total / n).to(x.dtype)
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt(sum of squares) over every leaf, in the leaves' dtype, each
     leaf's sum taken in f32 as XLA takes it (optax)."""
@@ -161,8 +210,10 @@ def make_schedule(cfg: OptimizerConfig):
 # ---------------------------------------------------------------------------
 
 class Optimizer:
-    """An optax-style pair: ``init(params) -> state`` and
-    ``update(grads, state, params) -> (updates, state)``.
+    """An optax-style pair: ``init(params, shards=None) -> state`` and
+    ``update(grads, state, params, grad_norm=None, shards=None) -> (updates,
+    state)``; ``shards`` is a tree of ``Blocks`` in the params' structure
+    where the params are blocks of a mesh (read by adafactor).
 
     Unlike optax, ``update`` writes the new moments and master weights into
     the old state's tensors where the dtype allows (the port keeps one copy
@@ -170,11 +221,9 @@ class Optimizer:
     the state passed in is consumed.
     """
 
-    def __init__(self, init: Callable, update: Callable, elementwise: bool = True):
+    def __init__(self, init: Callable, update: Callable):
         self.init = init
         self.update = update
-        #: False where the update of an element reads others (adafactor)
-        self.elementwise = elementwise
 
 
 def _store(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
@@ -206,7 +255,7 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
     mu_dtype = torch.bfloat16 if cfg.moment_dtype == "bfloat16" else None
     b1, b2, eps, wd, clip = cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay, cfg.clip_grad
 
-    def init(params):
+    def init(params, shards=None):
         return {
             "count": 0,
             "mu": tree_map(lambda p: torch.zeros_like(p, dtype=mu_dtype or p.dtype), params),
@@ -214,7 +263,7 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
         }
 
     @torch.no_grad()
-    def update(grads, state, params, grad_norm=None):
+    def update(grads, state, params, grad_norm=None, shards=None):
         count = state["count"]
         bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** (count + 1)
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** (count + 1)
@@ -262,8 +311,8 @@ def factored_dims(shape) -> Optional[Tuple[int, int]]:
     return int(order[-2]), int(order[-1])
 
 
-def _rms(x: torch.Tensor) -> torch.Tensor:
-    m = _mean(x * x)
+def _rms(x: torch.Tensor, blk: Optional[Blocks] = None) -> torch.Tensor:
+    m = _mean(x * x) if blk is None else blk.mean(x * x)
     return torch.sqrt(m.float()).to(m.dtype)
 
 
@@ -271,6 +320,11 @@ def _rsqrt(x: torch.Tensor) -> torch.Tensor:
     """``x ** -0.5`` as XLA computes it for bf16: in f32, rounded once
     (torch's bf16 pow rounds differently for about 1% of inputs)."""
     return (x.float() ** -0.5).to(x.dtype)
+
+
+def _whole(p: torch.Tensor, blk: Optional[Blocks]) -> tuple:
+    """The whole leaf's shape (factored_dims reads it, not the block's)."""
+    return tuple(p.shape) if blk is None else blk.full(p.shape)
 
 
 def adafactor(cfg: OptimizerConfig) -> Optimizer:
@@ -287,9 +341,9 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
     lr = make_schedule(cfg)
     wd, clip, exponent = cfg.weight_decay, cfg.clip_grad, cfg.beta2
 
-    def init(params):
-        def one(p):
-            dims = factored_dims(p.shape)
+    def init(params, shards=None):
+        def one(p, blk=None):
+            dims = factored_dims(_whole(p, blk))
             small = lambda: torch.zeros((1,), dtype=p.dtype, device=p.device)
             if dims is None:
                 return small(), small(), torch.zeros_like(p)
@@ -299,31 +353,36 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
             return (torch.zeros(row, dtype=p.dtype, device=p.device),
                     torch.zeros(col, dtype=p.dtype, device=p.device), small())
 
-        out = tree_map(one, params)
+        out = tree_map(one, params) if shards is None else tree_map(one, params, shards)
         v_row, v_col, v = (tree_map(lambda t, i=i: t[i], out)
                            for i in range(3))
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
     @torch.no_grad()
-    def update(grads, state, params, grad_norm=None):
+    def update(grads, state, params, grad_norm=None, shards=None):
         count = state["count"]
         t = torch.tensor(count + 1, dtype=torch.float32)
         decay = 1.0 - t ** (-exponent)          # f32, as optax's _decay_rate_pow
         step = lr(count) if callable(lr) else None
         clipped = _global_clip(grads, clip, grad_norm)
 
-        def leaf(g, v_row, v_col, v, p):
+        def leaf(g, v_row, v_col, v, p, blk=None):
             g = clipped(g)
             dt, dev = p.dtype, g.device
             d = decay.to(dev)
             g_sqr = g * g + FACTOR_EPS
-            dims = factored_dims(p.shape)
+            blk = blk if blk is not None and blk.sharded else None
+            mean = _mean if blk is None else (
+                lambda x, *ds, keepdim=False: blk.mean(x, ds, keepdim))
+            dims = factored_dims(_whole(p, blk))
             if dims is not None:
                 d1, d0 = dims
-                new_row = (d * v_row.float() + (1.0 - d) * _mean(g_sqr, d0).float()).to(dt)
-                new_col = (d * v_col.float() + (1.0 - d) * _mean(g_sqr, d1).float()).to(dt)
+                new_row = (d * v_row.float() + (1.0 - d) * mean(g_sqr, d0).float()).to(dt)
+                new_col = (d * v_col.float() + (1.0 - d) * mean(g_sqr, d1).float()).to(dt)
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = _rsqrt(new_row / _mean(new_row, reduced_d1, keepdim=True))
+                row_mean = (_mean(new_row, reduced_d1, keepdim=True) if blk is None else
+                            blk.without(d0).mean(new_row, (reduced_d1,), keepdim=True))
+                row_factor = _rsqrt(new_row / row_mean)
                 col_factor = _rsqrt(new_col)
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
                 v_row, v_col = _store(v_row, new_row), _store(v_col, new_col)
@@ -331,12 +390,12 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
                 new_v = (d * v.float() + (1.0 - d) * g_sqr.float()).to(dt)
                 u = g * _rsqrt(new_v)
                 v = _store(v, new_v)
-            u = u / torch.clamp_min(_rms(u), 1.0)                 # clip_by_block_rms(1)
+            u = u / torch.clamp_min(_rms(u, blk), 1.0)            # clip_by_block_rms(1)
             if step is None:
                 u = lr * u
             else:
                 u = torch.as_tensor(step).to(device=dev, dtype=u.dtype) * u
-            rms = _rms(p)                                         # scale_by_param_block_rms
+            rms = _rms(p, blk)                                    # scale_by_param_block_rms
             scale = torch.where(rms <= PARAM_SCALE_MIN,
                                 torch.full_like(rms, PARAM_SCALE_MIN), rms)
             wide = torch.promote_types(u.dtype, scale.dtype)
@@ -346,12 +405,13 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
                 u = u.to(wide) + (wd * p).to(wide)
             return -1 * u, v_row, v_col, v
 
-        out = tree_map(leaf, grads, state["v_row"], state["v_col"], state["v"], params)
+        out = tree_map(leaf, grads, state["v_row"], state["v_col"], state["v"], params,
+                       *(() if shards is None else (shards,)))
         updates, v_row, v_col, v = (tree_map(lambda t, i=i: t[i], out)
                                     for i in range(4))
         return updates, {"count": count + 1, "v_row": v_row, "v_col": v_col, "v": v}
 
-    return Optimizer(init, update, elementwise=False)
+    return Optimizer(init, update)
 
 
 def with_master_weights(inner: Optimizer) -> Optimizer:
@@ -360,15 +420,15 @@ def with_master_weights(inner: Optimizer) -> Optimizer:
     ``new_master - params`` in f32, so the caller's apply
     ``(p.float() + u).to(p.dtype)`` lands on the rounded master."""
 
-    def init(params):
+    def init(params, shards=None):
         master = tree_map(lambda p: p.float().clone(), params)
-        return {"inner": inner.init(master), "master": master}
+        return {"inner": inner.init(master, shards=shards), "master": master}
 
     @torch.no_grad()
-    def update(grads, state, params, grad_norm=None):
+    def update(grads, state, params, grad_norm=None, shards=None):
         grads32 = tree_map(lambda g: g.float(), grads)
         updates32, inner_state = inner.update(grads32, state["inner"], state["master"],
-                                              grad_norm=grad_norm)
+                                              grad_norm=grad_norm, shards=shards)
 
         def leaf(m, u, p):
             m.add_(u)                          # new master, in place
@@ -377,7 +437,7 @@ def with_master_weights(inner: Optimizer) -> Optimizer:
         emitted = tree_map(leaf, state["master"], updates32, params)
         return emitted, {"inner": inner_state, "master": state["master"]}
 
-    return Optimizer(init, update, elementwise=inner.elementwise)
+    return Optimizer(init, update)
 
 
 def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
@@ -400,22 +460,14 @@ def create_train_state(
     ``partition_rules`` and the optimizer state is made from the blocks:
     each moment is sharded like its parameter."""
     params = init_params_fn()
-    if mesh is not None:
-        from rlinf_tpu_torch.parallel.sharding import Layout
+    if mesh is None:
+        return TrainState(0, params, tx.init(params))
+    from rlinf_tpu_torch.parallel.sharding import Layout
+    from rlinf_tpu_torch.training.sharded_step import shards_of
 
-        layout = Layout.from_rules(mesh, partition_rules, params)
-        _check_optimizer_on_mesh(tx, layout)
-        params = layout.shard(params)
-    return TrainState(0, params, tx.init(params))
-
-
-def _check_optimizer_on_mesh(tx: Optimizer, layout) -> None:
-    if getattr(tx, "elementwise", True):
-        return
-    if any(layout.specs[p] for p in layout.specs):
-        raise NotImplementedError(
-            "adafactor reduces over whole rows and columns: under a mesh that shards "
-            "the params (tensor or fsdp > 1) use adamw (ROADMAP.md §A.9b)")
+    layout = Layout.from_rules(mesh, partition_rules, params)
+    params = layout.shard(params)
+    return TrainState(0, params, tx.init(params, shards=shards_of(layout, params)))
 
 
 def rescale_train_state(state: TrainState, new_mesh, partition_rules, *,

@@ -212,5 +212,18 @@ def test_engine_needs_a_card_unless_cpu_is_asked(tiny, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ContinuousBatchingEngine(tcfg, SamplingParams(max_new_tokens=2))
     eng = ContinuousBatchingEngine(tcfg, SamplingParams(max_new_tokens=2), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.rollout(tp, RolloutRequest(prompt_ids=[[1, 2]]), torch.Generator(), mesh=object())
+    # a mesh is taken (the pool runs whole over the rank's blocks; on a mesh
+    # of one rank, the unsharded rollout bitwise; on meshes of several
+    # ranks: tests/test_torch_mesh_configs.py)
+    from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    req = RolloutRequest(prompt_ids=[[1, 2], [3, 4, 5]])
+    one = make_mesh(MeshConfig(data=1), ranks=[0], device_type="cpu")
+    got = eng.rollout(tp, req, torch.Generator().manual_seed(3), mesh=one)
+    want = eng.rollout(tp, req, torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(got.response_ids, want.response_ids)
+    np.testing.assert_array_equal(got.response_logprobs, want.response_logprobs)
+    with pytest.raises(NotImplementedError, match="A.9b.3"):
+        eng.rollout(tp, req, torch.Generator(),
+                    mesh=make_mesh(MeshConfig(data=1, expert=2), ranks=[0, 1],
+                                   device_type="cpu"))

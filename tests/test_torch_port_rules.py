@@ -597,6 +597,25 @@ def test_chip_smoke_reads_k1_and_k2_from_a_step_trace_by_the_source_names(tmp_pa
     assert got["decode_attention_bf16"]["device_ms"] == pytest.approx(0.00625)
 
 
+@pytest.mark.parametrize("name", ["ring_case", "ring_shift_case", "ring_forward", "sft_steps",
+                                  "greedy_rollout", "runner_steps", "train_steps"])
+def test_context_axis_world_items_run_on_the_card_by_default(name):
+    """The rank bodies of the context axis and the lifted mesh
+    configurations take ``device`` and default to the card, as the drill's
+    other items."""
+    import inspect
+
+    from rlinf_tpu_torch.parallel import worlds
+
+    fn = getattr(worlds, name)
+    params = inspect.signature(fn).parameters
+    device = params.get("device")
+    if device is None:                       # forwarded through **kw
+        assert "device" in inspect.getsource(fn) and '"cuda"' in inspect.getsource(fn)
+    else:
+        assert device.default == "cuda"
+
+
 # the agent-recipe slice and the small LLM-side modules, as the JAX package
 # names them
 RECIPE_AND_SMALL_MODULES = (
@@ -712,7 +731,8 @@ PARALLEL_MODULES = (
     "parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
     "parallel/sharding.py", "parallel/collectives.py", "parallel/weight_sync.py",
     "parallel/launch.py", "parallel/worlds.py", "training/sharded_step.py",
-    "runners/disaggregated_runner.py", "multiprocess_runner_drill.py")
+    "runners/disaggregated_runner.py", "multiprocess_runner_drill.py",
+    "ops/ring_attention.py")
 
 
 @pytest.mark.parametrize("rel", PARALLEL_MODULES)

@@ -168,14 +168,16 @@ def test_build_rollout_engine_resolves_on_the_device():
     assert type(eng) is PagedContinuousEngine
     assert (eng.page_size, eng.num_slots, eng.attn_impl) == (8, 4, "xla")
     assert eng.max_pages_per_slot == 5 and eng.num_pages == 1 + 4 * 5
-    # under a mesh "auto" is the static engine; the slot-pool engines refuse one
+    # under a mesh "auto" is the static engine; the slot-pool engines, named,
+    # are built as without one (they run their pool whole on every rank)
     mesh = make_mesh(MeshConfig(data=-1), ranks=[0, 1], device_type="cpu")
     for engine in ("static", "auto"):
         eng = build_rollout_engine(_trainer_cfg(engine=engine), mesh=mesh, device="cpu")
         assert type(eng) is RolloutEngine
-    for engine in ("continuous", "paged"):
-        with pytest.raises(NotImplementedError):
-            build_rollout_engine(_trainer_cfg(engine=engine), mesh=mesh, device="cpu")
+    for engine, kind in (("continuous", ContinuousBatchingEngine),
+                         ("paged", PagedContinuousEngine)):
+        eng = build_rollout_engine(_trainer_cfg(engine=engine), mesh=mesh, device="cpu")
+        assert type(eng) is kind
     with pytest.raises(ValueError):
         build_rollout_engine(_trainer_cfg(engine="bogus"), device="cpu")
 

@@ -141,18 +141,32 @@ def test_optimizer_three_steps_match_optax(case, grad_dtype):
 
 def test_optimizer_rejects_adafactor_and_mesh():
     """sgd raises; adafactor is an optimizer of the port (its updates are
-    held against optax by the cases above), but not on a mesh that shards
-    its leaves: its factored statistics reduce over whole rows and columns.
-    adamw takes the same mesh (each rank its block)."""
+    held against optax by the cases above) and takes a mesh that shards its
+    leaves: its statistics are made from the WHOLE leaf's shape, cut to the
+    rank's block (a [256, 128] leaf split to [256, 64] still factors: its
+    row statistic, without the largest dim, keeps the rank's 64 columns,
+    its column statistic the 256 rows), and the layout gives them their
+    specs for the checkpoints.
+    adamw takes the same mesh (each rank its block). The sharded updates
+    against optax on a mesh: tests/test_torch_mesh_configs.py."""
     tx = TS.make_optimizer(TS.OptimizerConfig(name="adafactor"))
     assert set(tx.init({"w": torch.zeros(256, 128)})) == {"count", "v_row", "v_col", "v"}
     with pytest.raises(ValueError):
         TS.make_optimizer(TS.OptimizerConfig(name="sgd"))
     mesh = make_mesh(MeshConfig(data=1, tensor=2), ranks=[0, 1], device_type="cpu")
     rules = [(r"w", (None, "tensor"))]
-    with pytest.raises(NotImplementedError, match="adafactor"):
-        TS.create_train_state(lambda: {"w": torch.zeros(256, 128)}, tx, mesh=mesh,
-                              partition_rules=rules)
+    st = TS.create_train_state(lambda: {"w": torch.zeros(256, 128)}, tx, mesh=mesh,
+                               partition_rules=rules)
+    assert st.params["w"].shape == (256, 64)
+    assert st.opt_state["v_row"]["w"].shape == (64,)
+    assert st.opt_state["v_col"]["w"].shape == (256,)
+    assert st.opt_state["v"]["w"].shape == (1,)
+    from rlinf_tpu_torch.parallel.sharding import Layout
+
+    lay = Layout.from_rules(mesh, rules, {"w": torch.zeros(256, 128)})
+    assert lay.spec_for("v_row/w", (64,)) == ("tensor",)
+    assert lay.spec_for("v_col/w", (256,)) == ()
+    assert lay.spec_for("mu/w", (256, 64)) == (None, "tensor")
     st = TS.create_train_state(lambda: {"w": torch.zeros(256, 128)},
                                TS.make_optimizer(TS.OptimizerConfig()), mesh=mesh,
                                partition_rules=rules)
