@@ -85,10 +85,11 @@ Between phases 4 and 5, the megakernel, continuous and paged paths:
 10. engine shadow: a 16-token greedy ``generate(mega=)`` and a 16-token
    paged-engine run at full size with every K9 / K10 call checked against
    its plain version on the same inputs; then a 16-token greedy
-   ``generate(kv_quant="int8", mega=)`` at Qwen2-7B's widths (4 layers)
+   ``generate(kv_quant="int8", mega=)`` at Qwen2-7B's widths (2 layers)
    with every K9 call checked the same way.
-11. engines: on one long-tail mix (128 requests, prompts of 128-512 tokens,
-   budgets of 32-256 tokens, no eos) the continuous engine through
+11. engines: at 14 of the main path's 28 layers (``ENGINES_CUT``), on one
+   long-tail mix (128 requests, prompts of 128-512 tokens, budgets of
+   32-256 tokens, no eos) the continuous engine through
    ``build_rollout_engine(engine="auto")`` with the per-layer kernels, the
    continuous engine with ``use_mega="auto"`` and the fused sampler (both
    cache layouts must be seen, K9 launched with per-row write slots), and
@@ -206,10 +207,10 @@ Then adafactor and selective recompute, LoRA and SFT:
 
 Then Hugging Face checkpoints and the MoE model family:
 
-23. hf_checkpoints: Qwen2.5-0.5B (D=896, 24 layers, H=14, Kv=2, tied,
-   ``model_type`` qwen2) and Qwen3-0.6B (D=1024, 28 layers, H=16, Kv=8,
-   Hd=128, qk-norm, tied, qwen3) written as bf16 HF checkpoints at their
-   published widths (random weights from --seed, ``params_to_hf_state_dict``
+23. hf_checkpoints: Qwen2.5-0.5B (D=896, H=14, Kv=2, tied, ``model_type``
+   qwen2) and Qwen3-0.6B (D=1024, H=16, Kv=8, Hd=128, qk-norm, tied, qwen3)
+   written as bf16 HF checkpoints at their published widths and 8 of
+   their 24 and 28 layers (``HF_CUT``; random weights from --seed, ``params_to_hf_state_dict``
    and the port's safetensors writer, ``config.json``, the tokenizer fixture
    ``tests/fixtures/hf_tokenizer``); ``load_hf_pretrained`` must return the
    written tensors bitwise (load seconds and peak reported). Then
@@ -223,7 +224,7 @@ Then Hugging Face checkpoints and the MoE model family:
    ``jinja2`` (also in the ``device`` line).
 24. moe: ``main_grpo`` on grpo_math_qwen05b.yaml with the model of
    ``LLMConfig.qwen3_moe_2b`` (``MOE_OVERRIDES``: 32 experts, top-2, expert
-   ffn 768, D=1024, Hd=64, G=4; full width, 4 of its 24 layers
+   ffn 768, D=1024, Hd=64, G=4; full width, 2 of its 24 layers
    (``MOE_CUT``), byte tokenizer) at the runner phase's cut: capacity routing for 2 steps and a
    shadow check on its params (one microbatch's loss and gradients, kernels
    against plain on the plain run's routing, ``MOE_SHADOW_BARS``; the free
@@ -294,9 +295,24 @@ Then the mesh, across processes:
    adafactor and with ``qwen3_moe_2b``'s widths (32 experts, top-2,
    capacity); (d) one rollout each of the continuous engine (int8 KV),
    the same with the megakernel and the paged engine at data=2 x
-   tensor=2 (every rank the same tokens). Gates: those checks, and each
-   part's launches of ``PART_KERNELS``. Reported: each part's seconds,
-   launches, collectives (``parallel.collectives.COUNTS``) and peaks.
+   tensor=2 (every rank the same tokens); (e) one GRPO step of
+   ``qwen3_moe_2b``'s widths (capacity) at fsdp=2 x expert=2 (each rank
+   computes 16 of the 32 experts; every rank the same tokens, loss and
+   grad norm, within ``MOE_TOLERANCE`` of a world-1 runner step on the
+   same weights and rollout, on rank 0); (f) ``moe_layer_dropless_ep``
+   forward and backward at ep=4 on 4 x 512 tokens a rank (the exchange
+   built from all-reduce), the output and every gradient held on rank 0
+   against ``moe_layer_dropless`` on the whole batch
+   (``EP_DROPLESS_TOLERANCE``), the exchange's bytes and seconds
+   reported; (g) one ring train step of the MoE model at expert=2 x
+   context=2 (B=2, T=2,048) within ``MOE_TOLERANCE`` of the world-1 step;
+   (h) a ``DynamicScheduler`` fed timings that make it migrate, and a
+   ``StandbyMigrator`` that moves a train state from a data=2 submesh of
+   ranks {0, 1} onto fsdp=2 x tensor=2 over all four and takes one step,
+   equal to the step of a state built there directly, the migration's
+   seconds reported. Gates: those checks, and each part's launches of
+   ``PART_KERNELS``. Reported: each part's seconds, launches, collectives
+   (``parallel.collectives.COUNTS``) and peaks.
 
 Last, the VLM reasoning stack:
 
@@ -356,8 +372,12 @@ PEAKS = {
 }
 
 
+#: the script's clock: every phase line says when it was written (``at_s``)
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    print(json.dumps({**obj, "at_s": time.perf_counter() - T0}), flush=True)
 
 
 def gpu_line() -> str:
@@ -1877,10 +1897,19 @@ def watch_engine(eng):
     return seen
 
 
+#: the engines phase's depth: the script's time limit (all 28 of
+#: Qwen2-1.5B's layers until the expert axis's parts of phase 26 came; the
+#: static rollout of phase 3 still runs all 28)
+ENGINES_CUT = {"layers=14": "14 of Qwen2-1.5B's 28 layers: the script's time limit "
+                            "(28 until phase 26's expert-axis parts came)"}
+
+
 def engine_phases(cfg, params, kerns, gpu, seed):
     """The continuous engine (a) through build_rollout_engine with the
     per-layer kernels, (b) with use_mega="auto" and the fused sampler, and
-    the paged engine, all on one long-tail mix at full width and depth."""
+    the paged engine, all on one long-tail mix at full width and at the
+    depth of ``ENGINES_CUT`` (the first layers of the main path's
+    params)."""
     from rlinf_tpu_torch.config import RolloutConfig
     from rlinf_tpu_torch.data.io_struct import RolloutRequest
     from rlinf_tpu_torch.models.llm.sampler import SamplingParams
@@ -1888,10 +1917,12 @@ def engine_phases(cfg, params, kerns, gpu, seed):
     from rlinf_tpu_torch.rollout import continuous_engine as CE
     from rlinf_tpu_torch.rollout import paged_engine as PE
 
+    L = int(next(iter(ENGINES_CUT)).split("=")[1])
+    cfg = dataclasses.replace(cfg, num_layers=L)
+    params = {**params, "blocks": {k: v[:L] for k, v in params["blocks"].items()}}
     request, budgets = long_tail_mix(cfg, seed)
     tokens = int(sum(budgets))
     sp = SamplingParams(max_new_tokens=256, temperature=1.0, eos_token_id=-1)
-    L = cfg.num_layers
 
     def trainer_cfg(**ro):
         return types.SimpleNamespace(
@@ -1901,6 +1932,7 @@ def engine_phases(cfg, params, kerns, gpu, seed):
             algorithm=types.SimpleNamespace(recompute_logprobs=None))
 
     out = {"phase": "engines", "gpu": gpu, "model": "qwen2_1_5b", "layers": L,
+           "reduced": ENGINES_CUT,
            "requests": len(budgets), "generated_tokens": tokens, "slots": 64, "decode_chunk": 16}
     total = dict.fromkeys(kerns, 0)
 
@@ -2394,9 +2426,10 @@ def whole_step_check(kerns, seed) -> dict:
 RUNNER_YAML = "examples/reasoning/config/grpo_math_qwen05b.yaml"
 # the yaml's traffic, cut to a short run: each override and why
 #: the runner phase's depth: the script's time limit (all 24 layers until
-#: phase 26's parts came; phase 26 itself runs 2, DRILL_CUT)
-RUNNER_CUT = {"model.num_layers=12": "12 of Qwen2.5-0.5B's 24 layers: the script's time limit "
-                                     "(24 until phase 26's parts came)"}
+#: phase 26's parts came, 12 until its expert-axis parts came; phase 26
+#: itself runs 2, DRILL_CUT)
+RUNNER_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                    "(24 until phase 26's parts came, then 12)"}
 RUNNER_REDUCED = {
     "runner.rollout_batch_size=8": "8 prompts x group_size 8 = 64 rows a step "
                                    "(the yaml: 64 prompts, 512 rows)",
@@ -3478,9 +3511,15 @@ def agent_phase(kerns, gpu, seed):
     return {k: counts[k] + eval_counts[k] for k in kerns}
 
 
+#: the shadowed Qwen2-7B-width run's depth: the script's time limit (4
+#: until phase 26's expert-axis parts came; K9 at these widths is also held
+#: against plain at 2 layers in phase 9)
+QWEN2_7B_SHADOW_LAYERS = 2
+
+
 def mega_generate_qwen2_7b(seed) -> dict:
     """A 16-token greedy ``generate(kv_quant="int8", mega=)`` at Qwen2-7B's
-    widths, 4 of its 28 layers (random weights from the seed), 16 prompts of
+    widths, ``QWEN2_7B_SHADOW_LAYERS`` of its 28 layers (random weights from the seed), 16 prompts of
     32-128 tokens, with every K9 call shadowed by its plain version on the
     same inputs (relative error < 5e-2, phase 10's bar): K9 once a step."""
     import dataclasses
@@ -3491,7 +3530,7 @@ def mega_generate_qwen2_7b(seed) -> dict:
     from rlinf_tpu_torch.models.llm.sampler import SamplingParams, generate
     from rlinf_tpu_torch.ops.cuda import decode_megakernel as MK
 
-    cfg = dataclasses.replace(LLMConfig.qwen2_7b(), num_layers=4)
+    cfg = dataclasses.replace(LLMConfig.qwen2_7b(), num_layers=QWEN2_7B_SHADOW_LAYERS)
     params = M.init_params(cfg, seed + 9, device="cuda")
     qparams = quantize_params(params)
     mega = MK.pack_decode_weights(qparams, cfg, chunk_width=cfg.hidden_size)
@@ -4310,6 +4349,12 @@ def sft_phase(kerns, gpu, seed) -> dict:
 TOKENIZER_FIXTURE = "tests/fixtures/hf_tokenizer"
 #: the published widths of the two checkpoints phase 23 writes, as
 #: config.json holds them (random weights from --seed)
+#: the checkpoints' depth (their widths are the published ones): the
+#: script's time limit (all 24 and 28 layers until phase 26's expert-axis
+#: parts came)
+HF_CUT = {"num_hidden_layers=8": "8 of Qwen2.5-0.5B's 24 and Qwen3-0.6B's 28 layers: the "
+                                 "script's time limit (whole until phase 26's expert-axis "
+                                 "parts came)"}
 HF_CHECKPOINTS = {
     "qwen2_5_0_5b": ("qwen2_0_5b", {"model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"],
                                     "max_position_embeddings": 32768}),
@@ -4352,7 +4397,8 @@ def write_hf_checkpoint(path: Path, preset: str, extra: dict, seed: int):
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(getattr(LLMConfig, preset)(),
-                              max_seq_len=extra["max_position_embeddings"])
+                              max_seq_len=extra["max_position_embeddings"],
+                              num_layers=int(next(iter(HF_CUT)).split("=")[1]))
     params = init_params(cfg, seed, device="cuda")
     sd = params_to_hf_state_dict(params, cfg)
     if cfg.tie_word_embeddings:
@@ -4585,8 +4631,9 @@ def hf_checkpoints_phase(kerns, gpu, seed) -> dict:
 #: grpo_math_qwen05b.yaml's model section replaced by LLMConfig.qwen3_moe_2b's
 #: widths (32 experts, top-2, expert ffn 768, D=1024) at the depth of MOE_CUT
 #: (the model has 24 layers)
-MOE_CUT = {"model.num_layers=4": "4 of qwen3_moe_2b's 24 layers, so that the whole script "
-                                 "stays inside its time limit (12 until phase 26 came)"}
+MOE_CUT = {"model.num_layers=2": "2 of qwen3_moe_2b's 24 layers, so that the whole script "
+                                 "stays inside its time limit (12 until phase 26 came, 4 "
+                                 "until its expert-axis parts came)"}
 MOE_OVERRIDES = (
     "model.vocab_size=151936", "model.hidden_size=1024", "model.intermediate_size=768",
     *MOE_CUT, "model.num_heads=16", "model.num_kv_heads=4", "model.head_dim=64",
@@ -4613,11 +4660,11 @@ def capacity_overflow(runner, result, rows: int = 16) -> dict:
     seen = {"decode": [], "train": []}
     orig = M.moe_layer
 
-    def recording(params, x, cfg, tp=None):
+    def recording(params, x, cfg, tp=None, ep=None):
         rowsel = torch.arange(x.shape[0], device=x.device)
         seen["decode"].append(float(capacity_overflow_frac(params, x[rowsel, first][:, None], moe)))
         seen["train"].append(float(capacity_overflow_frac(params, x[:rows], moe)))
-        return orig(params, x, cfg, tp)
+        return orig(params, x, cfg, tp, ep)
 
     M.moe_layer = recording
     try:
@@ -5639,6 +5686,15 @@ PART_KERNELS = {
     "sft": _TRAIN, "lora": _TRAIN, "budget": _TRAIN, "adafactor": _TRAIN, "moe": _TRAIN,
     "continuous": ("decode_attention_q8",), "continuous_mega": ("decode_megakernel",),
     "paged": ("paged_attention",),
+    # (e) the MoE runner at fsdp=2 x expert=2: its rollout (K2, K4), the
+    # recompute and the sharded step; (f) the expert-parallel dropless
+    # layer is plain PyTorch with collectives (no TPU kernel); (g) the ring
+    # step of the MoE model, its attention plain as (a)'s; (h) the step
+    # after the migration
+    "moe_ep": _TRAIN + ("decode_attention_bf16", "fused_lmhead_sample"),
+    "moe_ep_dropless": (),
+    "moe_context": ("linear_ce_fwd", "linear_ce_bwd"),
+    "migrate": _TRAIN,
 }
 #: the parts' cuts, beside DRILL_CUT (which cuts every part's depth)
 DRILL_PARTS_REDUCED = {
@@ -5647,6 +5703,11 @@ DRILL_PARTS_REDUCED = {
            "max_seq_len 128, 1 step",
     "runners": "4 prompts x 4, 8 new tokens, 1 step a configuration (the ring runner 2)",
     "engines": "12 requests, 16 new tokens, 8 slots",
+    "moe_ep": "qwen3_moe_2b's widths (32 experts, top-2, capacity) at DRILL_CUT's depth, "
+              "4 prompts x 4, 8 new tokens, 1 step",
+    "moe_ep_dropless": "one layer at qwen3_moe_2b's widths, 4 rows x 512 tokens a rank, f32",
+    "moe_context": "qwen3_moe_2b's widths at DRILL_CUT's depth, B=2 rows of T=2,048, 1 step",
+    "migrate": "Qwen2.5-0.5B's widths at DRILL_CUT's depth, 8 rows x 128 tokens, 1 step",
 }
 
 
@@ -5719,6 +5780,13 @@ def mesh_drill_phase(kerns, gpu, seed) -> dict:
         print(f"mesh drill part {part}: {info['seconds']:.1f} s, launches "
               f"{json.dumps(info['launches'])}, collectives {json.dumps(info['collectives'])}",
               flush=True)
+        if part in ("moe_ep", "moe_context", "migrate", "moe_ep_dropless"):
+            keep = ("loss", "grad_norm", "world1", "step_s", "exchange", "exchange_s_per_rank",
+                    "forward_s", "backward_s", "rel_err", "aux_rel_err", "migrations",
+                    "migrate_and_step_s", "prepare_wait_s", "direct_loss", "direct_grad_norm",
+                    "peak_gib")
+            print(f"mesh drill part {part} figures: "
+                  f"{json.dumps({k: v for k, v in info.items() if k in keep})}", flush=True)
         lacking = [k for k in PART_KERNELS[part] if info["launches"].get(k, 0) == 0]
         if lacking:
             missing[f"part {part}"] = lacking
@@ -6262,9 +6330,9 @@ def main() -> int:
                          if r["name"] in row}
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
-    emit({"kernels": results})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                 "count": torch.cuda.device_count()}})
+    print(json.dumps({"kernels": results}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

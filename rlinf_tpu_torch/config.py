@@ -6,8 +6,7 @@ YAML file drives both packages. ``LoRAConfig`` lives in
 ``models/llm/lora.py``, as in the JAX package. ``MeshConfig`` lives in
 ``parallel/mesh.py`` (re-exported here): the mesh block of a YAML is
 validated here; the runners take a built mesh (``ReasoningRunner(mesh=)``),
-and ``main_grpo`` builds none, as in the JAX package. The expert axis
-waits for ROADMAP.md §A.9b.3.
+and ``main_grpo`` builds none, as in the JAX package.
 """
 
 from __future__ import annotations

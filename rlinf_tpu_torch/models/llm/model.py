@@ -33,8 +33,17 @@ this rank's contiguous chunk of the sequence (``sharding.context_chunk``),
 attention by ``ops/ring_attention.py``; it returns the chunk's hidden
 states and K/V. ``prefill`` gathers them whole over the context group, so
 that decoding reads the whole cache on every context rank, as JAX's decode
-reads the cache XLA regathers. The expert axis waits for expert
-parallelism (ROADMAP.md §A.9b.3).
+reads the cache XLA regathers. An MoE layer there counts its capacity,
+slots and statistics over the whole [B, S] batch (``ops.moe``'s row split
+gains the context axis).
+
+Under an expert axis (``mesh.expert > 1``) the expert stacks are split on
+E (``P(None, expert, fsdp, tensor)``) while the rows are split over the
+batch axes only, as the JAX package's rules put them: every expert rank
+sees the same rows, routes them alike with the whole router, computes the
+pairs routed to its own experts, and the output is all-reduced over the
+expert x tensor group (``ops.moe``). The rollout takes the expert stacks
+gathered whole (``rollout_params``).
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from rlinf_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_packed_xla,
     quantize_kv_token,
 )
-from rlinf_tpu_torch.ops.moe import moe_layer, row_group, rows_split_over
+from rlinf_tpu_torch.ops.moe import moe_layer, row_split, rows_split_over
 from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from rlinf_tpu_torch.parallel import collectives as C
@@ -108,20 +117,18 @@ def partition_rules():
 def check_mesh(cfg: LLMConfig, mesh) -> None:
     """Raise unless the port's sharded forward takes ``cfg`` on ``mesh``:
     the tensor axis must divide the heads, the kv heads and the MLP width
-    (the blocks are split by whole heads and columns); the expert axis
-    waits for expert parallelism (ROADMAP.md §A.9b.3), and an MoE model
-    under a context axis, whose router statistics and capacity count the
-    tokens of whole rows, waits with it."""
+    (the blocks are split by whole heads and columns), and an expert axis
+    needs experts that it divides (the JAX config's checks)."""
     if mesh is None:
         return
-    if mesh.size(Ax.EXPERT) > 1:
-        raise NotImplementedError(
-            f"mesh.{Ax.EXPERT} > 1 waits for the port's expert parallelism "
-            "(moe_layer_dropless_ep, ROADMAP.md §A.9b.3)")
-    if cfg.is_moe and mesh.size(Ax.CONTEXT) > 1:
-        raise NotImplementedError(
-            "an MoE model under mesh.context > 1 waits for the port's expert "
-            "parallelism (ROADMAP.md §A.9b.3)")
+    ep = mesh.size(Ax.EXPERT)
+    if ep > 1:
+        if not cfg.is_moe:
+            raise ValueError(f"mesh.{Ax.EXPERT} > 1 but the model has no experts "
+                             "(model.num_experts == 0); set mesh.expert=1")
+        if cfg.num_experts % ep:
+            raise ValueError(f"model.num_experts ({cfg.num_experts}) not divisible by "
+                             f"mesh.{Ax.EXPERT} ({ep})")
     tp = mesh.size(Ax.TENSOR)
     for name in ("num_heads", "num_kv_heads", "intermediate_size"):
         if getattr(cfg, name) % tp:
@@ -274,9 +281,13 @@ def full_output_params(params: Params, cfg: LLMConfig) -> Params:
 
 def rollout_params(params: Params, cfg: LLMConfig) -> Params:
     """The weights generation reads under the active mesh: the block
-    weights gathered over fsdp (tensor-parallel blocks stay this rank's),
-    the embedding and the lm head whole (K4 samples from the whole head).
-    Without a mesh, ``params`` itself."""
+    weights gathered over fsdp and the expert stacks over the expert axis
+    (tensor-parallel blocks stay this rank's), the embedding and the lm
+    head whole (K4 samples from the whole head). Without a mesh, ``params``
+    itself. Gathering the experts once a rollout moves L x 3 x E x D x F
+    elements (of which this rank held 1/ep) where decoding with the split
+    experts would all-reduce the MoE output of every layer in every decode
+    step."""
     mesh, _, fsdp = _groups()
     if mesh is None:
         return params
@@ -287,8 +298,10 @@ def rollout_params(params: Params, cfg: LLMConfig) -> Params:
                 out[key] = _gather_whole(out[key], cfg, mesh, key, autograd=False)
         blocks = dict(params["blocks"])
         for k, w in params["blocks"].items():
-            for d in _split_dims(cfg, mesh, f"blocks/{k}", w, Ax.FSDP):
-                blocks[k] = C.gather_tensor(blocks[k], d, fsdp)
+            split = [(d, a) for a in (Ax.FSDP, Ax.EXPERT)
+                     for d in _split_dims(cfg, mesh, f"blocks/{k}", w, a)]
+            for d, a in split:
+                blocks[k] = C.gather_tensor(blocks[k], d, mesh.get_group(a))
         out["blocks"] = blocks
     return out
 
@@ -430,8 +443,14 @@ def _mlp_or_moe(cfg: LLMConfig, x: torch.Tensor, layer: Params, tp=None
             "up": layer["moe_up"],
             "down": layer["moe_down"],
         }
-        out, aux = moe_layer(moe_params, h, cfg.moe_config, tp)
-        return x + C.all_reduce(out, tp), aux
+        mesh = current_mesh()
+        ep = None
+        if mesh is not None and layer["moe_gate"].shape[0] < cfg.num_experts:
+            # this rank's block of the experts: the others' outputs come
+            # from the all-reduce over the expert x tensor group
+            ep, tp = mesh.get_group(Ax.EXPERT), mesh.get_group((Ax.EXPERT, Ax.TENSOR))
+        out, aux = moe_layer(moe_params, h, cfg.moe_config, tp, ep)
+        return x + C.all_reduce(out, tp).to(x.dtype), aux
     h = C.copy_to(h, tp)
     if "wgu" in layer:
         gu = mm(h, layer["wgu"])
@@ -562,13 +581,16 @@ def forward_hidden(
     else:
         x = inputs_embeds.to(cfg.compute_dtype)
 
-    # the active mesh and MoE row group, set again around each block: remat
+    # the active mesh and MoE row split, set again around each block: remat
     # recomputes a block in the backward, which on the card runs in the
     # autograd engine's own thread, where the caller's context is not set
-    mesh, rows = current_mesh(), row_group()
+    mesh, (rows_mesh, rows, real_rows) = current_mesh(), row_split()
+    if ring is not None and Ax.CONTEXT not in rows:
+        # the MoE layers see the chunk: their batch is split over context too
+        rows_mesh, rows = ring, tuple(rows) + (Ax.CONTEXT,)
 
     def block_fn(x, layer):
-        with use_mesh(mesh), rows_split_over(rows):
+        with use_mesh(mesh), rows_split_over(rows_mesh, rows, real_rows):
             return _block(cfg, x, layer, cos, sin, positions, attention_mask, attn_impl,
                           mask_positions)
 

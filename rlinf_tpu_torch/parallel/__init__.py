@@ -1,8 +1,19 @@
 """Meshes over ranks, component placement, sharding rules, collectives and
 weight sync: the port of ``rlinf_tpu/parallel/`` on ``torch.distributed``
 (one process per device, explicit collectives), with the context axis
-(``ops/ring_attention.py``). Expert parallelism, ``dynamic_scheduler`` and
-``channel`` are not ported yet (ROADMAP.md §A.9b.3-5)."""
+(``ops/ring_attention.py``), the expert axis (``ops.moe``, the sized
+``collectives.all_to_all``), the dynamic scheduler with its state
+migration (``dynamic_scheduler``) and named channels (``channel``)."""
+
+from rlinf_tpu_torch.parallel.channel import Channel
+from rlinf_tpu_torch.parallel.dynamic_scheduler import (
+    DynamicScheduler,
+    Migration,
+    StandbyMigrator,
+    migrate_sharded_state,
+    reshard_delta,
+    submesh,
+)
 
 from rlinf_tpu_torch.parallel.mesh import (
     AxisNames,
@@ -23,6 +34,13 @@ from rlinf_tpu_torch.parallel.sharding import (
 )
 
 __all__ = [
+    "Channel",
+    "DynamicScheduler",
+    "Migration",
+    "StandbyMigrator",
+    "migrate_sharded_state",
+    "reshard_delta",
+    "submesh",
     "AxisNames",
     "ComponentPlacement",
     "Mesh",

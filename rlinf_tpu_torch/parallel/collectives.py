@@ -16,6 +16,13 @@ calls ``torch.distributed``'s collectives:
                            computed the same loss, as tensor-parallel ranks)
   reduce_scatter(x, dim, group)
                            sum, then the rank's slice along ``dim``
+  all_to_all(x, send_sizes, recv_sizes, group)
+                           rows exchanged with per-rank sizes: this rank's
+                           rows are its chunks for ranks 0, 1, ... in order
+                           (``send_sizes[j]`` rows for rank j), and it
+                           receives ``recv_sizes[i]`` rows from each rank i,
+                           in rank order; its backward is the same exchange
+                           with the sizes swapped
   ring_shift(x, group)     the rank's block to the next rank of the group
                            (index + 1, modulo its size), the previous
                            rank's block back (JAX's ``ppermute`` with the
@@ -38,7 +45,8 @@ which each rank keeps its predecessor's block. This moves ``world`` times
 the bytes of a real all-gather (or of a send): the times of such a run
 say nothing of NCCL on several cards. Where the backend takes
 point-to-point calls (gloo on CPU tensors, NCCL), the shift is one
-``batch_isend_irecv`` of a send and a receive.
+``batch_isend_irecv`` of a send and a receive, and the all-to-all one
+``all_to_all_single`` with split sizes.
 
 ``COUNTS`` counts the calls made to the backend by kind, for the drills'
 reports.
@@ -53,8 +61,8 @@ import torch
 import torch.distributed as dist
 
 #: backend calls by kind ("all_reduce", "all_gather", "reduce_scatter",
-#: "broadcast", "broadcast_object", "ring_shift": one a shift, in either
-#: form); reset by the caller
+#: "broadcast", "broadcast_object", "ring_shift" and "all_to_all": one a
+#: shift or an exchange, in either form); reset by the caller
 COUNTS: collections.Counter = collections.Counter()
 
 
@@ -181,6 +189,35 @@ def _shift(x: torch.Tensor, group, step: int) -> torch.Tensor:
     return recv
 
 
+def _exchange(x: torch.Tensor, send_sizes, recv_sizes, group) -> torch.Tensor:
+    """Rows of ``x`` (chunks for ranks 0..n-1 in order, ``send_sizes``)
+    -> the rows this rank receives (``recv_sizes`` from ranks 0..n-1)."""
+    n = _size(group)
+    send_sizes, recv_sizes = [int(v) for v in send_sizes], [int(v) for v in recv_sizes]
+    if n == 1:
+        return x
+    x = x.contiguous()
+    COUNTS["all_to_all"] += 1
+    if _emulated(x, group):
+        me = _index(group)
+        sizes = torch.zeros((n, n), dtype=torch.int64, device=x.device)
+        sizes[me] = torch.as_tensor(send_sizes, dtype=torch.int64, device=x.device)
+        COUNTS["all_reduce"] += 2
+        dist.all_reduce(sizes, group=group)
+        sizes = sizes.cpu()
+        rows = int(sizes.sum(dim=1).max())
+        buf = torch.zeros((n, rows) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        buf[me, :x.shape[0]].copy_(x)
+        dist.all_reduce(buf, group=group)
+        offsets = sizes.cumsum(dim=1) - sizes               # [sender, receiver]
+        return torch.cat([buf[i, int(offsets[i, me]):int(offsets[i, me]) + recv_sizes[i]]
+                          for i in range(n)])
+    out = torch.empty((sum(recv_sizes),) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_to_all_single(out, x, output_split_sizes=recv_sizes,
+                           input_split_sizes=send_sizes, group=group)
+    return out
+
+
 def gather_tensor(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """All-gather without autograd (checkpoints, weight sync, results)."""
     with torch.no_grad():
@@ -248,6 +285,18 @@ class _RingShift(torch.autograd.Function):
         return _shift(g, ctx.group, -1), None
 
 
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send_sizes, recv_sizes, group):
+        ctx.sizes, ctx.group = (send_sizes, recv_sizes), group
+        return _exchange(x, send_sizes, recv_sizes, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        send_sizes, recv_sizes = ctx.sizes
+        return _exchange(g, recv_sizes, send_sizes, ctx.group), None, None, None
+
+
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """Megatron's f: identity forward, sum of the gradients backward."""
     if _size(group) == 1:
@@ -289,6 +338,15 @@ def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
     return _RingShift.apply(x, group)
 
 
+def all_to_all(x: torch.Tensor, send_sizes, recv_sizes, group) -> torch.Tensor:
+    """Exchange rows with per-rank sizes (see the module docstring): the
+    gradient of the received rows goes back to their senders."""
+    if _size(group) == 1:
+        return x
+    return _AllToAll.apply(x, tuple(int(v) for v in send_sizes),
+                           tuple(int(v) for v in recv_sizes), group)
+
+
 def group_size(group) -> int:
     return _size(group)
 
@@ -302,7 +360,7 @@ def reset_counts() -> None:
 
 
 __all__: List[str] = [
-    "COUNTS", "all_gather", "all_reduce", "all_reduce_", "broadcast_", "broadcast_object",
+    "COUNTS", "all_gather", "all_reduce", "all_reduce_", "all_to_all", "broadcast_", "broadcast_object",
     "copy_to", "counts", "gather_tensor", "group_size", "reduce_scatter", "reset_counts",
     "ring_shift",
 ]

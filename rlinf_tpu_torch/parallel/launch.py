@@ -15,7 +15,10 @@ picks NCCL when each rank has a card of its own, gloo when they share one),
 while the world runs. ``lock=`` names a
 file whose exclusive lock the world holds from its start to its end, so
 that the worlds of several processes that name the same file (test
-workers side by side) run one at a time.
+workers side by side) take turns, ``LOCK_SLOTS`` of them at once (each
+slot a lock file of its own: ``lock``, ``lock.1``): a test worker whose
+world waits for a slot idles, while one world of 4 single-threaded ranks
+leaves cores of the host free.
 """
 
 from __future__ import annotations
@@ -51,6 +54,28 @@ def _entry(rank: int, fn: Callable, world_size: int, init_file: str, out_dir: st
             dist.destroy_process_group()
 
 
+#: the worlds that name one lock and may run at once
+LOCK_SLOTS = 2
+
+
+def _take_slot(lock: str):
+    """An open file of the first free slot of ``lock`` (an exclusive flock
+    held on it), waiting until one is free."""
+    import fcntl
+    import time
+
+    paths = [lock] + [f"{lock}.{i}" for i in range(1, LOCK_SLOTS)]
+    while True:
+        for path in paths:
+            f = open(path, "a")
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                return f
+            except BlockingIOError:
+                f.close()
+        time.sleep(0.2)
+
+
 def spawn_world(fn: Callable, world_size: int, args: Sequence[Any] = (), *,
                 workdir: Optional[str] = None, device: str = "cuda",
                 lock: Optional[str] = None) -> List[Any]:
@@ -59,12 +84,12 @@ def spawn_world(fn: Callable, world_size: int, args: Sequence[Any] = (), *,
     if lock is not None:
         import fcntl
 
-        with open(lock, "a") as f:
-            fcntl.flock(f, fcntl.LOCK_EX)
-            try:
-                return spawn_world(fn, world_size, args, workdir=workdir, device=device)
-            finally:
-                fcntl.flock(f, fcntl.LOCK_UN)
+        f = _take_slot(lock)
+        try:
+            return spawn_world(fn, world_size, args, workdir=workdir, device=device)
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+            f.close()
     import torch.multiprocessing as mp
 
     own = workdir is None

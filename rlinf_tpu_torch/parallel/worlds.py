@@ -8,7 +8,9 @@ the static engine, ``ReasoningRunner(mesh=)``, the checkpoints, the weight
 syncers and the disaggregated runner; ring attention and the context axis
 (``ring_case``, ``ring_shift_case``, ``ring_forward``); ``SFTRunner(mesh=)``
 (``sft_steps``) and the slot-pool engines under a mesh
-(``greedy_rollout(engine=)``). ``jobs`` runs several bodies in one world,
+(``greedy_rollout(engine=)``); the expert-parallel dropless layer
+(``dropless_ep_case``) and the dynamic scheduler's moves
+(``migration_case``). ``jobs`` runs several bodies in one world,
 so that a caller pays the start of a world once.
 """
 
@@ -535,4 +537,125 @@ def collectives(rank, world, *, device="cuda"):
     out["all_reduce_grad"] = grad_of(lambda x: C.all_reduce(x, g).sum())
     out["copy_to_grad"] = grad_of(lambda x: C.copy_to(x, g).sum())
     out["max"] = float(C.all_reduce_(x.max().clone(), "max", g))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The expert axis and the dynamic scheduler
+# ---------------------------------------------------------------------------
+
+def dropless_ep_case(rank, world, *, moe, params, x, ragged=True, emulated=False,
+                     device="cuda"):
+    """``moe_layer_dropless_ep`` over an expert group of every rank (the
+    batch rows and the experts cut into the rank's blocks), the loss
+    sum(out ** 2) + aux backward: the output and the gradients of x and of
+    every expert leaf gathered whole, the router's gradient (whole on every
+    rank), the aux loss and the exchange's counts. ``ragged`` pins
+    ``FORCE_RAGGED``; ``emulated``: the exchange built from all-reduce, as
+    on CUDA tensors of a gloo group."""
+    from rlinf_tpu_torch.ops import moe as MO
+    from rlinf_tpu_torch.parallel import collectives as C
+    from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(data=1, expert=world), device_type=torch.device(device).type)
+    g = mesh.get_group(Ax.EXPERT)
+    me = mesh.axis_index(Ax.EXPERT)
+
+    def block(a, n):
+        a = torch.as_tensor(np.asarray(a)).to(device)
+        k = a.shape[0] // world
+        return a[me * k:(me + 1) * k].clone().requires_grad_(True) if n else a
+
+    p = {"router": block(params["router"], 0).clone().requires_grad_(True),
+         **{k: block(params[k], 1) for k in ("gate", "up", "down")}}
+    xb = block(x, 1)
+    real_c, real_f = C._emulated, MO.FORCE_RAGGED
+    if emulated:
+        C._emulated = lambda t, group: True
+    MO.FORCE_RAGGED = ragged
+    try:
+        C.reset_counts()
+        out, aux = MO.moe_layer_dropless_ep(p, xb, moe, mesh)
+        ((out.float() ** 2).sum() + aux).backward()
+        counts = C.counts()
+    finally:
+        C._emulated, MO.FORCE_RAGGED = real_c, real_f
+    got = {"out": _np(C.gather_tensor(out.detach(), 0, g)), "aux": float(aux),
+           "dx": _np(C.gather_tensor(xb.grad, 0, g)), "d_router": _np(p["router"].grad),
+           "counts": counts}
+    for k in ("gate", "up", "down"):
+        got[f"d_{k}"] = _np(C.gather_tensor(p[k].grad, 0, g))
+    return got
+
+
+def migration_case(rank, world, *, cfg, params, batch, opt_cfg, loss_cfg, device="cuda"):
+    """The dynamic scheduler's moves in a world of 4: a train state built on
+    a data=2 submesh of ranks {0, 1} (ranks 2 and 3 hold nothing) moves to
+    data=2 x tensor=2 over all four ranks through a ``StandbyMigrator``
+    prepared for that mesh, which then takes one step; the same step from
+    a state built on the 4-rank mesh directly; ``migrate_sharded_state``
+    of the params onto ranks {2, 3} and back; ``reshard_delta`` on a leaf
+    whose placement does not change and on one that moves."""
+    import time
+
+    from rlinf_tpu_torch.models.llm import model as M
+    from rlinf_tpu_torch.models.llm.convert import params_from_numpy
+    from rlinf_tpu_torch.parallel.dynamic_scheduler import (
+        NamedSharding, StandbyMigrator, migrate_sharded_state, reshard_delta, submesh,
+    )
+    from rlinf_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from rlinf_tpu_torch.parallel.sharding import P
+    from rlinf_tpu_torch.training.learner import make_policy_train_step
+    from rlinf_tpu_torch.training.sharded_step import model_layout
+    from rlinf_tpu_torch.training.train_state import create_train_state, make_optimizer
+
+    dt = torch.device(device).type
+    ranks = list(range(world))
+    mesh_a = submesh(ranks, 0, 2, device_type=dt)                 # data=2 on {0, 1}
+    mesh_b = make_mesh(MeshConfig(data=2, tensor=2), device_type=dt)
+    mesh_c = submesh(ranks, 2, 2, device_type=dt)                 # data=2 on {2, 3}
+    rules = M.partition_rules()
+    tx = make_optimizer(opt_cfg)
+    full = lambda: params_from_numpy(params, cfg, device=device)
+
+    def build(mesh):
+        return make_policy_train_step(cfg, loss_cfg, tx, remat=False, mesh=mesh, device=device)
+
+    state = (create_train_state(full, tx, mesh=mesh_a, partition_rules=rules)
+             if mesh_a.contains() else None)
+    lay_a = model_layout(cfg, mesh_a, rules=rules)
+    mig = StandbyMigrator(build, rules)
+    mig.prepare(mesh_b)
+    mig.prepare(mesh_b, block=True)
+    ready = mig.ready(mesh_b)
+    t0 = time.perf_counter()
+    moved, m = mig.migrate(mesh_b, state, batch, old_layout=lay_a)
+    seconds = time.perf_counter() - t0
+    lay_b = model_layout(cfg, mesh_b, rules=rules)
+    direct = create_train_state(full, tx, mesh=mesh_b, partition_rules=rules)
+    direct, dm = build(mesh_b)(direct, batch)
+    out = {"ready": ready, "seconds": seconds,
+           "loss": float(m["actor/loss"]), "grad_norm": float(m["actor/grad_norm"]),
+           "direct_loss": float(dm["actor/loss"]), "direct_grad_norm": float(dm["actor/grad_norm"]),
+           "params": _np_tree(lay_b.gather(moved.params)),
+           "direct_params": _np_tree(lay_b.gather(direct.params)),
+           "mu": _np_tree(lay_b.gather(moved.opt_state["mu"])),
+           "direct_mu": _np_tree(lay_b.gather(direct.opt_state["mu"]))}
+
+    # the params alone onto ranks {2, 3}, then back onto {0, 1}
+    p_c = migrate_sharded_state(moved.params, mesh_c, rules, old_layout=lay_b)
+    out["on_c"] = p_c is not None
+    lay_c = model_layout(cfg, mesh_c, rules=rules)
+    p_a = migrate_sharded_state(p_c, mesh_a, rules, old_layout=lay_c)
+    out["back_on_a"] = None if p_a is None else _np_tree(lay_a.gather(p_a))
+
+    # reshard_delta: the same blocks on the same ranks stay the same tensor
+    w = moved.params["blocks"]["wq"]
+    same = NamedSharding(mesh_b, lay_b.spec_for("blocks/wq"))
+    relabel = NamedSharding(make_mesh(MeshConfig(data=2, tensor=2), device_type=dt),
+                            lay_b.spec_for("blocks/wq"))
+    kept = reshard_delta({"wq": w}, {"wq": relabel}, {"wq": same})["wq"]
+    out["kept_same_tensor"] = kept is w
+    whole = reshard_delta({"wq": w}, {"wq": NamedSharding(mesh_c, P())}, {"wq": same})["wq"]
+    out["moved_to_c"] = None if whole is None else _np(whole)
     return out

@@ -9,7 +9,11 @@ active (tensor-parallel blocks at this rank's heads, the weights gathered
 over fsdp and the lm head whole: ``model.rollout_params``) and gathers the
 results, so every rank returns the global result. The ranks of one batch
 block sample with the same generator: one seed drawn from the caller's
-(the same draw on every rank) and offset by the block's index.
+(the same draw on every rank) and offset by the block's index. An MoE
+layer's capacity, slot order and statistics count the whole batch in
+prefill and in every decode step (``ops.moe.rows_split_over`` over the
+batch axes), as the JAX engine's one program does; every rank runs every
+decode step, so the layers' collectives meet.
 """
 
 from __future__ import annotations
@@ -89,6 +93,7 @@ class RolloutEngine:
 
     def _rollout_sharded(self, params, request, generator, mesh, prompt_ids, prompt_mask):
         from rlinf_tpu_torch.models.llm.sampler import _next_seed
+        from rlinf_tpu_torch.ops.moe import rows_split_over
         from rlinf_tpu_torch.parallel.distributed import fetch_global, shard_rows_for_process
         from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, use_mesh
 
@@ -96,7 +101,7 @@ class RolloutEngine:
         rows = shard_rows_for_process(prompt_ids.shape[0], mesh)
         block_gen = torch.Generator().manual_seed(
             (_next_seed(generator) + 1_000_003 * mesh.axis_index(Ax.BATCH)) % 2**63)
-        with use_mesh(mesh):
+        with use_mesh(mesh), rows_split_over(mesh, Ax.BATCH):
             rparams = M.rollout_params(params, self.cfg)
             dparams = quantize_params(rparams) if self.weight_quant == "int8" else None
             out = generate(

@@ -265,14 +265,9 @@ def make_policy_grad_and_apply(
     dev = resolve_device(device)
     ms = MeshStep(cfg, mesh, attn_impl=attn_impl)
     check_on_card(M.local_config(cfg, mesh), dev, attn_impl=attn_impl)
-    if cfg.is_moe and mesh is not None and mesh.size(("data", "fsdp")) > 1:
-        raise NotImplementedError(
-            "token-budget microbatches of an MoE model on a mesh that splits the rows: the "
-            "rows padding a microbatch to the batch axes would count as the MoE layer's "
-            "tokens (its capacity and load statistics take the whole microbatch)")
-
     def grad_step(params, acc_grads, mb, global_valid_tokens):
-        with ms.active():
+        # the rows padding the microbatch to the batch axes are no MoE tokens
+        with ms.active(real_rows=len(next(iter(mb.values())))):
             mb = _to_device(ms.rows(ms.pad_rows(mb)), dev)
             gv = torch.as_tensor(global_valid_tokens, dtype=torch.float32, device=dev)
             g, loss, metrics = _grads(params, lambda p: microbatch_loss_with_moe(

@@ -106,13 +106,13 @@ class MeshStep:
         self.mesh_group = mesh.get_group(tuple(mesh.shape))
 
     @contextlib.contextmanager
-    def active(self):
+    def active(self, real_rows=None):
         """The mesh active, and an MoE layer's token batch this rank's share
-        of the rows split over the batch axes (``ops.moe.rows_split_over``)."""
+        of the rows split over the batch axes (``ops.moe.rows_split_over``;
+        ``real_rows``: the global rows before ``pad_rows``'s padding)."""
         from rlinf_tpu_torch.ops.moe import rows_split_over
 
-        with use_mesh(self.mesh), rows_split_over(
-                None if self.mesh is None else self.valid_group):
+        with use_mesh(self.mesh), rows_split_over(self.mesh, Ax.BATCH, real_rows):
             yield
 
     def rows(self, batch: Dict, num_microbatches: int = 1) -> Dict:

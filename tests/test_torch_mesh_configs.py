@@ -383,7 +383,7 @@ def test_moe_under_tensor_and_fsdp_matches_jax(jax_side, world, name):
 
 
 @pytest.mark.parametrize("case", ["lora", "separate_critic"])
-def test_jax_rescale_with_lora_or_a_separate_critic(devices, case):
+def test_jax_rescale_with_lora_or_a_separate_critic(devices, jax_side, case):
     """The JAX runner's ``rescale`` (data=4 -> fsdp=2 x tensor=2 on the same
     devices) and one more step. With LoRA it replaces the LoRA step by a
     full-parameter train step over the adapter tree, which fails
@@ -404,8 +404,8 @@ def test_jax_rescale_with_lora_or_a_separate_critic(devices, case):
     rcfg = jconfig.load_config(YAML, RUNNER_OV)
     critic = _np_tree(JV.add_value_head(JM.init_params(rcfg.model, jax.random.PRNGKey(6)),
                                         rcfg.model, jax.random.PRNGKey(7)))
-    _, p_resc, after = _jax_runner(s, CRITIC_OV, DATA4, rollouts[:1], critic=critic,
-                                   rescale_to=FSDP_TP, rollouts_after=rollouts[1:])
+    # the rescaled run is the module's (the same params, critic and rollouts)
+    _, p_resc, after = jax_side["critic_rescale"]
     ms, p_plain, _ = _jax_runner(s, CRITIC_OV, DATA4, rollouts, critic=critic)
     for k in after[0]:
         if k.startswith(("actor/", "critic/")):

@@ -598,11 +598,12 @@ def test_chip_smoke_reads_k1_and_k2_from_a_step_trace_by_the_source_names(tmp_pa
 
 
 @pytest.mark.parametrize("name", ["ring_case", "ring_shift_case", "ring_forward", "sft_steps",
-                                  "greedy_rollout", "runner_steps", "train_steps"])
+                                  "greedy_rollout", "runner_steps", "train_steps",
+                                  "dropless_ep_case", "migration_case"])
 def test_context_axis_world_items_run_on_the_card_by_default(name):
-    """The rank bodies of the context axis and the lifted mesh
-    configurations take ``device`` and default to the card, as the drill's
-    other items."""
+    """The rank bodies of the context axis, the lifted mesh configurations,
+    the expert axis and the dynamic scheduler take ``device`` and default
+    to the card, as the drill's other items."""
     import inspect
 
     from rlinf_tpu_torch.parallel import worlds
@@ -732,7 +733,8 @@ PARALLEL_MODULES = (
     "parallel/sharding.py", "parallel/collectives.py", "parallel/weight_sync.py",
     "parallel/launch.py", "parallel/worlds.py", "training/sharded_step.py",
     "runners/disaggregated_runner.py", "multiprocess_runner_drill.py",
-    "ops/ring_attention.py")
+    "ops/ring_attention.py", "ops/moe.py", "parallel/dynamic_scheduler.py",
+    "parallel/channel.py", "utils/auto_placement.py")
 
 
 @pytest.mark.parametrize("rel", PARALLEL_MODULES)

@@ -128,9 +128,11 @@ def test_rollout_engine_matches_jax():
     np.testing.assert_array_equal(tres.response_ids, jres.response_ids)
     np.testing.assert_allclose(tres.response_logprobs, jres.response_logprobs, atol=1e-4)
     assert tres.answers == ["a", "b", "c"]
-    # a mesh with an expert axis waits for expert parallelism (the static
-    # engine's sharded rollout itself: tests/test_torch_mesh_e2e.py)
-    with pytest.raises(NotImplementedError, match="A.9b"):
+    # a mesh with an expert axis needs a model with experts, as the JAX
+    # config checks (the static engine's sharded rollout itself:
+    # tests/test_torch_mesh_e2e.py; of an MoE model with an expert axis:
+    # tests/test_torch_expert_axis.py)
+    with pytest.raises(ValueError, match="no experts"):
         teng.rollout(tp, RolloutRequest(prompt_ids=prompts), torch.Generator(),
                      mesh=make_mesh(MeshConfig(data=1, expert=2), ranks=[0, 1],
                                     device_type="cpu"))

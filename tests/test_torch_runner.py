@@ -387,16 +387,18 @@ def test_run_pipelined_rolls_out_on_a_snapshot(tmp_path, monkeypatch):
 @pytest.mark.parametrize("override, kwargs, error, match", [
     ("optimizer.name=sgd", {}, ValueError, "must be adamw"),
     ("runner.seed=0", {"mesh": make_mesh(MeshConfig(data=1, expert=2), ranks=[0, 1],
-                                         device_type="cpu")}, NotImplementedError, "A.9"),
+                                         device_type="cpu")}, ValueError, "no experts"),
 ])
 def test_unported_options_raise(override, kwargs, error, match):
     """What the runner still refuses: an optimizer other than adamw and
-    adafactor, and a mesh with an expert axis, which waits for ROADMAP
-    §A.9b.3. (Adafactor and LoRA run: tests/test_torch_lora.py and the
-    optimizer's cases in tests/test_torch_training.py; the runner on a
-    data x fsdp x tensor mesh: tests/test_torch_mesh_e2e.py; a context axis
-    with ring attention: tests/test_torch_cp_training.py; LoRA, the token
-    budget, adafactor and MoE on a mesh: tests/test_torch_mesh_configs.py.)"""
+    adafactor, and a mesh with an expert axis for a model without experts
+    (the JAX config's check). (Adafactor and LoRA run:
+    tests/test_torch_lora.py and the optimizer's cases in
+    tests/test_torch_training.py; the runner on a data x fsdp x tensor
+    mesh: tests/test_torch_mesh_e2e.py; a context axis with ring attention:
+    tests/test_torch_cp_training.py; LoRA, the token budget, adafactor and
+    MoE on a mesh: tests/test_torch_mesh_configs.py; the expert axis:
+    tests/test_torch_expert_axis.py.)"""
     _, tdata = _datasets()
     cfg = tconfig.load_config(YAML, [override, "runner.log_dir=null"])
     with pytest.raises(error, match=match):
