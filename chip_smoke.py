@@ -3,7 +3,8 @@
 the rollout serving paths (static, megakernel, continuous and paged
 engines), the GRPO training path, the runners and server mode, HF
 checkpoints, the MoE model family, the agent recipes and the
-AgentLightning runner, the mesh drill and the VLM reasoning stack.
+AgentLightning runner, the mesh drill, the VLM reasoning stack and the
+embodied PPO stack.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -87,7 +88,7 @@ Between phases 4 and 5, the megakernel, continuous and paged paths:
    its plain version on the same inputs; then a 16-token greedy
    ``generate(kv_quant="int8", mega=)`` at Qwen2-7B's widths (2 layers)
    with every K9 call checked the same way.
-11. engines: at 14 of the main path's 28 layers (``ENGINES_CUT``), on one
+11. engines: at 7 of the main path's 28 layers (``ENGINES_CUT``), on one
    long-tail mix (128 requests, prompts of 128-512 tokens, budgets of
    32-256 tokens, no eos) the continuous engine through
    ``build_rollout_engine(engine="auto")`` with the per-layer kernels, the
@@ -139,13 +140,13 @@ Then server mode and agentic rollout:
    (``--preset qwen2_1_5b``: bf16, 32 slots, K2 alone) answers 8 HTTP
    requests and ``APIRewardClient`` scores 8 payloads against it.
 15. coding_online: ``CodingOnlineRunner`` on grpo_math_qwen05b.yaml with
-   the decoupled loss at full width, 8 of the 24 layers (``CODING_CUT``),
+   the decoupled loss at full width, 4 of the 24 layers (``CODING_CUT``),
    the runner phase's traffic (``CODING_REDUCED``), 64 coding tasks with I/O tests, 3 overlapped
    online steps; rewards from the code-execution verifier plus
    ``text_rule``. Gates: the verifier scored every response; param version
    4, lag <= 2; finite metrics; params moved; K1, K2 and K5-K8 launched and
    no other kernel.
-16. agent: ``AgentRunner`` at Qwen2.5-0.5B's widths, 8 of its 24 layers
+16. agent: ``AgentRunner`` at Qwen2.5-0.5B's widths, 4 of its 24 layers
    (``AGENT_CUT``, ``AGENT_REDUCED``): ``CalculatorTool``, a scripted call in each
    conversation's first turn, 2 turns, 64 conversations, 2 steps,
    ``agent_rule`` rewards. Gates: every conversation has its two turns,
@@ -209,7 +210,7 @@ Then Hugging Face checkpoints and the MoE model family:
 
 23. hf_checkpoints: Qwen2.5-0.5B (D=896, H=14, Kv=2, tied, ``model_type``
    qwen2) and Qwen3-0.6B (D=1024, H=16, Kv=8, Hd=128, qk-norm, tied, qwen3)
-   written as bf16 HF checkpoints at their published widths and 8 of
+   written as bf16 HF checkpoints at their published widths and 4 of
    their 24 and 28 layers (``HF_CUT``; random weights from --seed, ``params_to_hf_state_dict``
    and the port's safetensors writer, ``config.json``, the tokenizer fixture
    ``tests/fixtures/hf_tokenizer``); ``load_hf_pretrained`` must return the
@@ -234,7 +235,7 @@ Then Hugging Face checkpoints and the MoE model family:
 
 Then the agent recipes and the AgentLightning runner:
 
-25. agent_recipes: at grpo_math_qwen05b.yaml's model, full width, 8 of its
+25. agent_recipes: at grpo_math_qwen05b.yaml's model, full width, 4 of its
    24 layers (``RECIPES_CUT``)
    (Qwen2.5-0.5B, random weights from --seed), cut as ``RECIPES_REDUCED``,
    the launch counts zeroed before steps 1-5 and read after them: (1) a
@@ -334,6 +335,32 @@ Last, the VLM reasoning stack:
    seconds a step of rollout, reward, training and the whole step, SFT
    seconds a step, step-1 ``actor/approx_kl``, the mixed groups' share,
    peak memory.
+
+Then the embodied PPO stack:
+
+28. embodied: (a) ``rlinf_tpu_torch.main_embodied_ppo.main`` at
+   train_ppo_point_reach.py's settings (256 PointReach envs, 32 chunk steps
+   a rollout, 2 epochs x 4 minibatches) for 2 steps, with 1 stage of 256
+   envs and then 2 stages of 128 (``time/rollout`` of each, so the stage
+   overlap is measured); (b) ``CNNGaussianPolicy`` and (c) the OFT-style
+   ``VLAPolicy`` through ``EmbodiedRunner`` at image_reach_tpu_proof.py's
+   settings (128 pos-only ImageReach envs in 2-step action chunks, 8 chunk
+   steps, 2 epochs x 4 minibatches; the CNN's images 36 px, its least) for
+   2 steps each; (d) ``EmbodiedRunner`` with ``OpenVLAPolicy``: the
+   decoder of ``LLMConfig.qwen2_0_5b`` (bf16, 24 layers, the last 256 ids
+   the action bins), two fused towers (phase 27's ``VLM_VIT`` at CLIP
+   ViT-L/14's widths and ``OPENVLA_TOWER2`` at DINOv2-L/14's; ViTConfig
+   cannot express SigLIP-so400m's widths or DINOv2's register tokens), the
+   erf-GELU projector, ImageReachEnv at 224 px with the env's 2-dim action,
+   2 stages x 8 envs x 8 chunk steps (128 samples), 1 epoch over 4
+   minibatches of 32, 2 steps and one deterministic eval epoch
+   (``OPENVLA_RUN``), random weights from --seed. Gates: finite metrics,
+   params moved, every batch and state tensor on the card, (d)'s step-1
+   |behaviour - recompute| logprob of the bins under ``OPENVLA_GAP_BAR``,
+   every kernel's launch count 0 (the path runs the plain versions, as the
+   JAX package's embodied path runs XLA; the reason is printed). Reported:
+   each part's seconds and per-step metrics, (d)'s init seconds, params
+   and peak memory.
 
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures (each with its timed ``variants`` of
@@ -1898,10 +1925,11 @@ def watch_engine(eng):
 
 
 #: the engines phase's depth: the script's time limit (all 28 of
-#: Qwen2-1.5B's layers until the expert axis's parts of phase 26 came; the
-#: static rollout of phase 3 still runs all 28)
-ENGINES_CUT = {"layers=14": "14 of Qwen2-1.5B's 28 layers: the script's time limit "
-                            "(28 until phase 26's expert-axis parts came)"}
+#: Qwen2-1.5B's layers until the expert axis's parts of phase 26 came, 14
+#: until phase 28 came; the static rollout of phase 3 still runs all 28)
+ENGINES_CUT = {"layers=7": "7 of Qwen2-1.5B's 28 layers: the script's time limit "
+                           "(28 until phase 26's expert-axis parts came, then 14 until "
+                           "phase 28 came)"}
 
 
 def engine_phases(cfg, params, kerns, gpu, seed):
@@ -2426,10 +2454,11 @@ def whole_step_check(kerns, seed) -> dict:
 RUNNER_YAML = "examples/reasoning/config/grpo_math_qwen05b.yaml"
 # the yaml's traffic, cut to a short run: each override and why
 #: the runner phase's depth: the script's time limit (all 24 layers until
-#: phase 26's parts came, 12 until its expert-axis parts came; phase 26
-#: itself runs 2, DRILL_CUT)
-RUNNER_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit "
-                                    "(24 until phase 26's parts came, then 12)"}
+#: phase 26's parts came, 12 until its expert-axis parts came, 8 until
+#: phase 28 came; phase 26 itself runs 2, DRILL_CUT)
+RUNNER_CUT = {"model.num_layers=4": "4 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                    "(24 until phase 26's parts came, then 12, then 8 until "
+                                    "phase 28 came)"}
 RUNNER_REDUCED = {
     "runner.rollout_batch_size=8": "8 prompts x group_size 8 = 64 rows a step "
                                    "(the yaml: 64 prompts, 512 rows)",
@@ -2920,13 +2949,13 @@ SWAP_PROMPT, SWAP_NEW = 640, 16
 #: phase 4's bars: greedy token agreement, and the logprob error over the
 #: tokens up to each row's first difference
 SWAP_BARS = {"agree": 0.95, "lp_max_abs": 0.15}
-#: phases 15 and 16 run the model at a third of its depth (the runner phase
-#: runs half, RUNNER_CUT), so that the whole script stays inside its time
-#: limit with phase 26
-CODING_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit "
-                                     "(12 until phase 26's parts came)"}
-AGENT_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit "
-                                    "(12 until phase 26's parts came)"}
+#: phases 15 and 16 run the model at a sixth of its depth (as the runner
+#: phase, RUNNER_CUT), so that the whole script stays inside its time limit
+#: with phases 26 and 28
+CODING_CUT = {"model.num_layers=4": "4 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                     "(12 until phase 26's parts came, 8 until phase 28 came)"}
+AGENT_CUT = {"model.num_layers=4": "4 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                    "(12 until phase 26's parts came, 8 until phase 28 came)"}
 #: the coding phase: the runner phase's traffic cut, the loss online RL needs
 CODING_REDUCED = {**{k: v for k, v in RUNNER_REDUCED.items() if "save_interval" not in k},
                   "loss.loss_type=decoupled": "online RL trains against live-swapped "
@@ -4352,9 +4381,9 @@ TOKENIZER_FIXTURE = "tests/fixtures/hf_tokenizer"
 #: the checkpoints' depth (their widths are the published ones): the
 #: script's time limit (all 24 and 28 layers until phase 26's expert-axis
 #: parts came)
-HF_CUT = {"num_hidden_layers=8": "8 of Qwen2.5-0.5B's 24 and Qwen3-0.6B's 28 layers: the "
+HF_CUT = {"num_hidden_layers=4": "4 of Qwen2.5-0.5B's 24 and Qwen3-0.6B's 28 layers: the "
                                  "script's time limit (whole until phase 26's expert-axis "
-                                 "parts came)"}
+                                 "parts came, 8 until phase 28 came)"}
 HF_CHECKPOINTS = {
     "qwen2_5_0_5b": ("qwen2_0_5b", {"model_type": "qwen2", "architectures": ["Qwen2ForCausalLM"],
                                     "max_position_embeddings": 32768}),
@@ -4849,10 +4878,11 @@ def moe_phase(kerns, gpu, peaks, seed) -> dict:
 # Phase 25: the agent recipes and the AgentLightning runner
 # ---------------------------------------------------------------------------
 
-#: phase 25 runs the model at a third of its depth (the runner phase runs
-#: half, RUNNER_CUT), so that the whole script stays inside its time limit
-#: with phase 26
-RECIPES_CUT = {"model.num_layers=8": "8 of Qwen2.5-0.5B's 24 layers: the script's time limit"}
+#: phase 25 runs the model at a sixth of its depth (as the runner phase,
+#: RUNNER_CUT), so that the whole script stays inside its time limit with
+#: phases 26 and 28
+RECIPES_CUT = {"model.num_layers=4": "4 of Qwen2.5-0.5B's 24 layers: the script's time limit "
+                                     "(8 until phase 28 came)"}
 #: the AgentLightning runner's traffic, cut to a short run of
 #: grpo_math_qwen05b.yaml: each override and why
 RECIPES_REDUCED = {
@@ -5982,6 +6012,241 @@ def vlm_phase(kerns, gpu, seed) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: the embodied PPO stack
+# ---------------------------------------------------------------------------
+
+#: part (a): examples/embodiment/train_ppo_point_reach.py's settings (256
+#: envs, 32 chunk steps a rollout, 2 epochs x 4 minibatches), 2 steps, once
+#: with 1 stage of 256 envs and once with 2 stages of 128
+POINT_REACH_RUN = dict(num_envs=256, steps=2, stages=(1, 2))
+#: parts (b)-(c): examples/embodiment/image_reach_tpu_proof.py's settings
+#: (128 envs, the goal only in the image, 2-step action chunks, 8 chunk
+#: steps a rollout, 2 epochs x 4 minibatches), 2 steps each
+IMAGE_REACH_ENV = dict(num_envs=128, max_episode_steps=16, goal_radius=0.3, dt=0.3)
+IMAGE_REACH_CHUNK = 2
+IMAGE_REACH_RUN = dict(num_chunk_steps=8, num_epochs=2, num_mini_batches=4, gamma=0.9,
+                       gae_lambda=0.95, max_steps=2)
+#: (b) the Nature-CNN takes 36 px at least (its three VALID convolutions):
+#: the proof's 32-px images are too small for it, so the CNN's env renders 36
+CNN_IMAGE = 36
+#: (c) the proof's OFT-style VLA
+OFT_VLA = dict(image_size=32, patch_size=8, action_dim=2, action_chunk=IMAGE_REACH_CHUNK,
+               proprio_dim=2, hidden=128, trunk_layers=3, vit_layers=2, heads=4,
+               init_logstd=-0.5)
+#: (d) OpenVLA's second tower at DINOv2-L/14's widths (facebook/dinov2-large:
+#: 24 layers of 1024, 16 heads, MLP ratio 4, patch 14, a class token), the
+#: same timm-style blocks; the first tower is phase 27's ``VLM_VIT``
+OPENVLA_TOWER2 = dict(image_size=224, patch_size=14, hidden=1024, layers=24, heads=16,
+                      timm_style=True, cls_token=True)
+#: (d) 2 stages x 8 envs x 8 chunk steps = 128 samples a rollout, 1 PPO epoch
+#: over 4 minibatches of 32, 2 runner steps, then one deterministic eval
+#: epoch of 8 chunk steps on 8 envs
+OPENVLA_RUN = dict(stages=2, envs_per_stage=8, num_chunk_steps=8, num_epochs=1,
+                   num_mini_batches=4, steps=2, eval_envs=8, eval_steps=8, action_bins=256,
+                   lr=1e-5)
+#: behaviour logprobs (bf16 KV-cached bin decode) against the learner's
+#: recompute (bf16 teacher-forced forward) on step 1's first minibatch: the
+#: runner phase's bar for the same bf16 gap, as phase 27's
+OPENVLA_GAP_BAR = DRIFT_BAR
+EMBODIED_WHY_ZERO = ("the embodied path runs no hand-written kernel: the MLP and CNN "
+                     "policies are plain matmuls and convolutions, the towers' and the "
+                     "trunks' attention take the plain causal_attention (impl='xla'), "
+                     "OpenVLA's bin decode the plain decode_attention on the unpacked cache "
+                     "and its bin logprobs an f32 matmul + log_softmax, as the JAX "
+                     "package's embodied path takes XLA")
+EMBODIED_METRICS = ("time/rollout", "time/training", "time/step", "perf/env_steps_per_s",
+                    "actor/loss", "actor/grad_norm", "actor/approx_kl",
+                    "critic/value_loss", "rollout/reward_mean")
+
+
+def pos_only_image_reach():
+    """image_reach_tpu_proof.py's env: ImageReach whose state vector holds
+    the agent's position only, so the goal is seen only in the image."""
+    from rlinf_tpu_torch.envs.toy import ImageReachEnv
+
+    class PosOnlyImageReach(ImageReachEnv):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.obs_spec = {"states": (2,), "images": (self.size, self.size, 3)}
+
+        def _obs(self):
+            o = super()._obs()
+            o["states"] = o["states"][:, :2]
+            return o
+
+    return PosOnlyImageReach
+
+
+def embodied_steps(history) -> list:
+    return [{k: h[k] for k in EMBODIED_METRICS if k in h} for h in history]
+
+
+def image_reach_part(kerns, policy, image_size, lr, seed) -> dict:
+    """Parts (b)-(c): ``policy`` trained 2 steps on the proof's chunked
+    pos-only ImageReach at ``image_size`` px."""
+    from rlinf_tpu_torch.envs.wrappers import ActionChunkWrapper
+    from rlinf_tpu_torch.runners.embodied_runner import EmbodiedRunner, EmbodiedRunnerConfig
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig
+
+    env = ActionChunkWrapper(pos_only_image_reach()(seed=seed, size=image_size,
+                                                    **IMAGE_REACH_ENV), IMAGE_REACH_CHUNK)
+    runner = EmbodiedRunner(EmbodiedRunnerConfig(seed=seed, **IMAGE_REACH_RUN), [env], policy,
+                            optimizer=OptimizerConfig(lr=lr, clip_grad=1.0), device="cuda")
+    params0 = clone_tree(runner.state.params)
+    hist, secs, counts = run_counted(kerns, runner.run)
+    out = {"seconds": secs, "image_px": image_size, "steps": embodied_steps(hist),
+           "launches": counts, "params_moved_share": moved_share(runner.state.params, params0)}
+    bad = finite_steps(hist, EMBODIED_METRICS) + [f"{k} launched {c}"
+                                                  for k, c in counts.items() if c]
+    bad += [f"state {k} off the card" for k in off_card(runner.state)]
+    if len(hist) != IMAGE_REACH_RUN["max_steps"] or not out["params_moved_share"] > 0:
+        bad.append(f"{len(hist)} steps, params moved {out['params_moved_share']}")
+    return out, bad
+
+
+def openvla_part(kerns, seed) -> tuple:
+    """Part (d): EmbodiedRunner with OpenVLAPolicy at Qwen2.5-0.5B's widths
+    and depth and two fused towers on ImageReachEnv(size=224)."""
+    from rlinf_tpu_torch.envs.toy import ImageReachEnv
+    from rlinf_tpu_torch.models.embodiment.openvla import OpenVLAConfig, OpenVLAPolicy
+    from rlinf_tpu_torch.models.embodiment.vit import ViTConfig
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.runners.embodied_runner import EmbodiedRunner, EmbodiedRunnerConfig
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    run = OPENVLA_RUN
+    model, vit, vit2 = LLMConfig.qwen2_0_5b(), ViTConfig(**VLM_VIT), ViTConfig(**OPENVLA_TOWER2)
+    policy = OpenVLAPolicy(OpenVLAConfig(action_dim=2, action_bins=run["action_bins"]),
+                           vlm_cfg=model, vit_cfg=vit, vit2_cfg=vit2)
+    envs = [ImageReachEnv(run["envs_per_stage"], seed=seed + s, size=224)
+            for s in range(run["stages"])]
+    cfg = EmbodiedRunnerConfig(num_chunk_steps=run["num_chunk_steps"],
+                               num_epochs=run["num_epochs"],
+                               num_mini_batches=run["num_mini_batches"], max_steps=run["steps"],
+                               eval_interval=run["steps"], eval_steps=run["eval_steps"],
+                               seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = EmbodiedRunner(cfg, envs, policy,
+                            optimizer=OptimizerConfig(lr=run["lr"], clip_grad=1.0),
+                            eval_envs=[ImageReachEnv(run["eval_envs"], seed=999, size=224)],
+                            device="cuda")
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in flatten(runner.state.params).values())
+    params0 = clone_tree(runner.state.params)
+    record, step = {}, runner.train_step
+
+    def watched(state, mb):
+        # before the first update: the learner's recompute of the rollout's bins
+        if "gap" not in record:
+            with torch.no_grad():
+                obs = {k[len("obs/"):]: v for k, v in mb.items() if k.startswith("obs/")}
+                lp = policy.default_forward(state.params, obs, mb["actions"])["logprobs"]
+            d = (lp - mb["old_logprobs"]).abs()
+            record["gap"] = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                             "bins": int(d.numel()), "bar": OPENVLA_GAP_BAR}
+            record["off_card"] = [k for k, v in mb.items() if v.device.type != "cuda"]
+        return step(state, mb)
+
+    runner.train_step = watched
+    hist, secs, counts = run_counted(kerns, runner.run)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    out = {"entry": "rlinf_tpu_torch.runners.embodied_runner.EmbodiedRunner",
+           "policy": "OpenVLAPolicy", "env": "ImageReachEnv(size=224)",
+           "decoder": f"qwen2_0_5b ({model.dtype}, {model.num_layers} layers, D="
+                      f"{model.hidden_size}, V={model.vocab_size}, the last "
+                      f"{run['action_bins']} ids the bins)",
+           "tower1": VLM_VIT, "tower2": OPENVLA_TOWER2,
+           "projector": f"2-layer erf-GELU MLP {vit.hidden + vit2.hidden} -> "
+                        f"{model.hidden_size} -> {model.hidden_size}, f32",
+           "prefix_tokens": vit.num_patches, "params": n_params, **run,
+           "samples_per_rollout": run["stages"] * run["envs_per_stage"] * run["num_chunk_steps"],
+           "init_s": init_s, "seconds": secs, "steps": embodied_steps(hist),
+           "eval": {k: v for k, v in hist[-1].items() if k.startswith("eval/")},
+           "logprob_gap_step1": record["gap"],
+           "params_moved_share": moved_share(runner.state.params, params0),
+           "max_memory_allocated_gib": peak_gib, "launches": counts,
+           "not_expressed": "ViTConfig has one MLP ratio and no register tokens or "
+                            "LayerScale: SigLIP-so400m's widths (1152, MLP 4304) and "
+                            "DINOv2's register tokens cannot be set, so tower 1 takes "
+                            "CLIP ViT-L/14's widths and tower 2 DINOv2-L/14's without "
+                            "registers"}
+    bad = finite_steps(hist, EMBODIED_METRICS) + record["off_card"]
+    bad += [f"{k} launched {c}" for k, c in counts.items() if c]
+    bad += [f"state {k} off the card" for k in off_card(runner.state)]
+    if len(hist) != run["steps"] or not out["eval"]:
+        bad.append(f"{len(hist)} steps, eval {out['eval']}")
+    if not out["params_moved_share"] > 0:
+        bad.append("params did not move")
+    bad += [f"logprob gap {k} {record['gap'][k]} over {b}" for k, b in OPENVLA_GAP_BAR.items()
+            if not record["gap"][k] < b]
+    return out, bad
+
+
+def embodied_phase(kerns, gpu, seed) -> dict:
+    """Phase 28 (see the module docstring). Returns the launches of its runs
+    (all 0: the embodied path takes the plain versions, as the JAX
+    package's takes XLA)."""
+    from rlinf_tpu_torch import main_embodied_ppo
+    from rlinf_tpu_torch.models.embodiment import CNNGaussianPolicy
+    from rlinf_tpu_torch.models.embodiment.vla_policy import VLAPolicy
+
+    t_phase = time.perf_counter()
+    out = {"phase": "embodied", "gpu": gpu, "launches_why_zero": EMBODIED_WHY_ZERO}
+    bad, total = [], {name: 0 for name in kerns}
+
+    def add(counts):
+        for k, c in counts.items():
+            total[k] += c
+
+    # (a) main_embodied_ppo on point_reach, 1 stage then 2 at the same envs
+    out["a_point_reach"] = {"entry": "rlinf_tpu_torch.main_embodied_ppo.main",
+                            "num_envs": POINT_REACH_RUN["num_envs"]}
+    for stages in POINT_REACH_RUN["stages"]:
+        res, secs, counts = run_counted(kerns, lambda: main_embodied_ppo.main(
+            "cuda", num_envs=POINT_REACH_RUN["num_envs"], stages=stages,
+            steps=POINT_REACH_RUN["steps"], log_dir=None))
+        hist = res["history"]
+        out["a_point_reach"][f"stages_{stages}"] = {
+            "seconds": secs, "steps": embodied_steps(hist), "launches": counts}
+        bad += [f"(a) {stages} stages {b}" for b in finite_steps(hist, EMBODIED_METRICS)]
+        bad += [f"(a) {k} launched {c}" for k, c in counts.items() if c]
+        if len(hist) != POINT_REACH_RUN["steps"]:
+            bad.append(f"(a) {len(hist)} steps")
+        add(counts)
+    # the rollout's seconds at step 2 (step 1 carries the first calls)
+    one, two = (out["a_point_reach"][f"stages_{s}"]["steps"][-1]["time/rollout"]
+                for s in POINT_REACH_RUN["stages"])
+    out["a_point_reach"]["rollout_s_step2_1_vs_2_stages"] = [one, two]
+
+    # (b) the CNN policy and (c) the OFT-style VLA on the proof's ImageReach
+    chunk_a = 2 * IMAGE_REACH_CHUNK
+    for part, policy, px, lr in (
+            ("b_cnn", CNNGaussianPolicy(image_shape=(CNN_IMAGE, CNN_IMAGE, 3), action_dim=chunk_a,
+                                        proprio_dim=2, init_logstd=-0.5), CNN_IMAGE, 2e-3),
+            ("c_oft_vla", VLAPolicy(**OFT_VLA), OFT_VLA["image_size"], 2e-3)):
+        res, part_bad = image_reach_part(kerns, policy, px, lr, seed)
+        out[part] = res
+        bad += [f"({part[0]}) {b}" for b in part_bad]
+        add(res["launches"])
+
+    # (d) OpenVLA at full width and depth with two fused towers
+    res, part_bad = openvla_part(kerns, seed)
+    out["d_openvla"] = res
+    bad += [f"(d) {b}" for b in part_bad]
+    add(res["launches"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = total
+    out["seconds_phase"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"embodied phase failed: {bad}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6321,6 +6586,11 @@ def main() -> int:
 
     # 27. the VLM reasoning stack through main_vlm_grpo (SFT, then GRPO)
     for k, c in vlm_phase(kerns, gpu, args.seed).items():
+        launches[k] += c
+
+    # 28. the embodied PPO stack: main_embodied_ppo, the CNN and OFT-style
+    # VLA policies, and OpenVLA at full width
+    for k, c in embodied_phase(kerns, gpu, args.seed).items():
         launches[k] += c
 
     results += new_results

@@ -6,8 +6,8 @@ The port's own copy of ``PromptExample``, ``PromptDataset``,
 ``create_rl_dataset``) and the VLM's ``VQAExample`` and ``VQADataset``
 from ``rlinf_tpu/data/datasets.py``: the batch order comes from
 ``random.Random(f"{seed}-{epoch}")``, so both packages hand out the same
-batches. ``EpisodeDataset`` comes with the embodied slice (ROADMAP.md
-§A.11).
+batches. ``EpisodeDataset`` comes with the embodied SFT and offline part
+of the embodied stack (ROADMAP.md §A.11(d)).
 """
 
 from __future__ import annotations

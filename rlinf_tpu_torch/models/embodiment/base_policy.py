@@ -53,8 +53,44 @@ class Policy:
         decode bin centers."""
         return policy_actions
 
+    def params_from_numpy(self, tree, device="cuda"):
+        """The JAX package's params of this policy (a tree of dicts and
+        lists of numpy arrays) -> the port's tree of tensors on ``device``,
+        keys and layouts unchanged, so one init feeds both packages."""
+        return tree_from_numpy(tree, device)
+
     def partition_rules(self):
         """Embodied policies are small: replicate by default."""
         from rlinf_tpu_torch.parallel.sharding import P
 
         return [(r".*", P())]
+
+
+def tree_from_numpy(tree, device="cuda"):
+    """Dicts and lists of numpy arrays -> the same nesting of tensors on
+    ``device``, each with its own copy."""
+    from rlinf_tpu_torch.models.llm.convert import tensor_from_numpy
+
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device) for v in tree]
+    return tensor_from_numpy(tree, device)
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A host array or CPU tensor on ``device``. To the card the copy goes
+    from pinned memory and does not wait for the work already queued there,
+    so that a rollout stage's inputs do not stall behind another stage's
+    policy (``rollout/env_loop.py``)."""
+    t = torch.as_tensor(x)
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def normal_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
+    """N(0, 1) f32 noise of ``shape`` drawn from the CPU ``generator`` (the
+    draw does not depend on the device), sent to ``device`` by ``to_device``."""
+    return to_device(torch.randn(tuple(shape), generator=generator), device)

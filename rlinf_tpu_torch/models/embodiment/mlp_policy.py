@@ -15,7 +15,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from rlinf_tpu_torch.models.embodiment.base_policy import Policy, PolicyOutput
+from rlinf_tpu_torch.models.embodiment.base_policy import Policy, PolicyOutput, normal_noise
 from rlinf_tpu_torch.utils.device import resolve_device
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -121,8 +121,8 @@ class MLPGaussianPolicy(Policy):
         if deterministic:
             actions = mean
         else:
-            noise = torch.randn(mean.shape, generator=generator).to(mean.device)
-            actions = mean + torch.exp(logstd) * noise
+            actions = mean + torch.exp(logstd) * normal_noise(generator, mean.shape,
+                                                              mean.device)
         logprobs = gaussian_logprob(mean, logstd, actions)
         values = self.value(params, obs) if self.with_value_head else None
         return PolicyOutput(actions=actions, logprobs=logprobs, values=values)

@@ -36,10 +36,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from rlinf_tpu_torch.models.embodiment.base_policy import tree_from_numpy
 from rlinf_tpu_torch.models.embodiment.mlp_policy import _mlp_apply, _mlp_init
 from rlinf_tpu_torch.models.embodiment.vit import ViTConfig, init_vit, vit_encode
 from rlinf_tpu_torch.models.llm.config import LLMConfig
-from rlinf_tpu_torch.models.llm.convert import params_from_numpy, tensor_from_numpy
+from rlinf_tpu_torch.models.llm.convert import params_from_numpy
 from rlinf_tpu_torch.models.llm.model import (
     KVCache,
     decode_step,
@@ -190,13 +191,6 @@ def vlm_params_from_numpy(tree: dict, vlm_cfg: LLMConfig, device="cuda") -> Dict
     "img_proj": list of {"w", "b"}, "vlm": the decoder's tree}) -> the
     port's tree of tensors on ``device``."""
     device = resolve_device(device)
-
-    def convert(node):
-        if isinstance(node, dict):
-            return {k: convert(x) for k, x in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [convert(x) for x in node]
-        return tensor_from_numpy(node, device)
-
-    return {"vit": convert(tree["vit"]), "img_proj": convert(tree["img_proj"]),
+    return {"vit": tree_from_numpy(tree["vit"], device),
+            "img_proj": tree_from_numpy(tree["img_proj"], device),
             "vlm": params_from_numpy(tree["vlm"], vlm_cfg, device=device)}

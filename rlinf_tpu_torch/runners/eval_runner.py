@@ -1,10 +1,10 @@
 """Standalone evaluation: greedy decode + rule-based scoring over a dataset.
 
-Port of the LLM half of ``rlinf_tpu/runners/eval_runner.py``: accuracy and
+Port of ``rlinf_tpu/runners/eval_runner.py``: accuracy and
 pass@k over a prompt dataset through the static rollout engine, and the
-aggregated tables. Sampling seeds come from one ``torch.Generator`` seeded
-from ``seed`` (not JAX's threefry). ``evaluate_embodied_episodes`` waits for
-the port of ``rollout/env_loop.py`` (ROADMAP.md §A.11).
+aggregated tables, and the episodic embodied eval
+(``evaluate_embodied_episodes``) over the port's ``EnvLoop``. Sampling seeds
+come from one ``torch.Generator`` seeded from ``seed`` (not JAX's threefry).
 """
 
 from __future__ import annotations
@@ -212,12 +212,53 @@ def evaluate_embodied_episodes(
     *,
     num_steps: int = 256,
     seed: int = 0,
+    device="cuda",
 ) -> Dict[str, float]:
-    """Deterministic-policy episodic eval over vectorized envs: needs
-    ``rollout/env_loop.py`` and the embodied stack, not ported yet."""
-    raise NotImplementedError(
-        "evaluate_embodied_episodes needs rollout/env_loop.py and the embodied stack, "
-        "which come with a later slice of the port (ROADMAP.md §A.11)")
+    """Deterministic-policy episodic eval over vectorized envs.
+
+    Computes trajectory-derived episodic metrics (return/length over
+    completed episodes, success_once from positive terminal reward) merged
+    with whatever the env adapter itself reports via ``metrics()``; the
+    env-reported keys (e.g. ManiSkill-style ``success_once``) take
+    precedence, the simulator being the source of truth for success.
+    ``params`` lie on ``device``.
+    """
+    from rlinf_tpu_torch.rollout.env_loop import EnvLoop
+
+    loop = EnvLoop(envs, policy, device=device)
+    loop.reset()
+    loop.env_metrics()  # drain stale stats
+    traj = loop.interact(params, torch.Generator().manual_seed(seed), num_steps,
+                         deterministic=True)
+
+    rewards = np.asarray(traj.rewards)       # [T, B]
+    dones = np.asarray(traj.dones)           # [T+1, B]
+    T, B = rewards.shape
+    ep_returns, ep_lengths, ep_success = [], [], []
+    ret = np.zeros(B)
+    length = np.zeros(B, np.int32)
+    success = np.zeros(B, bool)
+    for t in range(T):
+        ret += rewards[t]
+        length += 1
+        success |= rewards[t] > 0
+        done_t = dones[t + 1].astype(bool)
+        for b in np.nonzero(done_t)[0]:
+            ep_returns.append(float(ret[b]))
+            ep_lengths.append(int(length[b]))
+            ep_success.append(bool(success[b]))
+            ret[b] = 0.0
+            length[b] = 0
+            success[b] = False
+
+    out = {
+        "episodes": float(len(ep_returns)),
+        "episode_return_mean": float(np.mean(ep_returns)) if ep_returns else 0.0,
+        "episode_len_mean": float(np.mean(ep_lengths)) if ep_lengths else 0.0,
+        "success_once": float(np.mean(ep_success)) if ep_success else 0.0,
+    }
+    out.update(loop.env_metrics())  # env-reported keys win
+    return out
 
 
 def print_metrics_table(

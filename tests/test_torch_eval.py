@@ -126,8 +126,19 @@ def test_tables_print_as_jax(capsys):
 
 
 def test_embodied_eval_waits_for_the_env_loop():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tev.evaluate_embodied_episodes(None, None, None)
+    """The episodic embodied eval runs over the port's EnvLoop (it raised
+    until the loop was ported), with the JAX test's checks
+    (tests/test_eval_runners.py test_embodied_episodic_eval)."""
+    from rlinf_tpu_torch.envs.toy import PointReachEnv
+    from rlinf_tpu_torch.models.embodiment import MLPGaussianPolicy
+
+    policy = MLPGaussianPolicy(obs_dim=4, action_dim=2)
+    params = policy.init(torch.Generator().manual_seed(0), device="cpu")
+    metrics = tev.evaluate_embodied_episodes([PointReachEnv(num_envs=8, seed=0)], policy,
+                                             params, num_steps=64, seed=0, device="cpu")
+    assert metrics["episodes"] > 0
+    assert "success_once" in metrics and "episode_return_mean" in metrics
+    assert metrics["episode_len_mean"] > 0
 
 
 def test_the_card_is_the_default(monkeypatch, params):
