@@ -362,6 +362,28 @@ Then the embodied PPO stack:
    each part's seconds and per-step metrics, (d)'s init seconds, params
    and peak memory.
 
+Then the off-policy path and the flow families:
+
+29. offpolicy_flow: (a) ``rlinf_tpu_torch.main_sac_async.main`` on the
+   bandit at sac_tpu_proof.py's settings (``SAC_PROOF``), the rollout
+   thread's snapshots recorded; (b) ``AsyncPPORunner`` on point-reach at
+   tests/test_sac_async.py's settings (``ASYNC_PPO``); (c) flow-SDE PPO
+   (``FlowMatchingPolicy`` through ``EmbodiedRunner``) at
+   flow_sde_tpu_proof.py's settings (``FLOW_SDE_PROOF``); (d) one NFT step
+   on a flow policy's own chains and one GR00T runner step at test scale;
+   (e) ``EmbodiedRunner`` with ``Pi0Policy`` at the repo's full pi0
+   geometry (``PI0_TRUNK``, ``PI0_TOWER``, ``Pi0Config.pi0_full()``; 3.25 B
+   params drawn through ``init_generator`` on the card) on ImageReach at
+   224 px in 50-step chunks (``PI0_RUN``). Gates: (a)'s deterministic eval
+   mean reward above the proof's bar and every chunk acting on the tree
+   published at its version stamp, (b) and (c)'s success rising by their
+   tests' bars and (b)'s version lag >= 1, finite metrics, params moved,
+   (e)'s step-1 |behaviour - recompute| chain logprob under
+   ``FLOW_GAP_BAR``, every kernel's launch count 0 (the reason is printed).
+   Reported: each part's seconds, (a)'s learner steps/s and syncs, (b)'s
+   version lags, (e)'s init seconds, rollout and training seconds a step,
+   params and peak memory.
+
 The last lines are the GPU's name and power limit (nvidia-smi), one JSON
 line with every kernel's figures (each with its timed ``variants`` of
 phase 17), and ``{"ok": true, "device": ...}``.
@@ -6247,6 +6269,404 @@ def embodied_phase(kerns, gpu, seed) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the off-policy path and the flow families
+# ---------------------------------------------------------------------------
+
+#: (a) examples/embodiment/sac_tpu_proof.py's settings: 32 bandit envs,
+#: learner steps of batch 128, 4-step chunks, 256 warmup transitions, a
+#: weight sync every 5 steps, 4 updates a chunk, 200 chunks kept, gamma 0
+#: (no bootstrap on a 1-step bandit); its bar: the deterministic policy's
+#: mean reward on 256 envs of seed 123 above -0.2. 350 learner steps, not
+#: the proof's 600, for the phase's 60 s: the learner takes 8-12 steps/s
+#: beside the free-running rollout thread (10.8-11.6 with the snapshot
+#: recorder off), and at 350 steps seeds 0-4 read -0.109 to -0.065 on the
+#: card (torch_offpolicy_onchip.py)
+SAC_PROOF = dict(num_envs=32, steps=350, hidden=(64, 64), bar=-0.2,
+                 runner=dict(rollout_chunk_steps=4, train_batch_size=128,
+                             warmup_transitions=256, weight_sync_interval=5,
+                             updates_per_chunk=4.0, replay_capacity=200, log_interval=100))
+#: (b) tests/test_sac_async.py's async PPO: 64 point-reach envs of 16 steps,
+#: 16-step chunks, 2 epochs x 4 minibatches, a sync every step, 40 steps;
+#: its bar: the last 5 steps' success above max(2 x the first 5's, 0.3)
+ASYNC_PPO = dict(num_envs=64, max_episode_steps=16, steps=40,
+                 cfg=dict(rollout_chunk_steps=16, num_epochs=2, num_mini_batches=4, gamma=0.9,
+                          weight_sync_interval=1, log_interval=20))
+#: (c) examples/embodiment/flow_sde_tpu_proof.py's settings (128 envs, a
+#: (128, 128) velocity MLP, 4 flow steps, noise 0.7, 12 chunk steps, 2
+#: epochs x 4 minibatches), cut from its 50 steps to 30 for the phase's
+#: budget; its bar: the last k steps' success above the first k's + 0.1
+#: (k = max(5, steps // 10))
+FLOW_SDE_PROOF = dict(num_envs=128, steps=30, hidden=(128, 128), num_flow_steps=4,
+                      sde_noise_scale=0.7,
+                      env=dict(max_episode_steps=12, goal_radius=0.35, dt=0.3),
+                      run=dict(num_chunk_steps=12, num_epochs=2, num_mini_batches=4, gamma=0.9,
+                               gae_lambda=0.95))
+#: (e) the repo's full pi0 geometry (vla_fullscale.py): PaliGemma's
+#: Gemma-2B widths as the trunk (bf16, tied), a SigLIP-So400m-class tower
+#: (f32) and Pi0Config.pi0_full()'s expert (1024 / 4096, 10 flow steps,
+#: 50-step chunks), on the env's 2-dim action and 4-dim state
+PI0_TRUNK = dict(vocab_size=257152, hidden_size=2048, intermediate_size=16384, num_layers=18,
+                 num_heads=8, num_kv_heads=1, head_dim=256, rope_theta=1e4,
+                 tie_word_embeddings=True, qkv_bias=False, max_seq_len=1024, dtype="bfloat16")
+PI0_TOWER = dict(image_size=224, patch_size=14, hidden=1152, layers=27, heads=16)
+#: 8 ImageReach envs at 224 px in 50-step chunks, 2 chunk steps a rollout
+#: (16 samples), 1 epoch over 2 minibatches of 8, 2 runner steps
+PI0_RUN = dict(num_envs=8, chunk=50, max_episode_steps=100, num_chunk_steps=2, num_epochs=1,
+               num_mini_batches=2, steps=2, lr=1e-5)
+PI0_NOT_EXPRESSED = ("LLMConfig cannot express Gemma's GeGLU MLP, its sqrt(d) embedding "
+                     "scale or its (1 + w) RMSNorm, so the trunk is a SwiGLU decoder at "
+                     "Gemma-2B's widths; ViTConfig has one integer MLP ratio, so the tower's "
+                     "MLP is 4 x 1152 = 4608 wide where SigLIP-So400m's is 4304")
+#: the behaviour logprob of a flow chain step (the rollout's sample_sde)
+#: against the learner's recompute (chain_logprobs under the same params)
+#: on step 1's first minibatch, in nats per chain step (a chain step is one
+#: PPO ratio); the per-dim gap (over action_chunk x action_dim) is reported
+#: beside it. On the card the sound gap is the f32 rounding of a sum over
+#: 100 dims (2.1e-6 mean, 7.6e-6 max); a recompute whose suffix rope
+#: positions start at 0 reads 3.7e-3 and 1.3e-2, one whose trunk runs in
+#: f32 against the bf16 rollout 3.5e-5 and 1.9e-4 (planted by
+#: torch_offpolicy_onchip.py). The bar lies 48x and 131x above the sound
+#: reading and catches the first fault; a bar under the second would sit
+#: within a few f32 ulps of the sound reading's rounding
+FLOW_GAP_BAR = {"mean_abs": 1e-4, "max_abs": 1e-3}
+OFFPOLICY_WHY_ZERO = ("the off-policy and flow paths run no hand-written kernel: SAC, the "
+                      "flow MLP, NFT and the critics' heads are plain MLPs, and pi0's "
+                      "prefix (forward_hidden's default attn_impl='xla'), its expert, the "
+                      "GR00T DiT and the towers take the plain causal_attention, as the JAX "
+                      "package's take XLA")
+
+
+def snapshot_recorder(runner, put_version):
+    """Wrap ``runner``'s publish, its env loop and its queue: a flat copy
+    of every published tree by version, and for each chunk the version
+    stamp beside flat copies of the tree its rollout acted with, taken
+    before and after the env loop ran. Returns (published, used)."""
+    import threading
+
+    published, used, pending = {}, [], threading.local()
+    publish, interact = runner.published.publish, runner.loop.interact
+    leaves = lambda tree: torch.cat([t.flatten() for t in _tree_leaves(tree)])
+
+    def on_publish(params, version):
+        publish(params, version)
+        published[version] = leaves(runner.published.params)
+
+    def on_interact(params, *a, **kw):
+        before = leaves(params)
+        traj = interact(params, *a, **kw)
+        pending.trees = (before, leaves(params))
+        return traj
+
+    queue = runner._chunk_queue
+    put = queue.put
+
+    def on_put(item, *a, **kw):
+        used.append((put_version(item), *pending.trees))
+        return put(item, *a, **kw)
+
+    published[0] = leaves(runner.published.params)
+    runner.published.publish = on_publish
+    runner.loop.interact = on_interact
+    queue.put = on_put
+    return published, used
+
+
+def _tree_leaves(tree):
+    from rlinf_tpu_torch.training.train_state import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def snapshot_report(published, used) -> dict:
+    """Whether every chunk's tree equals, bitwise, before and after its env
+    loop, the one published at its stamp."""
+    if any(t.is_cuda for t in published.values()):
+        torch.cuda.synchronize()    # the rollout thread's last copies
+    bad = [v for v, before, after in used
+           if not (torch.equal(before, published[v]) and torch.equal(after, published[v]))]
+    return {"chunks_checked": len(used), "versions_seen": len({v for v, _, _ in used}),
+            "published": len(published), "chunks_off_snapshot": len(bad), "ok": not bad}
+
+
+def sac_part(kerns, seed, record_snapshots: bool = True) -> tuple:
+    """(a): main_sac_async's runner at sac_tpu_proof.py's settings, the
+    rollout thread's snapshots checked (unless ``record_snapshots`` is off:
+    the recorder's copies run in the rollout thread)."""
+    from rlinf_tpu_torch import main_sac_async
+    from rlinf_tpu_torch.envs.toy import BanditEnv
+    from rlinf_tpu_torch.runners import async_embodied_runner as AR
+    from rlinf_tpu_torch.training.sac_learner import SACConfig
+
+    run = SAC_PROOF
+    record = {}
+    made = AR.AsyncEmbodiedRunner.__init__
+
+    def init(self, *a, **kw):       # record the snapshots of the runner main makes
+        made(self, *a, **kw)
+        record["snap"] = snapshot_recorder(self, lambda chunk: int(chunk["versions"][0]))
+
+    if record_snapshots:
+        AR.AsyncEmbodiedRunner.__init__ = init
+    try:
+        res, secs, counts = run_counted(kerns, lambda: main_sac_async.main(
+            "cuda", env="bandit", num_envs=run["num_envs"], steps=run["steps"], log_dir=None,
+            runner_cfg=AR.AsyncRunnerConfig(seed=seed, **run["runner"]),
+            sac=SACConfig(gamma=0.0, learn_alpha=True),
+            policy_kw=dict(hidden_sizes=run["hidden"])))
+    finally:
+        AR.AsyncEmbodiedRunner.__init__ = made
+    runner = res["runner"]
+    env = BanditEnv(num_envs=256, seed=123)
+    obs = env.reset()
+    with torch.no_grad():
+        out = runner.policy.predict_action_batch(
+            runner.state.params, torch.Generator().manual_seed(0),
+            {k: torch.as_tensor(v, device="cuda") for k, v in obs.items()}, deterministic=True)
+    reward = float(np.mean(env.step(out.actions.cpu().numpy()).reward))
+    snap = snapshot_report(*record["snap"]) if record_snapshots else None
+    part = {"entry": "rlinf_tpu_torch.main_sac_async.main", "env": "bandit", **run,
+            "seconds": secs, "learner_steps": runner.global_step,
+            "learner_steps_per_s": runner.global_step / secs,
+            "syncs": runner.param_version, "chunks_produced": runner._chunks_produced,
+            "buffer_transitions": runner.buffer.total_transitions,
+            "final_metrics": res["metrics"], "eval_mean_reward": reward,
+            "runner_eval": res["eval"], "snapshots": snap, "launches": counts}
+    bad = [f"{k} not finite" for k, v in res["metrics"].items() if not np.isfinite(v)]
+    if not reward > run["bar"]:
+        bad.append(f"eval mean reward {reward} not above {run['bar']}")
+    if record_snapshots and not (snap["ok"] and snap["chunks_checked"]
+                                 and snap["versions_seen"] >= 2):
+        bad.append(f"snapshots {snap}")
+    return part, bad
+
+
+def async_ppo_part(kerns, seed) -> tuple:
+    """(b): AsyncPPORunner on point-reach at the test's settings."""
+    from rlinf_tpu_torch.envs.toy import PointReachEnv
+    from rlinf_tpu_torch.models.embodiment import MLPGaussianPolicy
+    from rlinf_tpu_torch.runners.async_ppo_runner import AsyncPPOConfig, AsyncPPORunner
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig
+
+    run = ASYNC_PPO
+    runner = AsyncPPORunner(
+        AsyncPPOConfig(total_train_steps=run["steps"], seed=seed, **run["cfg"]),
+        envs=[PointReachEnv(num_envs=run["num_envs"], seed=seed,
+                            max_episode_steps=run["max_episode_steps"])],
+        policy=MLPGaussianPolicy(obs_dim=4, action_dim=2, init_logstd=-0.5),
+        optimizer=OptimizerConfig(lr=3e-3, clip_grad=1.0), device="cuda")
+    snap = snapshot_recorder(runner, lambda item: item[1])
+    hist, secs, counts = run_counted(kerns, runner.run)
+    succ = [h.get("env/success_once", 0.0) for h in hist]
+    lags = [h["async/version_lag"] for h in hist]
+    first, last = float(np.mean(succ[:5])), float(np.mean(succ[-5:]))
+    part = {"entry": "rlinf_tpu_torch.runners.async_ppo_runner.AsyncPPORunner", **run,
+            "seconds": secs, "steps_per_s": len(hist) / secs, "success_first5": first,
+            "success_last5": last, "version_lag_min_after_1": min(lags[1:]),
+            "version_lag_max": max(lags), "snapshots": snapshot_report(*snap),
+            "launches": counts}
+    bad = finite_steps(hist)
+    if not last > max(2 * first, 0.3):
+        bad.append(f"success {first} -> {last}")
+    if not min(lags[1:]) >= 1:
+        bad.append(f"version lags {lags}")
+    if not part["snapshots"]["ok"]:
+        bad.append(f"snapshots {part['snapshots']}")
+    return part, bad
+
+
+def flow_sde_part(kerns, seed) -> tuple:
+    """(c): flow-SDE PPO through EmbodiedRunner at the proof's settings."""
+    from rlinf_tpu_torch.envs.toy import PointReachEnv
+    from rlinf_tpu_torch.models.embodiment.flow_policy import FlowMatchingPolicy
+    from rlinf_tpu_torch.runners.embodied_runner import EmbodiedRunner, EmbodiedRunnerConfig
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig
+
+    run = FLOW_SDE_PROOF
+    runner = EmbodiedRunner(
+        EmbodiedRunnerConfig(max_steps=run["steps"], seed=seed, **run["run"]),
+        [PointReachEnv(num_envs=run["num_envs"], seed=seed, **run["env"])],
+        FlowMatchingPolicy(obs_dim=4, action_dim=2, hidden_sizes=run["hidden"],
+                           num_flow_steps=run["num_flow_steps"],
+                           sde_noise_scale=run["sde_noise_scale"]),
+        optimizer=OptimizerConfig(lr=3e-3, clip_grad=1.0), device="cuda")
+    hist, secs, counts = run_counted(kerns, runner.run)
+    succ = [h.get("env/success_once", 0.0) for h in hist]
+    k = max(5, len(succ) // 10)
+    first, last = float(np.mean(succ[:k])), float(np.mean(succ[-k:]))
+    part = {"entry": "rlinf_tpu_torch.runners.embodied_runner.EmbodiedRunner",
+            "policy": "FlowMatchingPolicy", **run, "seconds": secs,
+            "step_s": [h["time/step"] for h in hist], "success_first": first,
+            "success_last": last, "launches": counts}
+    bad = finite_steps(hist, EMBODIED_METRICS)
+    if not last > first + 0.1:
+        bad.append(f"success {first} -> {last}")
+    return part, bad
+
+
+def nft_gr00t_part(kerns, seed) -> tuple:
+    """(d): one NFT step on a flow policy's own chains, then one GR00T
+    rollout and train step through EmbodiedRunner, at test scale."""
+    from rlinf_tpu_torch.envs.toy import ImageReachEnv
+    from rlinf_tpu_torch.envs.wrappers import ActionChunkWrapper
+    from rlinf_tpu_torch.models.embodiment.flow_policy import FlowMatchingPolicy
+    from rlinf_tpu_torch.models.embodiment.gr00t import GR00TConfig, GR00TPolicy
+    from rlinf_tpu_torch.runners.embodied_runner import EmbodiedRunner, EmbodiedRunnerConfig
+    from rlinf_tpu_torch.training import nft_learner as N
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig, make_optimizer
+
+    def nft():
+        policy = FlowMatchingPolicy(obs_dim=2, action_dim=2, hidden_sizes=(64, 64),
+                                    num_flow_steps=8, sde_noise_scale=0.7)
+        tx = make_optimizer(OptimizerConfig(lr=1e-3, clip_grad=0.0))
+        gen = torch.Generator().manual_seed(seed)
+        state = N.init_nft_state(policy, gen, tx, device="cuda")
+        params0 = clone_tree(state.params)
+        obs = torch.rand((256, 2), generator=gen).cuda() * 2 - 1
+        with torch.no_grad():
+            acts = policy.sample_sde(state.params, gen, {"states": obs}).actions
+        adv = ((acts - obs).square().sum(-1) < (acts + obs).square().sum(-1)).float()
+        state = N.soft_update_rollout(state, N.nft_tau_at(N.NFTConfig(), 0))
+        state, m = N.make_nft_train_step(policy, N.NFTConfig(), tx, device="cuda")(
+            state, {"obs/states": obs, "actions": acts, "advantages": adv,
+                    "loss_mask": torch.ones(256, device="cuda")}, gen)
+        return {k: float(v) for k, v in m.items()}, moved_share(state.params, params0)
+
+    (nft_m, nft_moved), nft_s, nft_counts = run_counted(kerns, nft)
+    cfg = GR00TConfig(action_dim=2, action_chunk=2, state_dim=4)
+    runner = EmbodiedRunner(
+        EmbodiedRunnerConfig(num_chunk_steps=4, num_epochs=1, num_mini_batches=2, max_steps=1,
+                             seed=seed),
+        [ActionChunkWrapper(ImageReachEnv(16, seed=seed, size=32), cfg.action_chunk)],
+        GR00TPolicy(cfg), optimizer=OptimizerConfig(lr=1e-3, clip_grad=1.0), device="cuda")
+    params0 = clone_tree(runner.state.params)
+    hist, gr_s, gr_counts = run_counted(kerns, runner.run)
+    part = {"nft": {"seconds": nft_s, "metrics": nft_m, "params_moved_share": nft_moved,
+                    "launches": nft_counts},
+            "gr00t": {"seconds": gr_s, "steps": embodied_steps(hist),
+                      "params_moved_share": moved_share(runner.state.params, params0),
+                      "launches": gr_counts},
+            "launches": {k: nft_counts[k] + gr_counts[k] for k in kerns}}
+    bad = [f"nft {k} not finite" for k, v in nft_m.items() if not np.isfinite(v)]
+    bad += [f"gr00t {b}" for b in finite_steps(hist, EMBODIED_METRICS)]
+    if not (nft_moved > 0 and part["gr00t"]["params_moved_share"] > 0 and len(hist) == 1):
+        bad.append(f"nft moved {nft_moved}, gr00t {part['gr00t']}")
+    return part, bad
+
+
+def chain_gap(policy, params, mb) -> dict:
+    """|behaviour - recompute| chain logprob of minibatch ``mb``: the
+    rollout's ``old_logprobs`` against ``policy.default_forward`` under
+    ``params``, in nats a chain step (a chain step is one PPO ratio) and
+    per action dim."""
+    with torch.no_grad():
+        obs = {k[len("obs/"):]: v for k, v in mb.items() if k.startswith("obs/")}
+        lp = policy.default_forward(params, obs, mb["actions"])["logprobs"]
+    d = (lp - mb["old_logprobs"]).abs()
+    dims = policy.cfg.action_chunk * policy.cfg.action_dim
+    return {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+            "mean_abs_per_step": [float(x) for x in d.mean(0)],
+            "mean_abs_per_dim": float(d.mean()) / dims, "max_abs_per_dim": float(d.max()) / dims,
+            "chain_steps": int(d.shape[1]), "rows": int(d.shape[0])}
+
+
+def pi0_part(kerns, seed) -> tuple:
+    """(e): EmbodiedRunner with Pi0Policy at the full geometry on ImageReach
+    at 224 px in 50-step chunks; the step-1 chain-logprob gap."""
+    from rlinf_tpu_torch.envs.toy import ImageReachEnv
+    from rlinf_tpu_torch.envs.wrappers import ActionChunkWrapper
+    from rlinf_tpu_torch.models.embodiment.openpi import Pi0Config, Pi0Policy
+    from rlinf_tpu_torch.models.embodiment.vit import ViTConfig
+    from rlinf_tpu_torch.models.llm.config import LLMConfig
+    from rlinf_tpu_torch.runners.embodied_runner import EmbodiedRunner, EmbodiedRunnerConfig
+    from rlinf_tpu_torch.training.train_state import OptimizerConfig
+    from rlinf_tpu_torch.utils.checkpoint import flatten
+
+    run = PI0_RUN
+    cfg = dataclasses.replace(Pi0Config.pi0_full(), action_dim=2, state_dim=4)
+    policy = Pi0Policy(cfg, vlm_cfg=LLMConfig(**PI0_TRUNK), vit_cfg=ViTConfig(**PI0_TOWER),
+                       remat=True)
+    env = ActionChunkWrapper(ImageReachEnv(run["num_envs"], seed=seed, size=224,
+                                           max_episode_steps=run["max_episode_steps"]),
+                             run["chunk"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = EmbodiedRunner(
+        EmbodiedRunnerConfig(num_chunk_steps=run["num_chunk_steps"], num_epochs=run["num_epochs"],
+                             num_mini_batches=run["num_mini_batches"], max_steps=run["steps"],
+                             seed=seed),
+        [env], policy, optimizer=OptimizerConfig(name="adafactor", lr=run["lr"], clip_grad=0.0),
+        init_generator=torch.Generator("cuda").manual_seed(seed), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    sizes = {k: sum(v.numel() for v in flatten(runner.state.params[k]).values())
+             for k in runner.state.params}
+    params0 = clone_tree(runner.state.params)
+    record, step = {}, runner.train_step
+
+    def watched(state, mb):
+        # before the first update: the learner's recompute of the rollout's chains
+        if "gap" not in record:
+            record["gap"] = {**chain_gap(policy, state.params, mb), "bar": FLOW_GAP_BAR}
+            record["off_card"] = [k for k, v in mb.items() if v.device.type != "cuda"]
+        return step(state, mb)
+
+    runner.train_step = watched
+    hist, secs, counts = run_counted(kerns, runner.run)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    part = {"entry": "rlinf_tpu_torch.runners.embodied_runner.EmbodiedRunner",
+            "policy": "Pi0Policy", "env": "ActionChunkWrapper(ImageReachEnv(size=224), 50)",
+            "trunk": PI0_TRUNK, "tower": PI0_TOWER, "expert": dataclasses.asdict(cfg),
+            "remat": True, "optimizer": "adafactor, clip_grad 0",
+            "init_generator": "torch.Generator('cuda')", **run,
+            "params": sum(sizes.values()), "params_by_part": sizes,
+            "runner_init_card_generator_s": init_s,
+            "seconds": secs, "rollout_s": [h["time/rollout"] for h in hist],
+            "training_s": [h["time/training"] for h in hist],
+            "step_s": [h["time/step"] for h in hist], "steps": embodied_steps(hist),
+            "logprob_gap_step1": record["gap"],
+            "params_moved_share": moved_share(runner.state.params, params0),
+            "max_memory_allocated_gib": peak_gib, "launches": counts,
+            "not_expressed": PI0_NOT_EXPRESSED}
+    bad = finite_steps(hist, EMBODIED_METRICS) + record["off_card"]
+    bad += [f"state {k} off the card" for k in off_card(runner.state)]
+    if len(hist) != run["steps"] or not part["params_moved_share"] > 0:
+        bad.append(f"{len(hist)} steps, params moved {part['params_moved_share']}")
+    bad += [f"chain gap {k} {record['gap'][k]} over {b}" for k, b in FLOW_GAP_BAR.items()
+            if not record["gap"][k] < b]
+    del runner, params0
+    return part, bad
+
+
+def offpolicy_flow_phase(kerns, gpu, seed) -> dict:
+    """Phase 29 (see the module docstring). Returns the launches of its runs
+    (all 0: these paths take the plain versions, as the JAX package's take
+    XLA)."""
+    t_phase = time.perf_counter()
+    out = {"phase": "offpolicy_flow", "gpu": gpu, "launches_why_zero": OFFPOLICY_WHY_ZERO}
+    bad, total = [], {name: 0 for name in kerns}
+    for label, part_fn in (("a_async_sac", sac_part), ("b_async_ppo", async_ppo_part),
+                           ("c_flow_sde_ppo", flow_sde_part), ("d_nft_gr00t", nft_gr00t_part),
+                           ("e_pi0_full", pi0_part)):
+        t0 = time.perf_counter()
+        res, part_bad = part_fn(kerns, seed)
+        res["seconds_part"] = time.perf_counter() - t0
+        out[label] = res
+        bad += [f"({label[0]}) {b}" for b in part_bad]
+        counts = res["launches"]
+        for k, c in counts.items():
+            total[k] += c
+        bad += [f"({label[0]}) {k} launched {c}" for k, c in counts.items() if c]
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = total
+    out["seconds_phase"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"off-policy and flow phase failed: {bad}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6591,6 +7011,11 @@ def main() -> int:
     # 28. the embodied PPO stack: main_embodied_ppo, the CNN and OFT-style
     # VLA policies, and OpenVLA at full width
     for k, c in embodied_phase(kerns, gpu, args.seed).items():
+        launches[k] += c
+
+    # 29. the off-policy path (async SAC and PPO) and the flow families
+    # (flow-SDE PPO, NFT, GR00T, pi0 at full width)
+    for k, c in offpolicy_flow_phase(kerns, gpu, args.seed).items():
         launches[k] += c
 
     results += new_results

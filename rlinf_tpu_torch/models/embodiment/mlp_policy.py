@@ -32,7 +32,8 @@ def _mlp_init(generator: torch.Generator, sizes: Sequence[int],
         scale = 1.0 / math.sqrt(fan_in)
         if i == len(sizes) - 2 and scale_last is not None:
             scale = scale * scale_last
-        w = torch.empty((fan_in, fan_out)).uniform_(-1.0, 1.0, generator=generator) * scale
+        w = torch.empty((fan_in, fan_out), device=generator.device).uniform_(
+            -1.0, 1.0, generator=generator) * scale
         params.append({"w": w.to(device), "b": torch.zeros((fan_out,), device=device)})
     return params
 

@@ -33,7 +33,8 @@ from rlinf_tpu_torch.utils.device import resolve_device
 
 def _linear_init(generator, fan_in, fan_out, scale=None, device="cuda"):
     scale = scale or (1.0 / math.sqrt(fan_in))
-    w = torch.empty((fan_in, fan_out)).uniform_(-scale, scale, generator=generator)
+    w = torch.empty((fan_in, fan_out), device=generator.device).uniform_(
+        -scale, scale, generator=generator)
     return {"w": w.to(device), "b": torch.zeros((fan_out,), device=device)}
 
 
@@ -78,7 +79,8 @@ def init_vit(cfg: ViTConfig, generator: torch.Generator, device="cuda") -> Dict:
     Fd = D * cfg.mlp_ratio
 
     def normal(*shape):
-        return (torch.randn(shape, generator=generator) * 0.02).to(device)
+        return (torch.randn(shape, generator=generator, device=generator.device)
+                * 0.02).to(device)
 
     def ones(*shape):
         return torch.ones(shape, device=device)

@@ -23,6 +23,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from rlinf_tpu_torch.models.llm.config import LLMConfig
+from rlinf_tpu_torch.models.llm.model import head_form
 from rlinf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -117,12 +118,10 @@ def merge_lora(base_params: Params, lora_params: Params, lora_cfg: LoRAConfig,
         ab = lora_params["lm_head"]
         w = base_params.get("lm_head")
         if w is None:
-            if layout is not None:
-                raise NotImplementedError(
-                    "a LoRA lm_head target on tied embeddings under a mesh: the merged "
-                    "head would have no layout of its own; untie the head or drop the target")
-            w = base_params["embed"].T  # tied embeddings
-        a, b = cut(ab, layout.specs["lm_head"] if layout else (), 0)
+            # tied embeddings: under a mesh this rank's block of embed.T is
+            # its block of the head (``model.head_form``)
+            w = base_params["embed"].T
+        a, b = cut(ab, head_form(layout)[0] if layout else (), 0)
         delta = (a.float() @ b.float()) * lora_cfg.scaling
         merged["lm_head"] = (w.float() + delta).to(w.dtype)
     return merged

@@ -76,7 +76,13 @@ from rlinf_tpu_torch.ops.norm import rms_norm
 from rlinf_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from rlinf_tpu_torch.parallel import collectives as C
 from rlinf_tpu_torch.parallel.mesh import AxisNames as Ax, current_mesh, use_mesh
-from rlinf_tpu_torch.parallel.sharding import P, Layout, context_chunk, sharded_axes
+from rlinf_tpu_torch.parallel.sharding import (
+    P,
+    Layout,
+    PartitionSpec,
+    context_chunk,
+    sharded_axes,
+)
 from rlinf_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, object]
@@ -166,16 +172,34 @@ def param_layout(cfg: LLMConfig, mesh) -> Layout:
     return Layout.from_rules(mesh, partition_rules(), init_params(cfg, 0, device="meta"))
 
 
+def head_form(layout: Layout) -> Tuple[PartitionSpec, tuple]:
+    """(spec, local shape) of the lm head [D, V] in ``layout``. A tied
+    model's layout has no "lm_head" leaf; the head a LoRA target merges
+    into it (``lora.merge_lora``) takes the embedding's [V, D] spec and
+    block shape reversed: this rank's block of ``embed.T`` is its block of
+    the head under ``P(fsdp, tensor)`` (``partition_rules``)."""
+    if "lm_head" in layout.specs:
+        return layout.specs["lm_head"], layout.local_shapes["lm_head"]
+    spec = tuple(layout.specs["embed"])
+    spec += (None,) * (2 - len(spec))
+    return P(*spec[::-1]), tuple(layout.local_shapes["embed"][::-1])
+
+
 def _split_dims(cfg: LLMConfig, mesh, path: str, w, axis: str, lead: int = 0):
     """The dims of ``w`` that ``axis`` splits, where ``w`` is this rank's
     block of the leaf at ``path`` with its first ``lead`` dims taken off
     (a layer of a stacked leaf: ``lead=1``); none where ``w`` is not that
     block (a leaf already gathered, a quantized weight)."""
     lay = param_layout(cfg, mesh)
-    if not torch.is_tensor(w) or path not in lay.specs or \
-            tuple(w.shape) != lay.local_shapes[path][lead:]:
+    if path == "lm_head":
+        spec, local = head_form(lay)
+    elif path in lay.specs:
+        spec, local = lay.specs[path], lay.local_shapes[path]
+    else:
         return ()
-    return tuple(d - lead for d, a in enumerate(lay.specs[path])
+    if not torch.is_tensor(w) or tuple(w.shape) != local[lead:]:
+        return ()
+    return tuple(d - lead for d, a in enumerate(spec)
                  if a is not None and axis in sharded_axes((a,)) and d >= lead)
 
 
@@ -327,9 +351,12 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def init_params(cfg: LLMConfig, seed: int, device="cuda") -> Params:
+def init_params(cfg: LLMConfig, seed: int, device="cuda",
+                generator: Optional[torch.Generator] = None) -> Params:
     """Random init matching the HF Qwen2 scheme (normal(0.02), ones norms),
-    drawn with numpy from ``seed`` so that it does not depend on the device.
+    drawn with numpy from ``seed`` so that it does not depend on the device;
+    with ``generator`` drawn from it on its device instead (``seed``
+    unused), which at billions of params saves the host's draws.
     An MoE config draws the router and expert stacks (``moe_router`` [L, D,
     E], ``moe_gate``/``moe_up`` [L, E, D, F], ``moe_down`` [L, E, F, D]) where
     a dense one draws ``gate``/``up``/``down``."""
@@ -342,7 +369,10 @@ def init_params(cfg: LLMConfig, seed: int, device="cuda") -> Params:
     def normal(shape):
         if device.type == "meta":       # shapes only (the sharding layout)
             return torch.empty(shape, dtype=dt, device=device)
-        a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+        if generator is not None:
+            a = torch.randn(shape, generator=generator, device=generator.device)
+        else:
+            a = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
         return a.to(device=device).to(dt) * 0.02
 
     def ones(shape):

@@ -9,10 +9,13 @@ checkpoints with auto-resume. Weight sync between learner and rollout is
 the params argument.
 
 The params come from ``policy.init`` drawing on a CPU ``torch.Generator``
-seeded with ``seed``; the rollout's sampling, the minibatch permutations
-and the eval draw from a second one seeded with ``seed + 1`` (the JAX
-package splits one threefry key for all of these). Like the JAX runner's
-key it is not checkpointed, so a resumed run samples anew from that seed.
+seeded with ``seed``, or on ``init_generator`` where one is given (a
+generator on the card draws billions of params in milliseconds where the
+host takes seconds a billion); the rollout's sampling, the minibatch
+permutations and the eval draw from a second one seeded with ``seed + 1``
+(the JAX package splits one threefry key for all of these). Like the JAX
+runner's key it is not checkpointed, so a resumed run samples anew from
+that seed.
 The run is on the card unless ``device`` says otherwise.
 """
 
@@ -78,6 +81,7 @@ class EmbodiedRunner:
         eval_envs: Optional[List[VectorEnv]] = None,
         teacher: Optional[tuple] = None,   # (teacher_policy, teacher_params)
         opd_coef: float = 0.0,             # >0 adds OPD distillation term
+        init_generator: Optional[torch.Generator] = None,
         device="cuda",
     ):
         self.cfg = cfg
@@ -92,7 +96,8 @@ class EmbodiedRunner:
         self.opd_coef = opd_coef
         self.tx = make_optimizer(optimizer)
         self._generator = torch.Generator().manual_seed(cfg.seed + 1)
-        init_generator = torch.Generator().manual_seed(cfg.seed)
+        if init_generator is None:
+            init_generator = torch.Generator().manual_seed(cfg.seed)
         self.state = create_train_state(
             lambda: policy.init(init_generator, device=self.device), self.tx)
         self.train_step = make_embodied_train_step(policy, loss_cfg, self.tx,

@@ -84,7 +84,8 @@ def make_lora_policy_train_step(
         if "lm_head" in grads:
             targets.append((grads["lm_head"], "lm_head"))
         for ab, path in targets:
-            tp = (Ax.TENSOR,) if Ax.TENSOR in sharded_axes(ms.layout.specs[path]) else ()
+            spec = M.head_form(ms.layout)[0] if path == "lm_head" else ms.layout.specs[path]
+            tp = (Ax.TENSOR,) if Ax.TENSOR in sharded_axes(spec) else ()
             group = mesh.get_group(batch_axes + tp)
             for g in ab.values():
                 C.all_reduce_(g, "sum", group)

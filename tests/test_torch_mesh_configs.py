@@ -73,6 +73,9 @@ N_NEW = 7
 SFT_OV = ["runner.log_dir=null", "runner.rollout_batch_size=4", "optimizer.warmup_steps=0",
           "optimizer.lr=1e-3", "optimizer.eps=1e-3"]
 LORA_OV = RUNNER_OV + ["lora.enabled=true", "lora.rank=4"]
+#: LoRA with the lm head among the targets, on the yaml's tied model: the
+#: merged head is this rank's block of embed.T under lm_head's spec
+LORA_HEAD_OV = LORA_OV + ["lora.targets=[wq,wk,wv,wo,gate,up,down,lm_head]"]
 BUDGET_OV = [o for o in RUNNER_OV if not o.startswith("loss.max_tokens_per_mb")] + [
     "loss.max_tokens_per_mb=160"]
 CRITIC_OV = RUNNER_OV + ["algorithm.adv_type=gae", "algorithm.critic=separate"]
@@ -119,6 +122,8 @@ def setup():
     jcfg, tcfg = _tiny()
     rcfg = jconfig.load_config(YAML, RUNNER_OV)
     lcfg = jconfig.load_config(YAML, LORA_OV)
+    hcfg = jconfig.load_config(YAML, LORA_HEAD_OV)
+    assert hcfg.model.tie_word_embeddings
     fj, ft = _factored()
     moe = {impl: _moe(impl) for impl in ("capacity", "dropless")}
     return dict(
@@ -127,6 +132,7 @@ def setup():
         sparams=_np_tree(JM.init_params(jconfig.load_config(YAML, SFT_OV).model,
                                         jax.random.PRNGKey(4))),
         adapters=_adapters(lcfg.model, lcfg.lora, 5),
+        head_adapters=_adapters(hcfg.model, hcfg.lora, 8),
         critic=_np_tree(JV.add_value_head(JM.init_params(rcfg.model, jax.random.PRNGKey(6)),
                                           rcfg.model, jax.random.PRNGKey(7))),
         factored=(fj, ft, _np_tree(JM.init_params(fj, jax.random.PRNGKey(2)))),
@@ -155,6 +161,9 @@ def world(setup, tmp_path_factory):
     add("lora", "runner_steps", mesh_cfg=FSDP_TP, yaml=YAML, overrides=LORA_OV,
         params=s["rparams"], rollouts=s["rollouts"], perm=PERM, reward="odd_rule_reward",
         adapters=s["adapters"])
+    add("lora_head", "runner_steps", mesh_cfg=FSDP_TP, yaml=YAML, overrides=LORA_HEAD_OV,
+        params=s["rparams"], rollouts=s["rollouts"][:1], perm=PERM, reward="odd_rule_reward",
+        adapters=s["head_adapters"])
     add("budget", "runner_steps", mesh_cfg=FSDP_TP, yaml=YAML, overrides=BUDGET_OV,
         params=s["rparams"], rollouts=s["rollouts"], perm=PERM, reward="odd_rule_reward")
     add("adafactor", "train_steps", mesh_cfg=FSDP_TP, cfg=ft, params=fparams,
@@ -263,6 +272,8 @@ def jax_side(setup, world, devices):
         "sft": _jax_sft(s),
         "engines": {(e, m): _jax_engine(s, e, m) for e, m in ENGINE_CASES},
         "lora": _jax_runner(s, LORA_OV, FSDP_TP, s["rollouts"], adapters=s["adapters"]),
+        "lora_head": _jax_runner(s, LORA_HEAD_OV, FSDP_TP, s["rollouts"][:1],
+                                 adapters=s["head_adapters"]),
         "budget": _jax_runner(s, BUDGET_OV, FSDP_TP, s["rollouts"]),
         "adafactor": _jax_train(fj, fparams, s["batches"], FSDP_TP, 4,
                                 dict(name="adafactor", **OPT)),
@@ -329,13 +340,15 @@ def test_slot_pool_engine_on_a_mesh_matches_jax(jax_side, world, engine, mesh):
         np.testing.assert_allclose(got["lps"], np.asarray(jres.response_logprobs), atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["lora", "budget"])
+@pytest.mark.parametrize("name", ["lora", "lora_head", "budget"])
 def test_lora_and_token_budget_runner_on_the_mesh_match_jax(jax_side, world, name):
-    """Two ``_train_on_result`` calls of ``ReasoningRunner(mesh=)`` at
-    fsdp=2 x tensor=2, with LoRA (base params sharded, the JAX runner's
-    adapters whole on every rank, merged per rank on its blocks) and with
-    the token budget (``max_tokens_per_mb=160``: microbatches of any number
-    of rows, padded to the batch axes): every ``actor/*`` metric within
+    """Two ``_train_on_result`` calls (one for ``lora_head``) of
+    ``ReasoningRunner(mesh=)`` at fsdp=2 x tensor=2, with LoRA (base params
+    sharded, the JAX runner's adapters whole on every rank, merged per rank
+    on its blocks), with LoRA on the tied model's lm head too
+    (``lora_head``: the head merged on this rank's block of embed.T) and
+    with the token budget (``max_tokens_per_mb=160``: microbatches of any
+    number of rows, padded to the batch axes): every ``actor/*`` metric within
     1e-4 relative (1e-6 absolute), the trained tree within 1e-5, bitwise
     equal losses on every rank."""
     jms, jparams, _ = jax_side[name]
